@@ -1,0 +1,89 @@
+"""Build and load the port's hand-written GPU kernels.
+
+CUDA C++ sources under ``midi_emotion_tpu_torch/csrc/`` are compiled with
+``nvcc`` for ``sm_90a`` into shared libraries with a plain C interface and
+loaded with ctypes. Triton kernels compile at their first launch; their
+cache is pointed into the same build directory. Everything lands in
+``build/`` at the repository root, which git ignores, so a fresh checkout
+builds from its sources at first use.
+
+Nothing here runs at import time: this module is imported on machines with
+no CUDA toolkit and no triton, and only the functions that launch a kernel
+call into it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, into the build log
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels build "
+        "from source at first use and need the CUDA toolkit"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: the file name carries a hash of
+    the source and the flags, so an edited source never loads a stale
+    build."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def cuda_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its build is missing, then load it.
+
+    The compiler's report (``-Xptxas -v``) is kept beside the library as
+    ``<library>.log``. Raises RuntimeError when the build fails."""
+    out = library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return ctypes.CDLL(str(out))
+
+
+def import_triton():
+    """Import triton with its home and compile cache inside the build
+    directory."""
+    os.environ.setdefault("TRITON_HOME", str(BUILD_DIR.parent))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR.parent / "triton"))
+    import triton  # noqa: PLC0415 -- absent on CPU-only machines
+
+    return triton
