@@ -6,25 +6,37 @@
 Phases, each fatal on failure:
   1. refuse to start without CUDA; print the card's name and power limit;
   2. build the hand-written kernels from the sources in this checkout
-     (the CUDA flash attention with nvcc into build/kernels/, the Triton
-     LayerNorm at its first launch);
+     (the CUDA flash attention forward and backward with nvcc into
+     build/kernels/, one nvcc per source, started together; the Triton
+     LayerNorm and dropout kernels at their first launch);
   3. compare each kernel with its plain PyTorch twin on the card, at the
-     flagship shapes, and time both;
+     flagship shapes, in f32 and bf16, and time both and, where one PyTorch
+     call computes the same function, that call; then one small f32 train
+     step through the kernels against the same step on the CPU (twins);
   4. write a random-init flagship model (continuous_concat, 20 layers,
      d_model 768, 16 heads of 48, seeded torch.Generator) as a
      reference-format work dir and check its forward pass on the card
      (kernels) against the CPU (plain twins) on a small input;
-  5. run the port's generation CLI on it (bf16, batch 4, 1400 tokens,
-     window 1216, so the window refreshes at T = 1216) with every kernel
-     launch counter reset to 0 just before; check the MIDI files, the
-     sampled ids and that every kernel was launched;
-  6. time generation alone, at the smoke's shape and at the headline
-     shape (batch 64, 1024 tokens, window 1216, top-p 0.7).
+  5. training: write a synthetic dataset with the port's save_song_shard
+     and run the port's training CLI at the flagship width (B 8, T 1216,
+     bf16, dropout 0.1): a few steps, a checkpoint, a resume; then a short
+     --dropout 0 run at 4 layers (its LayerNorms run kernels 2 and 3); time
+     train tokens/sec over 5 steps after 2 warm-up steps and profile two;
+  6. run the port's generation CLI on the trained work dir (bf16, batch 4,
+     1400 tokens, window 1216, so the window refreshes at T = 1216) and
+     check the MIDI files and the sampled ids;
+  7. time generation alone, at the smoke's shape and at the headline shape
+     (batch 64, 1024 tokens, window 1216, top-p 0.7).
+Each path (the dropout-0.1 training run with its resume, the dropout-0
+run, the generation CLI) runs with every kernel launch counter set to 0
+just before it and read just after; the script fails if a kernel of that
+path was never launched.
 
-The second-to-last line is a JSON object with each kernel's launch count,
-error and times; the last line is {"ok": true, "device": {...}}.
+The second-to-last line is a JSON object with each kernel's launches,
+error, times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
+import csv
 import json
 import os
 import re
@@ -39,6 +51,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = dict(vocab_size=1007, mode="continuous_concat", n_layer=20, n_head=16,
                 d_model=768, d_inner=3072, d_condition=192, max_seq=2048, dropout=0.1)
 SEED = 0
+TRAIN_B, TRAIN_T = 8, 1216
+# H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s;
+# dense bf16 tensor-core FLOP/s; f32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def fail(msg):
@@ -61,10 +78,79 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def check_flash(torch, B, H, T, dh, dtype, causal, tol_o, tol_lse, timed=False):
-    from midi_emotion_tpu_torch.ops.flash_attention import (
-        flash_rel_attention, flash_rel_attention_plain)
+def device_ms(torch, fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms: the summed durations of the CUDA
+    kernels it launched, by torch.profiler (CUPTI), over ``iters`` runs.
+    Unlike CUDA events around back-to-back launches, this leaves out the
+    gaps in which the card waits for the host to launch the next kernel."""
+    from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / iters
+
+
+def bound(n_bytes, n_flops, flops_type):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the peak rate for their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_FLOPS[flops_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "").replace("float32", "f32").replace("bfloat16", "bf16")
+
+
+def _rel_err(a, b):
+    """max |a - b| and the reference's max |b|, in f32."""
+    return (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+
+
+def _report(torch, out, timed, name, kernel_fn, plain_fn, library_fn=None, iters=20):
+    """With ``timed``, time the kernel, its plain twin and, where there is
+    one, the library call, into ``out``: device time (``device_ms``) for
+    the JSON line, and CUDA-event time per call printed beside it."""
+    if not timed:
+        return out
+    fns = {"ms": kernel_fn, "plain_ms": plain_fn, "library_ms": library_fn}
+    n = {"ms": iters, "plain_ms": max(2, iters // 10), "library_ms": iters}
+    events = {}
+    for key, fn in fns.items():
+        out[key] = None if fn is None else device_ms(torch, fn, iters=n[key])
+        events[key] = None if fn is None else time_ms(torch, fn, iters=n[key])
+    show = lambda key: "-" if out[key] is None else f"{out[key]:.4f} ({events[key]:.4f})"
+    print(f"{name}: device ms (event ms per call): kernel {show('ms')}, plain "
+          f"{show('plain_ms')}, library {show('library_ms')}; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its twin
+# ---------------------------------------------------------------------------
+
+
+def visible_pairs(torch, pad, H, causal):
+    """(query row, key) pairs the masks leave visible, over every head."""
+    live = (~pad).double()  # [B, T]
+    T = pad.shape[1]
+    if causal:  # key j is seen by rows j..T-1
+        rows = T - torch.arange(T, device=pad.device, dtype=torch.float64)
+        per_b = (live * rows).sum(-1)
+    else:
+        per_b = live.sum(-1) * T
+    return int(per_b.sum().item()) * H
+
+
+def _flash_inputs(torch, B, H, T, dh, dtype):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     q, k, v = (torch.randn((B, H, T, dh), generator=g, device="cuda").to(dtype)
                for _ in range(3))
@@ -73,6 +159,14 @@ def check_flash(torch, B, H, T, dh, dtype, causal, tol_o, tol_lse, timed=False):
     if B > 1:  # batch row 1: key 0 pad (row 0 sees no key) and a pad tail
         pad[1, 0] = True
         pad[1, T - T // 6:] = True
+    return q, k, v, e, pad
+
+
+def check_flash(torch, B, H, T, dh, dtype, causal, tol_o, tol_lse, timed=False):
+    from midi_emotion_tpu_torch.ops.flash_attention import (
+        flash_rel_attention, flash_rel_attention_plain)
+
+    q, k, v, e, pad = _flash_inputs(torch, B, H, T, dh, dtype)
     o, lse = flash_rel_attention(q, k, v, e, causal, pad)
     torch.cuda.synchronize()
     ro, rlse = flash_rel_attention_plain(q, k, v, e, causal, pad)
@@ -80,45 +174,379 @@ def check_flash(torch, B, H, T, dh, dtype, causal, tol_o, tol_lse, timed=False):
         fail(f"flash {dtype} B={B} T={T}: non-finite output")
     err_o = (o.float() - ro.float()).abs().max().item()
     err_lse = (lse - rlse).abs().max().item()
-    name = f"flash {str(dtype)[6:]} B={B} H={H} T={T} dh={dh} causal={causal}"
+    name = f"flash fwd {dtype_name(dtype)} B={B} H={H} T={T} dh={dh} causal={causal}"
     print(f"{name}: max|dO|={err_o:.3e} (tol {tol_o}) max|dlse|={err_lse:.3e} (tol {tol_lse})")
     if not (err_o <= tol_o and err_lse <= tol_lse):
         fail(f"{name}: kernel disagrees with its plain twin")
     if causal and B > 1 and not (o[1, :, 0].eq(0).all() and rlse[1, :, 0].eq(1e30).all()
                                  and lse[1, :, 0].eq(1e30).all()):
         fail(f"{name}: the fully masked row is not O = 0, lse = 1e30")
+    el = q.element_size()
+    n_bytes = 4 * q.numel() * el + e.numel() * el + pad.numel() + lse.numel() * 4
     out = {"max_abs_err": err_o}
-    if timed:
-        out["ms"] = time_ms(torch, lambda: flash_rel_attention(q, k, v, e, causal, pad))
-        out["plain_ms"] = time_ms(torch, lambda: flash_rel_attention_plain(q, k, v, e, causal, pad))
-        print(f"{name}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms")
-    return out
+    out["bound_ms"], out["bound_by"] = bound(
+        n_bytes, visible_pairs(torch, pad, H, causal) * 6 * dh, dtype_name(dtype))
+    return _report(torch, out, timed, name,
+                   lambda: flash_rel_attention(q, k, v, e, causal, pad),
+                   lambda: flash_rel_attention_plain(q, k, v, e, causal, pad))
+
+
+def check_flash_bwd(torch, B, H, T, dh, dtype, causal, tol, timed=False):
+    """dQ, dK, dV, dE against the twin, with a fully masked row and a pad
+    tail; each gradient within tol * (1 + its max |value|)."""
+    from midi_emotion_tpu_torch.ops.flash_attention import (
+        flash_rel_attention, flash_rel_attention_bwd, flash_rel_attention_bwd_plain)
+
+    q, k, v, e, pad = _flash_inputs(torch, B, H, T, dh, dtype)
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(dtype)
+    got = flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    torch.cuda.synchronize()
+    want = flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do)
+    name = f"flash bwd {dtype_name(dtype)} B={B} H={H} T={T} dh={dh} causal={causal}"
+    worst = 0.0
+    for grad, a, b in zip(("dQ", "dK", "dV", "dE"), got, want):
+        err, scale = _rel_err(a, b)
+        print(f"{name}: max|{grad} err|={err:.3e} (tol {tol * (1 + scale):.3e})")
+        if not (torch.isfinite(a).all() and err <= tol * (1 + scale)):
+            fail(f"{name}: {grad} disagrees with its plain twin")
+        worst = max(worst, err)
+    if causal and not got[0][1, :, 0].eq(0).all():
+        fail(f"{name}: the fully masked row has a nonzero dQ")
+    el = q.element_size()
+    n_bytes = (8 * q.numel() + 2 * e.numel()) * el + pad.numel() + lse.numel() * 4
+    out = {"max_abs_err": worst}
+    out["bound_ms"], out["bound_by"] = bound(
+        n_bytes, visible_pairs(torch, pad, H, causal) * 16 * dh, dtype_name(dtype))
+    return _report(torch, out, timed, name,
+                   lambda: flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do),
+                   lambda: flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do),
+                   iters=5)
+
+
+def _rows(torch, rows, D, dtype, n, seed=SEED):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [(torch.randn((rows, D), generator=g, device="cuda") * 3 + 1).to(dtype)
+          for _ in range(n)]
+    w = torch.randn((D,), generator=g, device="cuda")
+    b = torch.randn((D,), generator=g, device="cuda")
+    return xs, w, b
 
 
 def check_layernorm(torch, rows, D, dtype, tol, timed=False):
+    import torch.nn.functional as F
+
     from midi_emotion_tpu_torch.ops.layernorm import layernorm, layernorm_ref
 
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    x = (torch.randn((rows, D), generator=g, device="cuda") * 3 + 1).to(dtype)
-    w = torch.randn((D,), generator=g, device="cuda")
-    b = torch.randn((D,), generator=g, device="cuda")
+    (x,), w, b = _rows(torch, rows, D, dtype, 1)
     y = layernorm(x, w, b)
     torch.cuda.synchronize()
     ref = layernorm_ref(x, w, b)
     if y.dtype != dtype or not torch.isfinite(y).all():
         fail(f"layernorm {dtype}: wrong dtype or non-finite output")
-    err = (y.float() - ref.float()).abs().max().item()
-    bound = tol * (1 + ref.float().abs().max().item())
-    name = f"layernorm {str(dtype)[6:]} [{rows}, {D}]"
-    print(f"{name}: max|dy|={err:.3e} (tol {bound:.3e})")
-    if not err <= bound:
+    err, scale = _rel_err(y, ref)
+    name = f"ln fwd {dtype_name(dtype)} [{rows}, {D}]"
+    print(f"{name}: max|dy|={err:.3e} (tol {tol * (1 + scale):.3e})")
+    if not err <= tol * (1 + scale):
         fail(f"{name}: kernel disagrees with its plain twin")
     out = {"max_abs_err": err}
-    if timed:
-        out["ms"] = time_ms(torch, lambda: layernorm(x, w, b), iters=100)
-        out["plain_ms"] = time_ms(torch, lambda: layernorm_ref(x, w, b), iters=100)
-        print(f"{name}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms")
-    return out
+    out["bound_ms"], out["bound_by"] = bound(
+        2 * x.numel() * x.element_size() + 2 * D * 4, 8 * x.numel(), "f32")
+    w_lib, b_lib = w.to(dtype), b.to(dtype)  # F.layer_norm takes x's type
+    return _report(torch, out, timed, name, lambda: layernorm(x, w, b),
+                   lambda: layernorm_ref(x, w, b),
+                   lambda: F.layer_norm(x, (D,), w_lib, b_lib, 1e-6), iters=100)
+
+
+def check_layernorm_bwd(torch, rows, D, dtype, tol, timed=False):
+    """dx within tol * (1 + max|dx|); dgamma, dbeta (f32 sums over the
+    rows) within 1e-5 * (1 + their max)."""
+    import torch.nn.functional as F
+
+    from midi_emotion_tpu_torch.ops.layernorm import layernorm_bwd, layernorm_bwd_ref
+
+    (x, dy), w, _ = _rows(torch, rows, D, dtype, 2, seed=SEED + 2)
+    got = layernorm_bwd(x, dy, w)
+    torch.cuda.synchronize()
+    want = layernorm_bwd_ref(x, dy, w)
+    name = f"ln bwd {dtype_name(dtype)} [{rows}, {D}]"
+    worst = 0.0
+    for grad, a, r, t in zip(("dx", "dgamma", "dbeta"), got, want, (tol, 1e-5, 1e-5)):
+        err, scale = _rel_err(a, r)
+        print(f"{name}: max|{grad} err|={err:.3e} (tol {t * (1 + scale):.3e})")
+        if not err <= t * (1 + scale):
+            fail(f"{name}: {grad} disagrees with its plain twin")
+        worst = max(worst, err)
+    out = {"max_abs_err": worst}
+    out["bound_ms"], out["bound_by"] = bound(
+        3 * x.numel() * x.element_size() + 3 * D * 4, 12 * x.numel(), "f32")
+    xr = x.detach().clone().requires_grad_()
+    wr = w.to(dtype).requires_grad_()
+    br = torch.zeros_like(wr, requires_grad=True)
+
+    def library():  # one F.layer_norm forward and its autograd backward
+        torch.autograd.grad(F.layer_norm(xr, (D,), wr, br, 1e-6), (xr, wr, br), dy)
+
+    return _report(torch, out, timed, name, lambda: layernorm_bwd(x, dy, w),
+                   lambda: layernorm_bwd_ref(x, dy, w), library, iters=50)
+
+
+def check_dropout(torch, rows, D, dtype, rate, timed=False):
+    """Keep fraction within 6 binomial standard deviations of 1 - rate;
+    the backward's mask is the forward's; a fixed seed reproduces, a new
+    one differs; the twin given the recovered mask matches exactly."""
+    import torch.nn.functional as F
+
+    from midi_emotion_tpu_torch.ops import fused_dropout as fd
+
+    name = f"dropout {dtype_name(dtype)} [{rows}, {D}] rate {rate}"
+    ones = torch.ones((rows, D), dtype=dtype, device="cuda")
+    keep = fd.fused_dropout(ones, 1234, rate) != 0
+    frac = keep.float().mean().item()
+    sd = (rate * (1 - rate) / keep.numel()) ** 0.5
+    print(f"{name}: keep fraction {frac:.6f} (1 - rate = {1 - rate}, 6 sd = {6 * sd:.2e})")
+    if abs(frac - (1 - rate)) > 6 * sd:
+        fail(f"{name}: keep fraction off")
+    if not torch.equal(fd.fused_dropout(ones, 1234, rate) != 0, keep):
+        fail(f"{name}: a fixed seed does not reproduce its mask")
+    if torch.equal(fd.fused_dropout(ones, 1235, rate) != 0, keep):
+        fail(f"{name}: a new seed draws the same mask")
+    (x,), _, _ = _rows(torch, rows, D, dtype, 1, seed=SEED + 3)
+    xg = x.clone().requires_grad_()
+    y = fd.fused_dropout(xg, 1234, rate)
+    y.backward(torch.ones_like(y))
+    if not torch.equal(xg.grad != 0, keep):
+        fail(f"{name}: the backward's mask is not the forward's")
+    err = (y.detach().float() - fd.dropout_plain(x, keep, rate).float()).abs().max().item()
+    print(f"{name}: max|dy| against the twin with the recovered mask {err:.3e} (tol 0)")
+    if err != 0:
+        fail(f"{name}: kernel disagrees with its plain twin")
+    out = {"max_abs_err": err}
+    out["bound_ms"], out["bound_by"] = bound(2 * x.numel() * x.element_size(),
+                                             2 * x.numel(), "f32")
+    return _report(torch, out, timed, name, lambda: fd.fused_dropout(x, 1234, rate),
+                   lambda: fd.dropout_plain(x, keep, rate),
+                   lambda: F.dropout(x, rate, training=True), iters=100)
+
+
+def check_dal(torch, rows, D, dtype, rate, tol, timed=False):
+    """LN(res + dropout(sub)) and its backward against the twins given the
+    mask recovered from the dropout kernel (same seed and shape, so the
+    same Philox counters)."""
+    from midi_emotion_tpu_torch.ops import fused_dropout as fd
+
+    (sub, res, dy), w, b = _rows(torch, rows, D, dtype, 3, seed=SEED + 4)
+    seed = 77
+    keep = fd.fused_dropout(torch.ones_like(sub), seed, rate) != 0
+    y = fd.dropout_add_layernorm(sub, res, w, b, seed, rate)
+    torch.cuda.synchronize()
+    err_y, scale = _rel_err(y, fd.dropout_add_layernorm_plain(sub, res, w, b, keep, rate))
+    name = f"dal fwd {dtype_name(dtype)} [{rows}, {D}]"
+    print(f"{name}: max|dy|={err_y:.3e} (tol {tol * (1 + scale):.3e})")
+    if not err_y <= tol * (1 + scale):
+        fail(f"{name}: kernel disagrees with its plain twin")
+    fwd = {"max_abs_err": err_y}
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        3 * sub.numel() * sub.element_size() + 2 * D * 4, 10 * sub.numel(), "f32")
+    _report(torch, fwd, timed, name, lambda: fd.dropout_add_layernorm(sub, res, w, b, seed, rate),
+            lambda: fd.dropout_add_layernorm_plain(sub, res, w, b, keep, rate), iters=100)
+
+    got = fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate)
+    want = fd.dropout_add_layernorm_bwd_plain(sub, res, dy, w, keep, rate)
+    name = f"dal bwd {dtype_name(dtype)} [{rows}, {D}]"
+    worst = 0.0
+    for grad, a, r, t in zip(("dsub", "dres", "dgamma", "dbeta"), got, want,
+                             (tol, tol, 1e-5, 1e-5)):
+        err, scale = _rel_err(a, r)
+        print(f"{name}: max|{grad} err|={err:.3e} (tol {t * (1 + scale):.3e})")
+        if not err <= t * (1 + scale):
+            fail(f"{name}: {grad} disagrees with its plain twin")
+        worst = max(worst, err)
+    bwd = {"max_abs_err": worst}
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        5 * sub.numel() * sub.element_size() + 3 * D * 4, 14 * sub.numel(), "f32")
+    _report(torch, bwd, timed, name,
+            lambda: fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate),
+            lambda: fd.dropout_add_layernorm_bwd_plain(sub, res, dy, w, keep, rate), iters=50)
+    return fwd, bwd
+
+
+def check_train_step(torch):
+    """One f32 train step (2 layers, B 2, T 256, dropout 0) through the
+    kernels on the card against the same step on the CPU (plain twins):
+    loss, grad norm and every clipped gradient."""
+    from midi_emotion_tpu_torch.models.config import ModelConfig
+    from midi_emotion_tpu_torch.models.model import MusicTransformer
+    from midi_emotion_tpu_torch.training.train_step import make_optimizer, make_train_step
+
+    cfg = ModelConfig(**{**FLAGSHIP, "n_layer": 2, "dropout": 0.0})
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(2, 1007, (1, 2, 257), generator=gen)
+    tokens[0, 1, -40:] = 0  # a pad tail
+    batch = {"input": tokens[:, :, :-1], "target": tokens[:, :, 1:],
+             "condition": torch.tensor([[[0.8, -0.5], [0.3, -0.9]]])}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = MusicTransformer(cfg, device=dev).init_weights(torch.Generator().manual_seed(1))
+        m = make_train_step(model, make_optimizer(model), clip=1.0)(
+            {k: v.to(dev) for k, v in batch.items()}, 2e-5)
+        out[dev] = ({k: v.item() for k, v in m.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (mc, gc), (mg, gg) = out["cpu"], out["cuda"]
+    worst = max((gg[n] - gc[n]).abs().max().item() / (1 + gc[n].abs().max().item()) for n in gc)
+    print(f"train step f32 2 layers B=2 T=256: loss card {mg['loss']:.6f} cpu {mc['loss']:.6f}; "
+          f"grad norm card {mg['grad_norm']:.6f} cpu {mc['grad_norm']:.6f}; worst gradient "
+          f"error {worst:.3e} of its scale (tol 1e-4)")
+    if not (abs(mg["loss"] - mc["loss"]) <= 1e-5 * (1 + abs(mc["loss"]))
+            and abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * (1 + mc["grad_norm"])
+            and worst <= 1e-4):
+        fail("the train step through the kernels disagrees with the plain twins")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training through the CLI
+# ---------------------------------------------------------------------------
+
+
+def write_dataset(root, n_songs=24, n_bars=40, events_per_bar=80):
+    """Shards written with the port's save_song_shard: every bar holds
+    ``events_per_bar`` (event, value) rows over four instruments and
+    timeshifts, so the loader's 19-bar window fills T 1216 without pad.
+    Returns (shard folder, feature CSV path)."""
+    from midi_emotion_tpu_torch.data.loader import save_song_shard
+
+    rng = np.random.RandomState(SEED)
+    folder = os.path.join(root, "shards")
+    os.makedirs(folder, exist_ok=True)
+    rows = ["file,valence,note_density_per_instrument,n_instruments,is_matched"]
+    for i in range(n_songs):
+        bars = []
+        for _ in range(n_bars):
+            ev = rng.randint(0, 4, size=events_per_bar) * 2 + rng.randint(0, 2, size=events_per_bar)
+            val = rng.randint(21, 109, size=events_per_bar)
+            ts = rng.randint(0, events_per_bar, size=events_per_bar // 4)
+            ev[ts] = 10
+            val[ts] = rng.choice(np.arange(8, 1008, 8), size=len(ts))
+            bars.append(np.stack([ev, val], axis=1).astype(np.int16))
+        fid = f"song{i:03d}"
+        save_song_shard(os.path.join(folder, fid + ".npz"), fid, bars)
+        rows.append(f"{fid},{rng.uniform(-0.9, 0.9):.4f},{3.0 + i * 0.1:.4f},4,True")
+    path = os.path.join(root, "features.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return folder, path
+
+
+def train_losses(work_dir):
+    with open(os.path.join(work_dir, "performance.csv")) as f:
+        return [float(r["trn_loss"]) for r in csv.DictReader(f) if r["trn_loss"] not in ("", "nan")]
+
+
+def timed_training(torch, runner, n_warmup=2, n_timed=5):
+    """Train tokens/sec = B * T * steps / seconds over ``n_timed`` steps of
+    the Runner's train step (loss read after each step, as the Runner
+    does) after ``n_warmup``, on batches from its loader staged on the
+    card beforehand; plus the launches per step and a profiled window."""
+    it = runner.train_dataset.epochs(TRAIN_B)
+    batches = [runner._to_device(runner._microbatches(it)) for _ in range(n_warmup + n_timed + 2)]
+    gen = torch.Generator().manual_seed(SEED)
+    lr = 2e-5
+    losses = [float(runner._train_fn(b, lr, gen)["loss"]) for b in batches[:n_warmup]]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [float(runner._train_fn(b, lr, gen)["loss"])
+               for b in batches[n_warmup:n_warmup + n_timed]]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    per_step = {k: v / n_timed for k, v in read_counts().items()}
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training losses {losses}")
+    tps = TRAIN_B * TRAIN_T * n_timed / secs
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for b in batches[-2:]:
+            float(runner._train_fn(b, lr, gen)["loss"])
+        torch.cuda.synchronize()
+        prof_secs = time.perf_counter() - t1
+    # device-side events only: the CPU ops that launched them report the
+    # same time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in events)
+    print(f"train step profile (2 steps, {prof_secs * 1e3 / 2:.2f} ms/step wall under the "
+          f"profiler): device busy {device_us / 1e3 / 2:.2f} ms/step "
+          f"({100 * device_us / 1e6 / prof_secs:.1f}% of wall)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3 / 2:9.3f} ms/step "
+              f"{100 * e.self_device_time_total / device_us:5.1f}%  x{e.count // 2:<5d} "
+              f"{e.key[:90]}")
+    return tps, secs / n_timed, per_step, losses
+
+
+# ---------------------------------------------------------------------------
+# launch counters
+# ---------------------------------------------------------------------------
+
+KERNELS = (  # name, route, source, the TPU kernel it replaces
+    ("flash_rel_attn_fwd", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_fwd.cu",
+     "midi_emotion_tpu/ops/pallas_attention.py:369"),
+    ("ln_fwd", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
+     "midi_emotion_tpu/ops/layernorm.py:53"),
+    ("ln_bwd", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
+     "midi_emotion_tpu/ops/layernorm.py:63"),
+    ("flash_rel_attn_bwd", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd.cu",
+     "midi_emotion_tpu/ops/pallas_attention.py:1417"),
+    ("dropout", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
+     "midi_emotion_tpu/ops/fused_dropout.py:132"),
+    ("dal_fwd", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
+     "midi_emotion_tpu/ops/fused_dropout.py:194"),
+    ("dal_bwd", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
+     "midi_emotion_tpu/ops/fused_dropout.py:211"),
+)
+
+
+def counters():
+    """Kernel name -> the wrapper that counts its launches."""
+    from midi_emotion_tpu_torch.ops import fused_dropout as fd
+    from midi_emotion_tpu_torch.ops.flash_attention import (
+        flash_rel_attention, flash_rel_attention_bwd)
+    from midi_emotion_tpu_torch.ops.layernorm import layernorm, layernorm_bwd
+
+    return {"flash_rel_attn_fwd": flash_rel_attention, "ln_fwd": layernorm,
+            "ln_bwd": layernorm_bwd, "flash_rel_attn_bwd": flash_rel_attention_bwd,
+            "dropout": fd.fused_dropout, "dal_fwd": fd.dropout_add_layernorm,
+            "dal_bwd": fd.dropout_add_layernorm_bwd}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def run_path(name, required, fn):
+    """Run one main path with every counter at 0 just before and read just
+    after; fail if a kernel the path needs was not launched."""
+    reset_counts()
+    result = fn()
+    counts = read_counts()
+    print(f"path {name}: kernel launches {counts}")
+    missing = [k for k in required if counts[k] <= 0]
+    if missing:
+        fail(f"path {name}: kernels never launched: {missing}")
+    return counts, result
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timed generation
+# ---------------------------------------------------------------------------
 
 
 def timed_generation(torch, model, vocab, B, gen_len, max_input_len):
@@ -136,6 +564,20 @@ def timed_generation(torch, model, vocab, B, gen_len, max_input_len):
     if song.shape != (B, gen_len) or vocab.special_mask()[song[:, 1:]].any():
         fail(f"timed generation B={B}: bad output {song.shape}")
     return B * (gen_len - 1) / secs, secs
+
+
+def print_ptxas(lib_path, label):
+    log = lib_path.with_name(lib_path.name + ".log")
+    if not log.exists():
+        return
+    text = log.read_text()
+    kinds = re.findall(r"Compiling entry function '\S*?(\w+_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?",
+                       text)
+    regs = re.findall(r"Used (\d+) registers", text)
+    spills = re.findall(r"(\d+) bytes spill stores", text)
+    for (kern, t, dh), r, sp in zip(kinds, regs, spills):
+        print(f"ptxas: {label} {kern} <{'bf16' if t != 'f' else 'f32'}"
+              f"{', dh=' + dh if dh else ''}>: {r} registers, {sp} bytes spilled")
 
 
 def main():
@@ -156,40 +598,35 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 twins in full f32
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
-    from midi_emotion_tpu_torch.cli import generate_cli
+    from midi_emotion_tpu_torch.cli import generate_cli, train_cli
     from midi_emotion_tpu_torch.convert import load_model_dir, save_reference_dir
-    from midi_emotion_tpu_torch.generation import generate as generate_mod
-    from midi_emotion_tpu_torch.kernels.build import cuda_library, library_path
-    from midi_emotion_tpu_torch.models.model import ModelConfig, MusicTransformer
-    from midi_emotion_tpu_torch.ops.flash_attention import flash_rel_attention
-    from midi_emotion_tpu_torch.ops.layernorm import layernorm
+    from midi_emotion_tpu_torch.data import midi_io
+    from midi_emotion_tpu_torch.kernels.build import CUDA_SOURCES, build_all, library_path
+    from midi_emotion_tpu_torch.models.config import ModelConfig
+    from midi_emotion_tpu_torch.models.model import MusicTransformer
+    from midi_emotion_tpu_torch.training.checkpoint import load_stats
+    from midi_emotion_tpu_torch.vocab import Vocab
 
-    # the default 1007-token vocabulary, reached through the port's module
-    # (this script itself imports nothing of the JAX package)
-    vocab = generate_mod.Vocab()
+    vocab = Vocab()  # the default 1007-token vocabulary
 
     # phase 2 -----------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_library("flash_rel_attn_fwd")
-    lib = library_path("flash_rel_attn_fwd")
-    print(f"built {os.path.relpath(lib, REPO)} in {time.perf_counter() - t0:.1f} s")
-    log = lib.with_name(lib.name + ".log")
-    if log.exists():  # ptxas -v: registers and spills of each instantiation
-        text = log.read_text()
-        kinds = re.findall(r"Compiling entry function '\S*kernelI(13__nv_bfloat16|f)Li(\d+)E", text)
-        regs = re.findall(r"Used (\d+) registers", text)
-        spills = re.findall(r"(\d+) bytes spill stores", text)
-        for (t, dh), r, sp in zip(kinds, regs, spills):
-            print(f"ptxas: flash kernel <{'bf16' if t != 'f' else 'f32'}, dh={dh}>: "
-                  f"{r} registers, {sp} bytes spilled")
+    build_all()
+    print(f"built {', '.join(CUDA_SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    for name in CUDA_SOURCES:
+        print_ptxas(library_path(name), name)
 
     # phase 3 -----------------------------------------------------------
     # Tolerances: f32 pins the algorithm (kernel and twin both sum in f32,
-    # in different orders, over 1216 keys): 1e-4. bf16 pins the kernel in
-    # its working type: both compute in f32 from the same bf16 inputs and
-    # round O to bf16, so O may differ by one bf16 ulp (2e-2 covers |O| up
-    # to ~2.5) and lse, which stays f32, by 1e-3.
+    # in different orders): 1e-4 on O and lse over 1216 keys; 1e-4 of each
+    # gradient's scale for the backward, whose dE sums B*H*T terms. bf16
+    # pins the kernel in its working type: both compute in f32 from the
+    # same bf16 inputs and round once to bf16, so outputs may differ by a
+    # bf16 ulp: 2e-2 on O (|O| up to ~2.5), 1e-3 on lse (f32), 2e-2 of each
+    # gradient's scale, 2^-7 of the row scale for LayerNorm. The dropout
+    # kernel and its twin round the same f32 product: exact.
     check_flash(torch, 2, 16, 1216, 48, torch.float32, True, 1e-4, 1e-4)
     check_flash(torch, 2, 16, 1216, 48, torch.bfloat16, True, 2e-2, 1e-3)
     check_flash(torch, 2, 16, 200, 48, torch.float32, False, 1e-4, 1e-4)
@@ -198,17 +635,31 @@ def main():
     # the CLI run's two prefill shapes: the one-token primer, then a refresh
     check_flash(torch, 4, 16, 1, 48, torch.bfloat16, True, 2e-2, 1e-3)
     flash = check_flash(torch, 4, 16, 1216, 48, torch.bfloat16, True, 2e-2, 1e-3, timed=True)
-    # LayerNorm: f32 statistics in both; f32 output within 1e-5 relative
-    # to the row scale, bf16 output within one bf16 ulp (2^-7 relative)
+    check_flash_bwd(torch, TRAIN_B, 16, TRAIN_T, 48, torch.float32, True, 1e-4)
+    check_flash_bwd(torch, 2, 4, 333, 64, torch.float32, False, 1e-4)
+    check_flash_bwd(torch, 2, 4, 100, 16, torch.float32, True, 1e-4)
+    flash_bwd = check_flash_bwd(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16, True, 2e-2,
+                                timed=True)
+    rows = TRAIN_B * TRAIN_T
     check_layernorm(torch, 4864, 768, torch.float32, 1e-5)
     check_layernorm(torch, 4, 768, torch.bfloat16, 2 ** -7)  # a decode step's rows
     ln = check_layernorm(torch, 4864, 768, torch.bfloat16, 2 ** -7, timed=True)
+    check_layernorm_bwd(torch, rows, 768, torch.float32, 1e-5)
+    ln_bwd = check_layernorm_bwd(torch, rows, 768, torch.bfloat16, 2 ** -7, timed=True)
+    check_dropout(torch, rows, 768, torch.float32, 0.1)
+    dropout = check_dropout(torch, rows, 768, torch.bfloat16, 0.1, timed=True)
+    check_dal(torch, rows, 768, torch.float32, 0.1, 1e-5)
+    dal_fwd, dal_bwd = check_dal(torch, rows, 768, torch.bfloat16, 0.1, 2 ** -7, timed=True)
+    check_train_step(torch)
+    torch.cuda.empty_cache()
+    print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
 
     # phase 4 -----------------------------------------------------------
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         mcfg = ModelConfig(**FLAGSHIP)
-        model = MusicTransformer(mcfg).init_weights(torch.Generator().manual_seed(SEED))
+        model = MusicTransformer(mcfg, device="cpu").init_weights(
+            torch.Generator().manual_seed(SEED))
         work = os.path.join(tmp, "flagship")
         save_reference_dir(work, mcfg, model.state_dict(), vocab)
         del model
@@ -231,55 +682,105 @@ def main():
             fail("flagship forward on the card disagrees with the CPU")
 
         # phase 5 -------------------------------------------------------
-        B, gen_len = 4, 1400
-        flash_rel_attention.launches = 0
-        layernorm.launches = 0
-        t0 = time.perf_counter()
-        generate_cli.main([
-            "--model_dir", work, "--conditioning", "continuous_concat", "--dtype", "bf16",
-            "--batch_size", str(B), "--valence", "0.8", "-0.5", "0.3", "-0.9",
-            "--arousal", "0.8", "0.5", "-0.3", "-0.9", "--gen_len", str(gen_len),
-            "--max_input_len", "1216", "--device", "cuda", "--quiet",
-        ])
-        torch.cuda.synchronize()
-        cli_secs = time.perf_counter() - t0
-        launches = {"flash_rel_attn_fwd": flash_rel_attention.launches,
-                    "ln_fwd": layernorm.launches}
-        print(f"CLI run: {cli_secs:.2f} s; kernel launches {launches}")
-        if min(launches.values()) <= 0:
-            fail(f"a kernel of the path was never launched: {launches}")
+        shards, features = write_dataset(tmp)
+        train_args = [
+            "--data_folder", shards, "--feature_file", features,
+            "--conditioning", "continuous_concat", "--batch_size", str(TRAIN_B),
+            "--tgt_len", str(TRAIN_T), "--dtype", "bf16", "--dropout", "0.1",
+            "--num_workers", "0", "--log_step", "2", "--eval_step", "1000",
+            "--max_eval_step", "1", "--gen_step", "1000000", "--seed", "1", "--device", "cuda",
+        ]
 
-        out = os.path.join(work, "generations", "inference")
+        def train_and_resume():
+            t1 = time.perf_counter()
+            first = train_cli.main(train_args + ["--work_dir", os.path.join(tmp, "run"),
+                                                 "--max_step", "3"])
+            resumed = train_cli.main(train_args + [
+                "--work_dir", os.path.join(tmp, "resumed"), "--max_step", "4",
+                "--restart_dir", first.args.work_dir])
+            torch.cuda.synchronize()
+            return first, resumed, time.perf_counter() - t1
+
+        train_counts, (first, resumed, train_secs) = run_path(
+            "train (flagship, dropout 0.1, then resume)",
+            ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "dropout", "dal_fwd", "dal_bwd"),
+            train_and_resume)
+        losses = train_losses(resumed.args.work_dir)  # its csv carries the first run's
+        print(f"train CLI: {first.train_step_num} steps, checkpoint, resumed from step "
+              f"{load_stats(first.args.work_dir)['step']} to {resumed.train_step_num}, "
+              f"{train_secs:.1f} s; logged losses {losses}")
+        if first.train_step_num != 3 or resumed.train_step_num != 4 or not losses \
+                or not all(np.isfinite(losses)):
+            fail("the training CLI run did not take its steps with finite losses")
+        trained = resumed.args.work_dir
+        del first
+        tps, step_secs, per_step, timed_losses = timed_training(torch, resumed)
+        print(f"train tokens/sec: {tps:.1f} (B={TRAIN_B}, T={TRAIN_T}, bf16, dropout 0.1, "
+              f"{step_secs * 1e3:.2f} ms/step over 5 steps after 2 warm-up) on {card}")
+        print(f"kernel launches per train step: {per_step}")
+        del resumed
+        torch.cuda.empty_cache()
+
+        drop0_counts, _ = run_path(
+            "train (4 layers, dropout 0)",
+            ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "ln_fwd", "ln_bwd"),
+            lambda: train_cli.main(train_args + [
+                "--work_dir", os.path.join(tmp, "drop0"), "--dropout", "0", "--n_layer", "4",
+                "--max_step", "2", "--debug"]))
+        torch.cuda.empty_cache()
+
+        # phase 6 -------------------------------------------------------
+        B, gen_len = 4, 1400
+
+        def serve():
+            t1 = time.perf_counter()
+            generate_cli.main([
+                "--model_dir", trained, "--conditioning", "continuous_concat",
+                "--dtype", "bf16", "--batch_size", str(B),
+                "--valence", "0.8", "-0.5", "0.3", "-0.9",
+                "--arousal", "0.8", "0.5", "-0.3", "-0.9", "--gen_len", str(gen_len),
+                "--max_input_len", "1216", "--device", "cuda", "--quiet",
+            ])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        serve_counts, cli_secs = run_path("generation CLI (trained work dir)",
+                                          ("flash_rel_attn_fwd", "ln_fwd"), serve)
+        print(f"generation CLI run: {cli_secs:.2f} s")
+        out = os.path.join(trained, "generations", "inference")
         mids = sorted(f for f in os.listdir(out) if f.endswith(".mid"))
         if len(mids) < B:
             fail(f"expected >= {B} MIDI files, found {mids}")
         special = vocab.special_mask()
         for f in mids:
-            tracks = generate_mod.midi_io.read_midi(os.path.join(out, f))
+            tracks = midi_io.read_midi(os.path.join(out, f))
             ids = np.load(os.path.join(out, "inds_" + f[:-4] + ".npy"))
             if ids.shape != (gen_len,) or special[ids[1:]].any() or ids.max() >= 1007:
                 fail(f"{f}: bad sampled ids")
             print(f"{f}: {len(tracks)} tracks, {sum(len(t.notes) for t in tracks)} notes")
 
-        # phase 6 -------------------------------------------------------
-        model = load_model_dir(work, torch.bfloat16, "cuda")[1]
-        tps, secs = timed_generation(torch, model, vocab, B, gen_len, 1216)
-        print(f"generation tokens/sec: {tps:.1f} (B={B}, gen_len={gen_len}, window 1216, "
+        # phase 7 -------------------------------------------------------
+        model = load_model_dir(trained, torch.bfloat16, "cuda")[1]
+        gtps, secs = timed_generation(torch, model, vocab, B, gen_len, 1216)
+        print(f"generation tokens/sec: {gtps:.1f} (B={B}, gen_len={gen_len}, window 1216, "
               f"bf16, {secs:.2f} s) on {card}")
         tps64, secs64 = timed_generation(torch, model, vocab, 64, 1024, 1216)
         print(f"headline sampled tokens/sec: {tps64:.1f} (B=64, gen_len=1024, window 1216, "
               f"top-p 0.7, bf16, {secs64:.2f} s) on {card}")
 
-    kernels = [
-        dict(name="flash_rel_attn_fwd", route="cuda",
-             source="midi_emotion_tpu_torch/csrc/flash_rel_attn_fwd.cu",
-             replaces="midi_emotion_tpu/ops/pallas_attention.py:369",
-             launches=launches["flash_rel_attn_fwd"], **flash),
-        dict(name="ln_fwd", route="triton",
-             source="midi_emotion_tpu_torch/ops/layernorm_triton.py",
-             replaces="midi_emotion_tpu/ops/layernorm.py:53",
-             launches=launches["ln_fwd"], **ln),
-    ]
+    measured = {"flash_rel_attn_fwd": flash, "ln_fwd": ln, "ln_bwd": ln_bwd,
+                "flash_rel_attn_bwd": flash_bwd, "dropout": dropout, "dal_fwd": dal_fwd,
+                "dal_bwd": dal_bwd}
+    paths = (train_counts, drop0_counts, serve_counts)
+    kernels = []
+    for name, route, source, replaces in KERNELS:
+        m = measured[name]
+        kernels.append(dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=sum(c[name] for c in paths), max_abs_err=m["max_abs_err"], ms=m["ms"],
+            plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+            library_ms=m["library_ms"]))
+    print(f"total {time.perf_counter() - t_start:.1f} s; train tokens/sec {tps:.1f} on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
-"""Moving weights into the port's modules.
+"""Moving weights into and out of the port's modules.
 
-* ``state_dict_from_jax_params``: a JAX parameter tree (numpy or jax
-  arrays) -> the reference's ``state_dict`` names, through the JAX
-  package's ``convert/torch_import.py::params_to_torch_state_dict``. The
-  port's modules carry those names, so the result loads with
-  ``load_state_dict``.
-* ``load_model_dir``: a reference work dir (``model_config.pt``,
-  ``model.pt``, ``mappings.pt``) straight into a ``MusicTransformer``.
+* ``state_dict_from_jax_params``: a JAX parameter tree (numpy arrays, or
+  anything ``np.asarray`` takes) -> the reference's ``state_dict`` names.
+  The name map is the one of the JAX package's
+  ``convert/torch_import.py::params_to_torch_state_dict``, kept here so the
+  port imports nothing of the JAX package. The port's modules carry those
+  names, so the result loads with ``load_state_dict``.
+* ``save_reference_dir`` / ``load_model_dir``: a reference work dir
+  (``model_config.pt``, ``model.pt``, ``mappings.pt``). The trainer writes
+  this layout too, so a model the port trains loads in both packages.
 
 The JAX package's native work dirs (``model_config.json`` with
 ``model.msgpack``) are not read yet.
@@ -17,18 +19,45 @@ from __future__ import annotations
 import os
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
-from midi_emotion_tpu.convert.torch_import import params_to_torch_state_dict
-from midi_emotion_tpu.models.config import ModelConfig
-from midi_emotion_tpu.vocab import Vocab
-
-from .models.model import MusicTransformer
+from .models.config import ModelConfig
+from .models.model import MusicTransformer, resolve_device
+from .vocab import Vocab
 
 
 def state_dict_from_jax_params(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """JAX/Flax parameters -> a state_dict for the port's MusicTransformer."""
-    return params_to_torch_state_dict(params, cfg)
+    """JAX/Flax parameters -> a state_dict for the port's MusicTransformer
+    (Dense kernels [in, out] become Linear weights [out, in])."""
+    sd = {}
+    t = lambda a: torch.from_numpy(np.asarray(a).copy())
+    sd["embedding.weight"] = t(params["embedding"]["embedding"])
+    if "fc_condition" in params:
+        sd["fc_condition.weight"] = t(params["fc_condition"]["kernel"]).T.contiguous()
+        sd["fc_condition.bias"] = t(params["fc_condition"]["bias"])
+    for i in range(cfg.n_conditions):
+        key = f"fc_condition_{i}"
+        if key in params:
+            sd[f"fc_condition.{i}.weight"] = t(params[key]["kernel"]).T.contiguous()
+            sd[f"fc_condition.{i}.bias"] = t(params[key]["bias"])
+    for i in range(cfg.n_layer):
+        layer = params[f"enc_layers_{i}"]
+        p = f"enc_layers.{i}."
+        for name in ("Wq", "Wk", "Wv", "fc"):
+            sd[f"{p}rga.{name}.weight"] = t(layer["rga"][name]["kernel"]).T.contiguous()
+            sd[f"{p}rga.{name}.bias"] = t(layer["rga"][name]["bias"])
+        sd[f"{p}rga.E"] = t(layer["rga"]["E"])
+        for name in ("FFN_pre", "FFN_suf"):
+            sd[f"{p}{name}.weight"] = t(layer[name]["kernel"]).T.contiguous()
+            sd[f"{p}{name}.bias"] = t(layer[name]["bias"])
+        for name in ("layernorm1", "layernorm2"):
+            sd[f"{p}{name}.weight"] = t(layer[name]["scale"])
+            sd[f"{p}{name}.bias"] = t(layer[name]["bias"])
+    head = "fc.0" if cfg.is_regression else "fc"
+    sd[f"{head}.weight"] = t(params["fc"]["kernel"]).T.contiguous()
+    sd[f"{head}.bias"] = t(params["fc"]["bias"])
+    return sd
 
 
 def save_reference_dir(model_dir: str, cfg: ModelConfig,
@@ -45,10 +74,14 @@ def save_reference_dir(model_dir: str, cfg: ModelConfig,
 def load_model_dir(
     model_dir: str,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
     attn_impl: str = "auto",
+    param_dtype=None,
 ) -> Tuple[ModelConfig, MusicTransformer, Vocab]:
-    """Load (config, model, vocab) from a reference work dir."""
+    """Load (config, model, vocab) from a reference work dir, onto the card
+    unless ``device`` says otherwise. ``param_dtype`` as in
+    ``MusicTransformer`` (default: ``dtype``)."""
+    device = resolve_device(device)
     if os.path.exists(os.path.join(model_dir, "model_config.json")):
         raise NotImplementedError(
             f"{model_dir} is a native JAX work dir (model_config.json + "
@@ -71,6 +104,7 @@ def load_model_dir(
     vocab = Vocab()
     if os.path.exists(maps_fp):
         vocab = Vocab.from_maps(torch.load(maps_fp, map_location="cpu", weights_only=False))
-    model = MusicTransformer(cfg, dtype=dtype, device=device, attn_impl=attn_impl)
+    model = MusicTransformer(cfg, dtype=dtype, device=device, attn_impl=attn_impl,
+                             param_dtype=param_dtype)
     model.load_state_dict(state_dict)
     return cfg, model.eval(), vocab

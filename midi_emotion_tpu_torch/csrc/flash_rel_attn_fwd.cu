@@ -239,7 +239,7 @@ int flash_rel_attn_fwd(const void* q, const void* k, const void* v, const void* 
   return cudaErrorInvalidValue;
 }
 
-const char* flash_rel_attn_error_string(int err) {
+const char* flash_rel_attn_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

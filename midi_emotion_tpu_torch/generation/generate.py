@@ -4,8 +4,8 @@ Counterpart of ``midi_emotion_tpu/generation/generate.py``: assembles the
 batch from conditions and primers, runs the KV-cached sampler, then
 post-processes each sample (instrument-count gating with redo lists,
 V/A-tagged names) and writes the MIDI file, the token text (``txt_``) and
-the raw ids (``inds_``) through the JAX package's framework-free
-``codec`` and ``midi_io``.
+the raw ids (``inds_``) through the port's copies of ``data/codec.py`` and
+``data/midi_io.py``.
 """
 
 from __future__ import annotations
@@ -17,11 +17,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from midi_emotion_tpu.data import codec, midi_io
-from midi_emotion_tpu.vocab import Vocab
-
+from ..data import codec, midi_io
 from ..models.model import MusicTransformer
 from ..ops.sampling import SamplingParams
+from ..vocab import Vocab
 from .sampler import Sampler
 
 

@@ -23,10 +23,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from midi_emotion_tpu.vocab import Vocab
-
 from ..models.model import MusicTransformer
 from ..ops.sampling import SamplingParams, sample_step
+from ..vocab import Vocab
 
 
 def _round_up(x: int, m: int) -> int:

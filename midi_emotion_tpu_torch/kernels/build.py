@@ -57,6 +57,41 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+CUDA_SOURCES = ("flash_rel_attn_fwd", "flash_rel_attn_bwd")  # csrc/<name>.cu
+
+
+def _start_build(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` -> (process, temporary output)."""
+    out = library_path(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish_build(name: str, proc, tmp: Path) -> None:
+    report = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n{report}")
+    out = library_path(name)
+    out.with_name(out.name + ".log").write_text(report)
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+
+
+def build_all(names=CUDA_SOURCES) -> None:
+    """Compile every library in ``names`` whose build is missing, one nvcc
+    per source, all started together. Raises RuntimeError when one fails."""
+    started = [(n, *_start_build(n)) for n in names if not library_path(n).exists()]
+    errors = []
+    for name, proc, tmp in started:
+        try:
+            _finish_build(name, proc, tmp)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 @functools.lru_cache(maxsize=None)
 def cuda_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its build is missing, then load it.
@@ -65,17 +100,7 @@ def cuda_library(name: str) -> ctypes.CDLL:
     ``<library>.log``. Raises RuntimeError when the build fails."""
     out = library_path(name)
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        _finish_build(name, *_start_build(name))
     return ctypes.CDLL(str(out))
 
 

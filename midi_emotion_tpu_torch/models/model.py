@@ -13,10 +13,21 @@ KV-cached sampler. The cache is a dict ``{"k": [L x [B, W, d_model]],
 columns [h*dh, (h+1)*dh). ``decode_step`` writes its row into each
 buffer in place.
 
-Weights are held in the model's dtype, except the LayerNorm parameters,
-which stay f32 (the JAX package casts f32 parameters to the compute dtype
-at each use; holding them cast gives the same numbers). The serving path
-is inference only: dropout and gradients arrive with the training port.
+Two dtypes: ``dtype`` is the compute type and ``param_dtype`` (default
+``dtype``) the type the parameters are held in. The serving model holds
+its weights in the compute type; the training model holds f32 master
+parameters and computes in bf16, as Flax's ``Dense(dtype=bf16)`` does: each
+Linear, the embedding and the relative table E are cast at each use, so the
+gradients land on the f32 parameters. The LayerNorm parameters stay f32
+either way (the kernels read them in f32).
+
+In training mode (``model.train()``) with ``dropout > 0`` the forward runs
+the reference's 1 + 2 * n_layer dropout sites: the embedding dropout after
+the positional add (JAX ``model.py:453``) and ``LN(x + dropout(attn))``,
+``LN(out1 + dropout(ffn))`` in each layer (JAX ``model.py:281-297``), through
+``ops/fused_dropout.py``. One seed per site is drawn from the ``generator``
+passed to ``forward``; a site's forward and backward share it, so their
+masks are the same bits.
 """
 
 from __future__ import annotations
@@ -28,13 +39,37 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from midi_emotion_tpu.models.config import ModelConfig
-from midi_emotion_tpu.models.positional import sinusoid_table
-
 from ..ops.attention import decode_rel_attention, relative_attention, resolve_attn_impl
+from ..ops.fused_dropout import dropout_add_layernorm, fused_dropout
 from ..ops.layernorm import LayerNorm
+from .config import ModelConfig
+from .positional import sinusoid_table
 
 Cache = Dict[str, object]
+
+
+def resolve_device(device) -> torch.device:
+    """The port's entry points run on the card unless the caller asks for
+    the CPU. A CUDA device on a machine without CUDA raises; nothing falls
+    back to the CPU quietly."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: CUDA is not available on this machine; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return device
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype: parameters held in
+    another type (the training model's f32 masters) are cast at each use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        if w.dtype != x.dtype:  # no cast call at all on the serving path
+            w, b = w.to(x.dtype), b.to(x.dtype)
+        return F.linear(x, w, b)
 
 
 class RelativeGlobalAttention(nn.Module):
@@ -45,10 +80,10 @@ class RelativeGlobalAttention(nn.Module):
         super().__init__()
         self.n_head = n_head
         self.attn_impl = attn_impl
-        self.Wq = nn.Linear(d_model, d_model, dtype=dtype, device=device)
-        self.Wk = nn.Linear(d_model, d_model, dtype=dtype, device=device)
-        self.Wv = nn.Linear(d_model, d_model, dtype=dtype, device=device)
-        self.fc = nn.Linear(d_model, d_model, dtype=dtype, device=device)
+        self.Wq = Linear(d_model, d_model, dtype=dtype, device=device)
+        self.Wk = Linear(d_model, d_model, dtype=dtype, device=device)
+        self.Wv = Linear(d_model, d_model, dtype=dtype, device=device)
+        self.fc = Linear(d_model, d_model, dtype=dtype, device=device)
         self.E = nn.Parameter(torch.empty(max_seq, d_model // n_head, dtype=dtype, device=device))
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
@@ -64,7 +99,7 @@ class RelativeGlobalAttention(nn.Module):
         k_rows, v_rows = self.Wk(x), self.Wv(x)
         out = relative_attention(
             self._heads(self.Wq(x)), self._heads(k_rows), self._heads(v_rows),
-            self.E, causal=causal, pad_keys=pad_keys, impl=self.attn_impl,
+            self.E.to(x.dtype), causal=causal, pad_keys=pad_keys, impl=self.attn_impl,
         )
         out = self.fc(out.transpose(1, 2).reshape(B, T, d))
         if return_kv:
@@ -80,64 +115,80 @@ class RelativeGlobalAttention(nn.Module):
         q = self.Wq(x_t).view(B, self.n_head, -1)
         k_cache[:, length - 1] = self.Wk(x_t)  # in place: one row per step
         v_cache[:, length - 1] = self.Wv(x_t)
-        out = decode_rel_attention(q, k_cache, v_cache, self.E, length)
+        out = decode_rel_attention(q, k_cache, v_cache, self.E.to(x_t.dtype), length)
         return self.fc(out.reshape(B, -1))
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN block: RGA -> LN(x + attn) -> ReLU MLP -> LN(. + mlp)."""
+    """Post-LN block: RGA -> LN(x + dropout(attn)) -> ReLU MLP ->
+    LN(. + dropout(mlp)). Dropout runs only when ``drop_seeds`` is given."""
 
-    def __init__(self, d_model: int, d_inner: int, n_head: int, max_seq: int, dtype,
-                 device, attn_impl: str):
+    def __init__(self, d_model: int, d_inner: int, n_head: int, max_seq: int,
+                 dropout: float, dtype, device, attn_impl: str):
         super().__init__()
+        self.dropout = dropout
         self.rga = RelativeGlobalAttention(d_model, n_head, max_seq, dtype, device, attn_impl)
-        self.FFN_pre = nn.Linear(d_model, d_inner, dtype=dtype, device=device)
-        self.FFN_suf = nn.Linear(d_inner, d_model, dtype=dtype, device=device)
+        self.FFN_pre = Linear(d_model, d_inner, dtype=dtype, device=device)
+        self.FFN_suf = Linear(d_inner, d_model, dtype=dtype, device=device)
         self.layernorm1 = LayerNorm(d_model, eps=1e-6, device=device)
         self.layernorm2 = LayerNorm(d_model, eps=1e-6, device=device)
 
-    def _mlp_block(self, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-        out1 = self.layernorm1(attn + x)
-        return self.layernorm2(out1 + self.FFN_suf(F.relu(self.FFN_pre(out1))))
+    def _add_norm(self, ln: LayerNorm, res: torch.Tensor, sub: torch.Tensor,
+                  seed: Optional[int]) -> torch.Tensor:
+        if seed is None:
+            return ln(res + sub)
+        return dropout_add_layernorm(sub, res, ln.weight, ln.bias, seed, self.dropout, ln.eps)
 
-    def forward(self, x, pad_keys, causal: bool = True, return_kv: bool = False):
+    def _mlp_block(self, x, attn, drop_seeds=(None, None)):
+        out1 = self._add_norm(self.layernorm1, x, attn, drop_seeds[0])
+        ffn = self.FFN_suf(F.relu(self.FFN_pre(out1)))
+        return self._add_norm(self.layernorm2, out1, ffn, drop_seeds[1])
+
+    def forward(self, x, pad_keys, causal: bool = True, return_kv: bool = False,
+                drop_seeds=(None, None)):
         if return_kv:
             attn, k, v = self.rga(x, causal, pad_keys, return_kv=True)
             return self._mlp_block(x, attn), k, v
-        return self._mlp_block(x, self.rga(x, causal, pad_keys))
+        return self._mlp_block(x, self.rga(x, causal, pad_keys), drop_seeds)
 
     def decode(self, x_t, k_cache, v_cache, length: int):
         return self._mlp_block(x_t, self.rga.decode(x_t, k_cache, v_cache, length))
 
 
 class MusicTransformer(nn.Module):
-    def __init__(self, config: ModelConfig, dtype=torch.float32, device="cpu",
-                 attn_impl: str = "auto"):
+    """The model, on ``device`` (the card unless the caller asks for the
+    CPU), computing in ``dtype`` with parameters held in ``param_dtype``
+    (default ``dtype``)."""
+
+    def __init__(self, config: ModelConfig, dtype=torch.float32, device="cuda",
+                 attn_impl: str = "auto", param_dtype=None):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.param_dtype = param_dtype or dtype
+        self.device = resolve_device(device)
         self.attn_impl = resolve_attn_impl(attn_impl, self.device)
-        kw = dict(dtype=dtype, device=self.device)
+        kw = dict(dtype=self.param_dtype, device=self.device)
         self.embedding = nn.Embedding(cfg.vocab_size, cfg.embed_dim, **kw)
         if cfg.mode == "continuous_concat" and cfg.effective_d_condition > 0:
-            self.fc_condition = nn.Linear(2, cfg.effective_d_condition, **kw)
+            self.fc_condition = Linear(2, cfg.effective_d_condition, **kw)
         if cfg.mode == "continuous_token":
             self.fc_condition = nn.ModuleList(
-                nn.Linear(1, cfg.d_model, **kw) for _ in range(cfg.n_conditions)
+                Linear(1, cfg.d_model, **kw) for _ in range(cfg.n_conditions)
             )
         self.enc_layers = nn.ModuleList(
-            EncoderLayer(cfg.d_model, cfg.d_inner, cfg.n_head, cfg.max_seq, dtype,
-                         self.device, self.attn_impl)
+            EncoderLayer(cfg.d_model, cfg.d_inner, cfg.n_head, cfg.max_seq, cfg.dropout,
+                         self.param_dtype, self.device, self.attn_impl)
             for _ in range(cfg.n_layer)
         )
         if cfg.is_regression:
-            self.fc = nn.Sequential(nn.Linear(cfg.d_model, cfg.output_size, **kw), nn.Tanh())
+            self.fc = nn.Sequential(Linear(cfg.d_model, cfg.output_size, **kw), nn.Tanh())
         else:
-            self.fc = nn.Linear(cfg.d_model, cfg.vocab_size, **kw)
+            self.fc = Linear(cfg.d_model, cfg.vocab_size, **kw)
         table = torch.from_numpy(sinusoid_table(cfg.max_seq, cfg.d_model))
-        self.register_buffer("pos_table", table.to(**kw), persistent=False)
+        self.register_buffer("pos_table", table.to(dtype=dtype, device=self.device),
+                             persistent=False)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "MusicTransformer":
@@ -171,7 +222,7 @@ class MusicTransformer(nn.Module):
     # ------------------------------------------------------------------
     def _scaled_embedding(self, tokens: torch.Tensor) -> torch.Tensor:
         # embed_dim is d_model in every mode but continuous_concat
-        return self.embedding(tokens) * math.sqrt(self.config.embed_dim)
+        return self.embedding(tokens).to(self.dtype) * math.sqrt(self.config.embed_dim)
 
     def _embed(self, tokens: torch.Tensor, condition: Optional[torch.Tensor]):
         """Token and condition embedding -> (x [B, T', d_model], causal,
@@ -206,16 +257,33 @@ class MusicTransformer(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, tokens: torch.Tensor,
-                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+                condition: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """tokens [B, T] int; condition [B, 2] float (ignored by none,
         discrete_token and regression). Returns logits [B, T + prefix,
-        vocab], or [B, output_size] for regression."""
+        vocab], or [B, output_size] for regression.
+
+        In training mode with ``dropout > 0`` the dropout seeds are drawn
+        from ``generator``, a CPU ``torch.Generator`` (torch's default one
+        when None)."""
         x, causal, pad_keys = self._embed(tokens, condition)
-        for layer in self.enc_layers:
-            x = layer(x, pad_keys, causal)
+        seeds = self.dropout_seeds(generator)
+        if seeds is not None:
+            x = fused_dropout(x, seeds[0], self.config.dropout)
+        for i, layer in enumerate(self.enc_layers):
+            drop = (None, None) if seeds is None else (seeds[1 + 2 * i], seeds[2 + 2 * i])
+            x = layer(x, pad_keys, causal, drop_seeds=drop)
         if self.config.is_regression:
             return self.fc(x[:, 0, :])
         return self.fc(x)
+
+    def dropout_seeds(self, generator: Optional[torch.Generator]) -> Optional[List[int]]:
+        """One 31-bit seed per dropout site (1 + 2 * n_layer of them), or
+        None when this forward runs no dropout."""
+        if not (self.training and self.config.dropout > 0):
+            return None
+        n = 1 + 2 * self.config.n_layer
+        return torch.randint(0, 2**31 - 1, (n,), generator=generator).tolist()
 
     def prefill(self, tokens: torch.Tensor, condition: Optional[torch.Tensor],
                 window: int) -> Tuple[torch.Tensor, Cache]:

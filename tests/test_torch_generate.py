@@ -11,17 +11,20 @@ import torch
 
 import conftest  # noqa: F401 -- pins JAX to the CPU
 
-from midi_emotion_tpu.data import midi_io
 from midi_emotion_tpu.generation.sampler import Sampler as JaxSampler
-from midi_emotion_tpu.models.config import ModelConfig
+from midi_emotion_tpu.models.config import ModelConfig as JaxModelConfig
 from midi_emotion_tpu.ops.sampling import SamplingParams as JaxSamplingParams
-from midi_emotion_tpu.vocab import DEFAULT_VOCAB, emotion_bin_tokens
+from midi_emotion_tpu.vocab import DEFAULT_VOCAB as JAX_VOCAB
+from midi_emotion_tpu.vocab import emotion_bin_tokens
 from midi_emotion_tpu_torch.cli import generate_cli
 from midi_emotion_tpu_torch.convert import save_reference_dir
+from midi_emotion_tpu_torch.data import midi_io
 from midi_emotion_tpu_torch.generation.generate import generate
 from midi_emotion_tpu_torch.generation.sampler import Sampler
+from midi_emotion_tpu_torch.models.config import ModelConfig
 from midi_emotion_tpu_torch.models.model import MusicTransformer
 from midi_emotion_tpu_torch.ops.sampling import SamplingParams
+from midi_emotion_tpu_torch.vocab import DEFAULT_VOCAB
 
 from torch_parity import model_pair
 
@@ -33,10 +36,11 @@ TINY = dict(  # tests/test_sampler.py's TINY config
 
 @pytest.mark.parametrize("mode", ["continuous_concat", "discrete_token"])
 def test_sampler_matches_jax_under_injected_uniforms(mode):
-    vocab = DEFAULT_VOCAB
+    vocab, jvocab = DEFAULT_VOCAB, JAX_VOCAB
     if mode == "discrete_token":
         vocab = vocab.with_extra_tokens(emotion_bin_tokens(5))
-    cfg = ModelConfig(mode=mode, **{**TINY, "vocab_size": len(vocab)})
+        jvocab = jvocab.with_extra_tokens(emotion_bin_tokens(5))
+    cfg = JaxModelConfig(mode=mode, **{**TINY, "vocab_size": len(vocab)})
     jmodel, params, tmodel = model_pair(cfg)
     B, gen_len = 2, 40
     # window 24 (22 after the discrete prefix) with the default hop of
@@ -50,7 +54,7 @@ def test_sampler_matches_jax_under_injected_uniforms(mode):
                            [vocab.extra_id("<V-2>"), vocab.extra_id("<A0>")]], np.int32)
     u = np.random.default_rng(0).uniform(size=(gen_len - 1, B)).astype(np.float32)
 
-    want = JaxSampler(jmodel, params, vocab, JaxSamplingParams(**sp)).generate(
+    want = JaxSampler(jmodel, params, jvocab, JaxSamplingParams(**sp)).generate(
         primer, continuous_conditions=cond, discrete_prefix_ids=prefix, uniforms=u)
     got = Sampler(tmodel, vocab, SamplingParams(**sp)).generate(
         primer, continuous_conditions=cond, discrete_prefix_ids=prefix, uniforms=u)
@@ -60,7 +64,7 @@ def test_sampler_matches_jax_under_injected_uniforms(mode):
 
 def test_unported_paths_raise():
     cfg = ModelConfig(mode="continuous_concat", **TINY)
-    model = MusicTransformer(cfg)
+    model = MusicTransformer(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Sampler(model, DEFAULT_VOCAB, SamplingParams(), kv_dtype="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -69,7 +73,7 @@ def test_unported_paths_raise():
 
 def test_generate_writes_midi(tmp_path):
     cfg = ModelConfig(mode="continuous_concat", **TINY)
-    model = MusicTransformer(cfg).init_weights(torch.Generator().manual_seed(0))
+    model = MusicTransformer(cfg, device="cpu").init_weights(torch.Generator().manual_seed(0))
     out = str(tmp_path / "gen")
     redo_p, redo_d, redo_c = generate(
         model, DEFAULT_VOCAB, out, "continuous_concat",
@@ -90,7 +94,7 @@ def test_cli_on_reference_work_dir(tmp_path):
     """CLI -> convert.load_model_dir -> generate() on the CPU, from a
     reference-format work dir (whose config always has max_seq 2048)."""
     cfg = ModelConfig(mode="continuous_concat", **{**TINY, "max_seq": 2048})
-    model = MusicTransformer(cfg).init_weights(torch.Generator().manual_seed(1))
+    model = MusicTransformer(cfg, device="cpu").init_weights(torch.Generator().manual_seed(1))
     model_dir = str(tmp_path / "work")
     save_reference_dir(model_dir, cfg, model.state_dict(), DEFAULT_VOCAB)
     generate_cli.main([

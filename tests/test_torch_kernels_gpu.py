@@ -7,11 +7,15 @@ may lack): ``python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest``.
 import pytest
 import torch
 
-from midi_emotion_tpu.models.config import ModelConfig
+from midi_emotion_tpu_torch.models.config import ModelConfig
 from midi_emotion_tpu_torch.models.model import MusicTransformer
+from midi_emotion_tpu_torch.ops import fused_dropout as fd
 from midi_emotion_tpu_torch.ops.flash_attention import (
-    flash_rel_attention, flash_rel_attention_plain)
-from midi_emotion_tpu_torch.ops.layernorm import layernorm, layernorm_ref
+    flash_rel_attention, flash_rel_attention_bwd, flash_rel_attention_bwd_plain,
+    flash_rel_attention_plain)
+from midi_emotion_tpu_torch.ops.layernorm import (
+    layernorm, layernorm_bwd, layernorm_bwd_ref, layernorm_ref)
+from midi_emotion_tpu_torch.training.train_step import make_optimizer, make_train_step
 
 pytestmark = pytest.mark.gpu
 
@@ -31,14 +35,19 @@ def _qkve(B, H, T, dh, max_seq, dtype, seed=0):
     return q, k, v, torch.randn((max_seq, dh), generator=g, device="cuda").to(dtype)
 
 
+def _pad(B, T, device):
+    pad = torch.zeros((B, T), dtype=torch.bool, device=device)
+    pad[1, 0] = True  # batch row 1, query 0: no visible key when causal
+    pad[1, T - T // 3:] = True
+    return pad
+
+
 @pytest.mark.parametrize("dh", [16, 32, 48, 64])
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_twin_f32(cuda, dh, T, causal):
     q, k, v, e = _qkve(2, 3, T, dh, 256, torch.float32)
-    pad = torch.zeros((2, T), dtype=torch.bool, device=cuda)
-    pad[1, 0] = True  # batch row 1, query 0: no visible key when causal
-    pad[1, T - T // 3:] = True
+    pad = _pad(2, T, cuda)
     o, lse = flash_rel_attention(q, k, v, e, causal, pad)
     ro, rlse = flash_rel_attention_plain(q, k, v, e, causal, pad)
     torch.testing.assert_close(o, ro, rtol=1e-4, atol=1e-4)
@@ -57,6 +66,44 @@ def test_flash_kernel_matches_twin_bf16(cuda, T, causal):
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-3)
 
 
+def _bwd_pair(q, k, v, e, causal, pad, seed=2):
+    """(kernel, twin) backward outputs for one forward and one cotangent;
+    the cotangent is zero on pad query rows, as a masked loss makes it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(q.dtype)
+    if pad is not None:
+        do = do * (~pad)[:, None, :, None]
+    got = flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    want = flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do)
+    return got, want
+
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 64])
+@pytest.mark.parametrize("T", [1, 65, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_matches_twin_f32(cuda, dh, T, causal):
+    q, k, v, e = _qkve(2, 3, T, dh, 256, torch.float32)
+    pad = _pad(2, T, cuda)
+    got, want = _bwd_pair(q, k, v, e, causal, pad)
+    # f32 in both, different summation orders over <= 200 terms
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    if causal:  # the fully masked query row (batch 1, row 0) gets no gradient
+        assert got[0][1, :, 0].eq(0).all()
+
+
+def test_flash_bwd_kernel_matches_twin_bf16(cuda):
+    q, k, v, e = _qkve(2, 4, 1216, 48, 2048, torch.bfloat16, seed=3)
+    got, want = _bwd_pair(q, k, v, e, True, _pad(2, 1216, cuda))
+    # f32 sums in both from the same bf16 inputs, rounded once to bf16:
+    # within a few bf16 ulps of each gradient's scale
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
+        assert a.dtype == torch.bfloat16, name
+        bound = 2e-2 * (1 + b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= bound, name
+
+
 def test_flash_wrapper_guards_and_counter(cuda):
     q, k, v, e = _qkve(1, 2, 64, 48, 128, torch.float32)
     before = flash_rel_attention.launches
@@ -70,9 +117,11 @@ def test_flash_wrapper_guards_and_counter(cuda):
         flash_rel_attention(*_qkve(1, 2, 64, 40, 128, torch.float32))
     with pytest.raises(ValueError, match="max_seq"):
         flash_rel_attention(q, k, v, e[:32])
-    with pytest.raises(RuntimeError, match="backward"):
-        flash_rel_attention(q.requires_grad_(), k, v, e)
     assert flash_rel_attention.launches == before + 1
+    bwd_before = flash_rel_attention_bwd.launches
+    o, _ = flash_rel_attention(q.requires_grad_(), k, v, e)
+    o.sum().backward()
+    assert flash_rel_attention_bwd.launches == bwd_before + 1 and q.grad is not None
 
 
 @pytest.mark.parametrize("rows,D", [(1, 768), (7, 768), (4864, 768), (5, 100), (3, 4096)])
@@ -89,6 +138,25 @@ def test_layernorm_kernel_matches_twin(cuda, rows, D, dtype):
     torch.testing.assert_close(y.float(), layernorm_ref(x, w, b).float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("rows,D", [(1, 768), (7, 768), (9728, 768), (5, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_bwd_kernel_matches_twin(cuda, rows, D, dtype):
+    g = torch.Generator(device="cuda").manual_seed(rows + 1)
+    x = (torch.randn((rows, D), generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    dy = torch.randn((rows, D), generator=g, device=cuda).to(dtype)
+    w = torch.randn((D,), generator=g, device=cuda)
+    before = layernorm_bwd.launches
+    dx, dw, db = layernorm_bwd(x, dy, w)
+    assert layernorm_bwd.launches == before + 1 and dx.dtype == dtype
+    rdx, rdw, rdb = layernorm_bwd_ref(x, dy, w)
+    # dx: f32 math in both, bf16 output within one ulp; dw/db: f32 sums
+    # over `rows` terms in other orders
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(dx.float(), rdx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dw, rdw, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(db, rdb, rtol=1e-4, atol=1e-3)
+
+
 def test_layernorm_wrapper_guards(cuda):
     x = torch.randn((4, 64), device=cuda)
     w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
@@ -96,15 +164,62 @@ def test_layernorm_wrapper_guards(cuda):
         layernorm(x.t(), torch.ones(4, device=cuda), torch.zeros(4, device=cuda))
     with pytest.raises(ValueError, match="f32"):
         layernorm(x, w.bfloat16(), b)
-    with pytest.raises(RuntimeError, match="backward"):
-        layernorm(x.requires_grad_(), w, b)
+    before = layernorm_bwd.launches
+    layernorm(x.requires_grad_(), w, b).sum().backward()
+    assert layernorm_bwd.launches == before + 1 and x.grad is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_mask(cuda, dtype):
+    rate = 0.1
+    x = torch.ones((9728, 768), dtype=dtype, device=cuda)
+    before = fd.fused_dropout.launches
+    y = fd.fused_dropout(x, 1234, rate)
+    keep = y != 0
+    n = keep.numel()
+    frac = keep.float().mean().item()
+    # binomial: 6 standard deviations of the keep fraction
+    assert abs(frac - (1 - rate)) <= 6 * ((rate * (1 - rate)) / n) ** 0.5, frac
+    torch.testing.assert_close(y, fd.dropout_plain(x, keep, rate))
+    assert torch.equal(fd.fused_dropout(x, 1234, rate), y)  # a fixed seed reproduces
+    assert not torch.equal(fd.fused_dropout(x, 1235, rate), y)  # a new seed differs
+    # the backward draws the same mask
+    xg = x.clone().requires_grad_()
+    fd.fused_dropout(xg, 1234, rate).backward(torch.ones_like(x))
+    assert torch.equal(xg.grad != 0, keep)
+    assert fd.fused_dropout.launches == before + 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D", [(9728, 768), (5, 100)])
+def test_dropout_add_layernorm_kernels_match_twin(cuda, dtype, rows, D):
+    rate, seed = 0.1, 77
+    g = torch.Generator(device="cuda").manual_seed(5)
+    sub = torch.randn((rows, D), generator=g, device=cuda).to(dtype)
+    res = torch.randn((rows, D), generator=g, device=cuda).to(dtype)
+    dy = torch.randn((rows, D), generator=g, device=cuda).to(dtype)
+    w = torch.randn((D,), generator=g, device=cuda)
+    b = torch.randn((D,), generator=g, device=cuda)
+    # the mask is a function of (seed, flat index): dropout of ones recovers it
+    keep = fd.fused_dropout(torch.ones_like(sub), seed, rate) != 0
+    y = fd.dropout_add_layernorm(sub, res, w, b, seed, rate)
+    want = fd.dropout_add_layernorm_plain(sub, res, w, b, keep, rate)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+    got = fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate)
+    ref = fd.dropout_add_layernorm_bwd_plain(sub, res, dy, w, keep, rate)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, r in zip(("dsub", "dres"), got[:2], ref[:2]):
+        torch.testing.assert_close(a.float(), r.float(), rtol=tol, atol=tol, msg=name)
+    for name, a, r in zip(("dw", "db"), got[2:], ref[2:]):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-3, msg=name)
 
 
 def test_model_kernel_path_matches_plain_path(cuda):
     cfg = ModelConfig(mode="continuous_concat", vocab_size=1007, n_layer=2, n_head=4,
                       d_model=128, d_inner=256, d_condition=32, max_seq=256, dropout=0.0)
     gen = torch.Generator().manual_seed(0)
-    cpu = MusicTransformer(cfg).init_weights(gen)
+    cpu = MusicTransformer(cfg, device="cpu").init_weights(gen)
     models = {}
     for impl in ("kernel", "plain"):
         models[impl] = MusicTransformer(cfg, device=cuda, attn_impl=impl)
@@ -118,3 +233,30 @@ def test_model_kernel_path_matches_plain_path(cuda):
         for impl, m in models.items():
             got = m(strided, cond.to(cuda)).cpu()
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=impl)
+
+
+def test_train_step_kernels_match_plain_twins(cuda):
+    """One f32 train step (dropout 0) through the kernels (flash and LN,
+    both directions) against the same step on the CPU (plain twins): loss,
+    grad norm and every (clipped) gradient."""
+    cfg = ModelConfig(mode="continuous_concat", vocab_size=1007, n_layer=2, n_head=4,
+                      d_model=128, d_inner=256, d_condition=32, max_seq=256, dropout=0.0)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(2, 1007, (1, 2, 97), generator=gen)
+    tokens[0, 1, -9:] = 0
+    batch = {"input": tokens[:, :, :-1], "target": tokens[:, :, 1:],
+             "condition": torch.tensor([[[0.5, -0.5], [0.1, 0.9]]])}
+    out = {}
+    before = (flash_rel_attention_bwd.launches, layernorm_bwd.launches)
+    for dev in ("cpu", "cuda"):
+        model = MusicTransformer(cfg, device=dev).init_weights(torch.Generator().manual_seed(0))
+        step = make_train_step(model, make_optimizer(model), clip=1.0)
+        m = step({k: v.to(dev) for k, v in batch.items()}, 1e-3)
+        out[dev] = (m, {n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert flash_rel_attention_bwd.launches == before[0] + 2
+    assert layernorm_bwd.launches == before[1] + 4
+    (mc, gc), (mg, gg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(mg["grad_norm"].cpu(), mc["grad_norm"], rtol=1e-4, atol=1e-5)
+    for n in gc:
+        torch.testing.assert_close(gg[n], gc[n], rtol=1e-4, atol=1e-5, msg=n)
