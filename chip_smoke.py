@@ -6,13 +6,16 @@
 Phases, each fatal on failure:
   1. refuse to start without CUDA; print the card's name and power limit;
   2. build the hand-written kernels from the sources in this checkout
-     (the CUDA flash attention forward and backward with nvcc into
-     build/kernels/, one nvcc per source, started together; the Triton
-     LayerNorm and dropout kernels at their first launch);
+     (the CUDA flash attention forward and backward and the stacked-cache
+     decode attention with nvcc into build/kernels/, one nvcc per source,
+     started together; the Triton LayerNorm and dropout kernels at their
+     first launch);
   3. compare each kernel with its plain PyTorch twin on the card, at the
-     flagship shapes, in f32 and bf16, and time both and, where one PyTorch
-     call computes the same function, that call; then one small f32 train
-     step through the kernels against the same step on the CPU (twins);
+     flagship shapes, in f32 and bf16 (the decode kernel in its four modes,
+     int8 and bf16, unstaged and staged, at the serving shapes L 20, B 64,
+     W 1408), and time both and, where one PyTorch call computes the same
+     function, that call; then one small f32 train step through the
+     kernels against the same step on the CPU (twins);
   4. write a random-init flagship model (continuous_concat, 20 layers,
      d_model 768, 16 heads of 48, seeded torch.Generator) as a
      reference-format work dir and check its forward pass on the card
@@ -22,13 +25,19 @@ Phases, each fatal on failure:
      bf16, dropout 0.1): a few steps, a checkpoint, a resume; then a short
      --dropout 0 run at 4 layers (its LayerNorms run kernels 2 and 3); time
      train tokens/sec over 5 steps after 2 warm-up steps and profile two;
-  6. run the port's generation CLI on the trained work dir (bf16, batch 4,
-     1400 tokens, window 1216, so the window refreshes at T = 1216) and
-     check the MIDI files and the sampled ids;
+  6. serve the trained work dir: the stacked int8 and bf16 decode steps
+     against the native ones (logits within the JAX package's bounds); then
+     the port's generation CLI (bf16, batch 4, 1400 tokens, window 1216, so
+     the window refreshes at T = 1216) with the native cache and with
+     --kv_dtype int8, checking the MIDI files and the sampled ids; a short
+     int8 run with MIDI_EMOTION_DECODE_STAGE=0 (the unstaged kernel mode);
+     and generate() with a varying condition through generate_exact;
   7. time generation alone, at the smoke's shape and at the headline shape
-     (batch 64, 1024 tokens, window 1216, top-p 0.7).
+     (batch 64, 1024 tokens, window 1216, top-p 0.7) with the native, int8
+     and bf16 caches in turn, and profile 8 decode steps at B 64 (native
+     and int8): device-busy share and the top kernels per step.
 Each path (the dropout-0.1 training run with its resume, the dropout-0
-run, the generation CLI) runs with every kernel launch counter set to 0
+run, each generation run) runs with every kernel launch counter set to 0
 just before it and read just after; the script fails if a kernel of that
 path was never launched.
 
@@ -55,7 +64,7 @@ TRAIN_B, TRAIN_T = 8, 1216
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s;
 # dense bf16 tensor-core FLOP/s; f32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def fail(msg):
@@ -78,11 +87,12 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters=20, warmup=3):
+def device_ms(torch, fn, iters=20, warmup=3, only=None):
     """Mean device time of fn() in ms: the summed durations of the CUDA
-    kernels it launched, by torch.profiler (CUPTI), over ``iters`` runs.
-    Unlike CUDA events around back-to-back launches, this leaves out the
-    gaps in which the card waits for the host to launch the next kernel."""
+    kernels it launched (those whose name holds ``only``, when given), by
+    torch.profiler (CUPTI), over ``iters`` runs. Unlike CUDA events around
+    back-to-back launches, this leaves out the gaps in which the card waits
+    for the host to launch the next kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -93,7 +103,8 @@ def device_ms(torch, fn, iters=20, warmup=3):
             fn()
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (only is None or only in e.key))
     return total_us / 1e3 / iters
 
 
@@ -114,17 +125,21 @@ def _rel_err(a, b):
     return (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
 
 
-def _report(torch, out, timed, name, kernel_fn, plain_fn, library_fn=None, iters=20):
+def _report(torch, out, timed, name, kernel_fn, plain_fn, library_fn=None, iters=20,
+            kernel_only=None):
     """With ``timed``, time the kernel, its plain twin and, where there is
     one, the library call, into ``out``: device time (``device_ms``) for
-    the JSON line, and CUDA-event time per call printed beside it."""
+    the JSON line, and CUDA-event time per call printed beside it. With
+    ``kernel_only``, the kernel's device time counts only the kernels whose
+    name holds it (not the wrapper's small torch ops around the launch)."""
     if not timed:
         return out
     fns = {"ms": kernel_fn, "plain_ms": plain_fn, "library_ms": library_fn}
     n = {"ms": iters, "plain_ms": max(2, iters // 10), "library_ms": iters}
     events = {}
     for key, fn in fns.items():
-        out[key] = None if fn is None else device_ms(torch, fn, iters=n[key])
+        only = kernel_only if key == "ms" else None
+        out[key] = None if fn is None else device_ms(torch, fn, iters=n[key], only=only)
         events[key] = None if fn is None else time_ms(torch, fn, iters=n[key])
     show = lambda key: "-" if out[key] is None else f"{out[key]:.4f} ({events[key]:.4f})"
     print(f"{name}: device ms (event ms per call): kernel {show('ms')}, plain "
@@ -372,6 +387,137 @@ def check_dal(torch, rows, D, dtype, rate, tol, timed=False):
     return fwd, bwd
 
 
+# the flagship's serving cache: W 1408 is w_max for window 1216 with the
+# default hop (1216 // 8), rounded up to 128
+DECODE = dict(L=20, B=64, W=1408, H=16, dh=48, S=8)
+
+
+def _decode_cache(torch, quant, seed):
+    """A stacked cache of random rows at the serving shapes (quantized per
+    layer for int8), q, E, a stage and the current row, on the card; and
+    max |V| before quantization."""
+    from midi_emotion_tpu_torch.ops import decode_attention as da
+
+    L, B, W, H, dh, S = (DECODE[k] for k in ("L", "B", "W", "H", "dh", "S"))
+    D = H * dh
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kv = torch.empty((L, B, W, 2 * D), dtype=torch.int8 if quant else torch.bfloat16,
+                     device="cuda")
+    sc = torch.empty((L, B, 2 * H, W), dtype=torch.bfloat16, device="cuda") if quant else None
+    vmax = 0.0
+    for i in range(L):
+        rows = torch.randn((B, W, 2 * D), generator=g, device="cuda")
+        vmax = max(vmax, rows[..., D:].abs().max().item())
+        if quant:
+            kv[i], sc[i] = da.quantize_rows(rows, 2 * H)
+        else:
+            kv[i] = rows
+    q = torch.randn((B, H, dh), generator=g, device="cuda")
+    e = torch.randn((FLAGSHIP["max_seq"], dh), generator=g, device="cuda")
+    pend = torch.randn((S, L, B, 2 * D), generator=g, device="cuda").bfloat16()
+    row = torch.randn((B, 2 * D), generator=g, device="cuda").bfloat16()
+    return kv, sc, q, e, pend, row, vmax
+
+
+def check_decode(torch, quant, timed=False):
+    """Kernel 13 against its twin at the serving shapes, layer 13 of 20,
+    unstaged at each length and staged (S 8) at each (length, p_cnt), p_cnt
+    8 being the clamp. Tolerances: the integer score sums are exact, but
+    the f32 scores round apart by an ulp, and a flip of one P
+    re-quantization unit moves a head's output by at most about
+    max|V|/127 (int8); bf16 rounds p to bf16 in both, so the unstaged
+    normalized acc is held to 1e-3 of max|V|; the staged bf16 output adds
+    one bf16 ulp (2^-7 of its scale, both roundings); m and l to f32
+    summation order (1e-5 relative); the written stage exactly."""
+    from midi_emotion_tpu_torch.ops import decode_attention as da
+
+    L, B, W, H, dh, S = (DECODE[k] for k in ("L", "B", "W", "H", "dh", "S"))
+    D = H * dh
+    layer = min(13, L - 1)  # a nonzero layer
+    mode = "int8" if quant else "bf16"
+    kv, sc, q, e, pend, row, vmax = _decode_cache(torch, quant, SEED + 5)
+    p_tol = vmax / 127 if quant else 0.0
+    worst = {"unstaged": 0.0, "staged": 0.0, "m/l": 0.0}
+    for length in (0, 1, 127, 128, 129, 700, 1400):
+        e_rows = da.expand_e_rows(e, length + 1, W)
+        acc, m, l = da.decode_attn_cached(q, kv, sc, layer, e_rows, length)
+        torch.cuda.synchronize()
+        racc, rm, rl = da.decode_attn_cached_plain(q, kv, sc, layer, e_rows, length)
+        if length == 0:
+            if not ((m == -1e30).all() and (l == 0).all() and (acc == 0).all()):
+                fail(f"decode {mode}: length 0 is not the fully masked triple")
+        else:
+            err_ml = max(((m - rm).abs() / (1 + rm.abs())).max().item(),
+                         ((l - rl).abs() / (1 + rl.abs())).max().item())
+            err = (acc.view(B, H, dh) / l[..., None]
+                   - racc.view(B, H, dh) / rl[..., None]).abs().max().item()
+            tol = p_tol if quant else 1e-3 * vmax
+            worst["unstaged"] = max(worst["unstaged"], err)
+            worst["m/l"] = max(worst["m/l"], err_ml)
+            if not (err <= tol and err_ml <= 1e-5 and torch.isfinite(acc).all()):
+                fail(f"decode {mode} unstaged length {length}: err {err:.3e} (tol {tol:.3e}), "
+                     f"m/l {err_ml:.3e} (tol 1e-5)")
+        for p_cnt in (0, 3, 7, 8):
+            e_rows = da.expand_e_rows(e, length + p_cnt + 1, W)
+            e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1)
+            got_pend, want_pend = pend.clone(), pend.clone()
+            out, _ = da.decode_attn_cached(q, kv, sc, layer, e_rows, length, got_pend, e_pend,
+                                           p_cnt, row)
+            torch.cuda.synchronize()
+            ref, _ = da.decode_attn_cached_plain(q, kv, sc, layer, e_rows, length, want_pend,
+                                                 e_pend, p_cnt, row)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = p_tol + 2 ** -7 * ref.float().abs().max().item()
+            worst["staged"] = max(worst["staged"], err)
+            if not (torch.equal(got_pend, want_pend) and err <= tol
+                    and torch.isfinite(out).all()):
+                fail(f"decode {mode} staged length {length} p_cnt {p_cnt}: err {err:.3e} "
+                     f"(tol {tol:.3e}), stage equal {torch.equal(got_pend, want_pend)}")
+    name = f"decode {mode} L={L} B={B} W={W} H={H} dh={dh}"
+    print(f"{name}: lengths 0..1400, p_cnt 0/3/7/8: max err unstaged {worst['unstaged']:.3e}, "
+          f"staged {worst['staged']:.3e} (P unit max|V|/127 = {vmax / 127:.3e}), m/l "
+          f"{worst['m/l']:.3e}; stage writes exact")
+
+    # timed: staged, length 1216 (the window), 4 rows in the stage
+    length, p_cnt = 1216, 4
+    e_rows = da.expand_e_rows(e, length + p_cnt + 1, W)
+    e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1)
+    stage = pend.clone()
+    item = 1 if quant else 2
+    n_bytes = (B * length * 2 * D * item + (B * 2 * H * length * 2 if quant else 0)
+               + length * dh * 2 + B * H * dh * (2 + (1 if quant else 0)) + (B * H * 4 if quant else 0)
+               + B * p_cnt * 2 * D * 2 + (S + 1) * dh * 2 + 2 * B * 2 * D * 2 + B * D * 2)
+    out = {"max_abs_err": max(worst["unstaged"], worst["staged"])}
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, B * H * (length + p_cnt + 1) * 6 * dh,
+                                             "int8" if quant else "bf16")
+    library = None
+    if not quant:
+        # F.scaled_dot_product_attention over the same live cache rows, the
+        # relative bias passed as a float mask built outside the timing
+        import torch.nn.functional as F
+
+        qb = q.bfloat16()[:, :, None, :]
+        kb = kv[layer, :, :length, :D].view(B, length, H, dh).transpose(1, 2)
+        vb = kv[layer, :, :length, D:].view(B, length, H, dh).transpose(1, 2)
+        mask = ((qb.float() @ e_rows[:length].float().T) / dh ** 0.5).bfloat16()
+
+        def library():
+            return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+
+    res = _report(torch, out, timed, f"{name} staged length {length} p_cnt {p_cnt}",
+                  lambda: da.decode_attn_cached(q, kv, sc, layer, e_rows, length, stage, e_pend,
+                                                p_cnt, row),
+                  lambda: da.decode_attn_cached_plain(q, kv, sc, layer, e_rows, length, stage,
+                                                      e_pend, p_cnt, row),
+                  library, iters=50, kernel_only="decode_attn_stacked")
+    if timed:
+        print(f"{name}: bytes moved {n_bytes / 1e6:.1f} MB; kernel at "
+              f"{n_bytes / (res['ms'] * 1e-3) / 1e12:.3f} TB/s")
+    del kv, sc, pend, stage
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_train_step(torch):
     """One f32 train step (2 layers, B 2, T 256, dropout 0) through the
     kernels on the card against the same step on the CPU (plain twins):
@@ -506,12 +652,15 @@ KERNELS = (  # name, route, source, the TPU kernel it replaces
      "midi_emotion_tpu/ops/fused_dropout.py:194"),
     ("dal_bwd", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
      "midi_emotion_tpu/ops/fused_dropout.py:211"),
+    ("decode_attn_stacked", "cuda", "midi_emotion_tpu_torch/csrc/decode_attn_stacked.cu",
+     "midi_emotion_tpu/ops/decode_attention.py:73"),
 )
 
 
 def counters():
     """Kernel name -> the wrapper that counts its launches."""
     from midi_emotion_tpu_torch.ops import fused_dropout as fd
+    from midi_emotion_tpu_torch.ops.decode_attention import decode_attn_cached
     from midi_emotion_tpu_torch.ops.flash_attention import (
         flash_rel_attention, flash_rel_attention_bwd)
     from midi_emotion_tpu_torch.ops.layernorm import layernorm, layernorm_bwd
@@ -519,7 +668,7 @@ def counters():
     return {"flash_rel_attn_fwd": flash_rel_attention, "ln_fwd": layernorm,
             "ln_bwd": layernorm_bwd, "flash_rel_attn_bwd": flash_rel_attention_bwd,
             "dropout": fd.fused_dropout, "dal_fwd": fd.dropout_add_layernorm,
-            "dal_bwd": fd.dropout_add_layernorm_bwd}
+            "dal_bwd": fd.dropout_add_layernorm_bwd, "decode_attn_stacked": decode_attn_cached}
 
 
 def reset_counts():
@@ -549,7 +698,7 @@ def run_path(name, required, fn):
 # ---------------------------------------------------------------------------
 
 
-def timed_generation(torch, model, vocab, B, gen_len, max_input_len):
+def timed_generation(torch, model, vocab, B, gen_len, max_input_len, kv_dtype="native"):
     from midi_emotion_tpu_torch.generation.sampler import Sampler
     from midi_emotion_tpu_torch.ops.sampling import SamplingParams
 
@@ -558,7 +707,8 @@ def timed_generation(torch, model, vocab, B, gen_len, max_input_len):
     primer = np.full((B, 1), vocab.start_id, np.int32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    song = Sampler(model, vocab, sp).generate(primer, continuous_conditions=cond)
+    song = Sampler(model, vocab, sp, kv_dtype=kv_dtype).generate(primer,
+                                                                 continuous_conditions=cond)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     if song.shape != (B, gen_len) or vocab.special_mask()[song[:, 1:]].any():
@@ -566,18 +716,139 @@ def timed_generation(torch, model, vocab, B, gen_len, max_input_len):
     return B * (gen_len - 1) / secs, secs
 
 
+def check_stacked_steps(torch, model):
+    """The trained flagship (bf16) on the card: prefill a 100-token prompt
+    at window 1408, then 10 teacher-forced steps through the staged stacked
+    cache (S 8, so one flush) against the native cache's decode steps. The
+    bounds are the JAX package's (tests/test_decode_attention.py): int8
+    within 5% of the native logits' scale, bf16 within 2%."""
+    from midi_emotion_tpu_torch.ops.decode_attention import flush_pend
+
+    B, T, W, S, n = 4, 100, DECODE["W"], DECODE["S"], 10
+    cfg = model.config
+    g = torch.Generator().manual_seed(SEED + 6)
+    tokens = torch.randint(2, 1007, (B, T + n), generator=g).cuda()
+    cond = torch.tensor([[0.8, 0.8], [-0.5, 0.5], [0.3, -0.3], [-0.9, -0.9]], device="cuda")
+    with torch.inference_mode():
+        ce = model.condition_embedding(cond)
+        _, cache = model.prefill(tokens[:, :T], cond, W)
+        native = []
+        for i in range(n):
+            logits, cache = model.decode_step(tokens[:, T + i], ce, cache)
+            native.append(logits.float())
+        del cache
+        for quant, limit in ((True, 0.05), (False, 0.02)):
+            _, cache = model.prefill_q(tokens[:, :T], cond, W, quant)
+            kv, sc = cache["kv"], cache.get("sc")
+            pend = torch.zeros((S, cfg.n_layer, B, 2 * cfg.d_model), dtype=torch.bfloat16,
+                               device="cuda")
+            f_len, p, worst = T, 0, 0.0
+            for i in range(n):
+                logits, pend = model.decode_step_staged(tokens[:, T + i], ce, kv, sc, pend,
+                                                        f_len, p)
+                p += 1
+                if p == S:
+                    flush_pend(kv, sc, pend, f_len, cfg.n_head)
+                    f_len, p = f_len + S, 0
+                ref = native[i]
+                err = (logits.float() - ref).abs().max().item() / ref.abs().max().item()
+                if not torch.isfinite(logits).all():
+                    fail("stacked decode: non-finite logits")
+                worst = max(worst, err)
+            mode = "int8" if quant else "bf16"
+            print(f"stacked {mode} decode steps vs native (flagship bf16, B={B}, prompt {T}, "
+                  f"{n} steps, one flush): worst error {worst:.3e} of the logits' scale "
+                  f"(limit {limit})")
+            if worst > limit:
+                fail(f"stacked {mode} decode steps disagree with the native cache")
+            del cache, kv, sc, pend
+    torch.cuda.empty_cache()
+
+
+def check_midis(vocab, out, n, gen_len):
+    from midi_emotion_tpu_torch.data import midi_io
+
+    mids = sorted(f for f in os.listdir(out) if f.endswith(".mid"))
+    if len(mids) < n:
+        fail(f"{out}: expected >= {n} MIDI files, found {mids}")
+    special = vocab.special_mask()
+    for f in mids:
+        tracks = midi_io.read_midi(os.path.join(out, f))
+        ids = np.load(os.path.join(out, "inds_" + f[:-4] + ".npy"))
+        if ids.shape != (gen_len,) or special[ids[1:]].any() or ids.max() >= 1007:
+            fail(f"{f}: bad sampled ids")
+        print(f"{os.path.basename(out)}/{f}: {len(tracks)} tracks, "
+              f"{sum(len(t.notes) for t in tracks)} notes")
+
+
+def profile_decode(torch, model, vocab, kv_dtype, B=64, prompt_len=600, steps=8):
+    """torch.profiler over ``steps`` decode steps of the Sampler's own chunk
+    loop at B 64 (window 1408, a 600-token prompt, after a warm-up chunk):
+    wall ms per step under the profiler, device-busy share and the top five
+    kernels per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from midi_emotion_tpu_torch.generation.sampler import Sampler
+    from midi_emotion_tpu_torch.ops.sampling import SamplingParams
+
+    sampler = Sampler(model, vocab, SamplingParams(gen_len=1024, max_input_len=1216, top_p=0.7),
+                      kv_dtype=kv_dtype)
+    g = torch.Generator().manual_seed(SEED + 7)
+    prompt = torch.randint(2, 1007, (B, prompt_len), generator=g).numpy()
+    cond = torch.full((B, 2), 0.5, device="cuda")
+    u = torch.rand((2 * steps, B), generator=g).cuda()
+    with torch.inference_mode():
+        logits, cache, ce = sampler._prefill(prompt, cond, DECODE["W"])
+        chunk = sampler._decode_chunk
+        if sampler.stage_steps:
+            cache, chunk = sampler._to_staged(cache, B), sampler._decode_chunk_staged
+        key = torch.full((B,), vocab.start_id, dtype=torch.long, device="cuda")
+        counts = torch.zeros((B,), dtype=torch.long, device="cuda")
+        _, logits, cache, counts = chunk(steps, cache, logits, key, counts, u[:steps], ce, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            chunk(steps, cache, logits, key, counts, u[steps:], ce, None)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in events)
+    print(f"decode profile {kv_dtype} (B={B}, window {DECODE['W']}, prompt {prompt_len}, "
+          f"{steps} steps): {secs * 1e3 / steps:.2f} ms/step wall under the profiler, device "
+          f"busy {device_us / 1e3 / steps:.3f} ms/step ({100 * device_us / 1e6 / secs:.1f}% of "
+          f"wall), {sum(e.count for e in events) / steps:.0f} kernels/step")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"  {e.self_device_time_total / 1e3 / steps:9.3f} ms/step "
+              f"{100 * e.self_device_time_total / device_us:5.1f}%  x{e.count // steps:<5d} "
+              f"{e.key[:90]}")
+    del cache
+    torch.cuda.empty_cache()
+
+
+def _kernel_label(mangled):
+    """A readable name for a mangled kernel of this repository's sources."""
+    m = re.search(r"(\w+_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?", mangled)
+    if m:
+        kern, t, dh = m.groups()
+        return f"{kern} <{'bf16' if t != 'f' else 'f32'}{', dh=' + dh if dh else ''}>"
+    m = re.search(r"(decode_attn_stacked_kernel)ILi(\d+)ELb([01])E", mangled)
+    if m:
+        kern, dh, quant = m.groups()
+        return f"{kern} <dh={dh}, {'int8' if quant == '1' else 'bf16'}>"
+    return mangled
+
+
 def print_ptxas(lib_path, label):
     log = lib_path.with_name(lib_path.name + ".log")
     if not log.exists():
         return
     text = log.read_text()
-    kinds = re.findall(r"Compiling entry function '\S*?(\w+_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?",
-                       text)
+    kinds = re.findall(r"Compiling entry function '(\S+)'", text)
     regs = re.findall(r"Used (\d+) registers", text)
     spills = re.findall(r"(\d+) bytes spill stores", text)
-    for (kern, t, dh), r, sp in zip(kinds, regs, spills):
-        print(f"ptxas: {label} {kern} <{'bf16' if t != 'f' else 'f32'}"
-              f"{', dh=' + dh if dh else ''}>: {r} registers, {sp} bytes spilled")
+    for kern, r, sp in zip(kinds, regs, spills):
+        print(f"ptxas: {label} {_kernel_label(kern)}: {r} registers, {sp} bytes spilled")
 
 
 def main():
@@ -602,7 +873,6 @@ def main():
 
     from midi_emotion_tpu_torch.cli import generate_cli, train_cli
     from midi_emotion_tpu_torch.convert import load_model_dir, save_reference_dir
-    from midi_emotion_tpu_torch.data import midi_io
     from midi_emotion_tpu_torch.kernels.build import CUDA_SOURCES, build_all, library_path
     from midi_emotion_tpu_torch.models.config import ModelConfig
     from midi_emotion_tpu_torch.models.model import MusicTransformer
@@ -650,6 +920,8 @@ def main():
     dropout = check_dropout(torch, rows, 768, torch.bfloat16, 0.1, timed=True)
     check_dal(torch, rows, 768, torch.float32, 0.1, 1e-5)
     dal_fwd, dal_bwd = check_dal(torch, rows, 768, torch.bfloat16, 0.1, 2 ** -7, timed=True)
+    decode_int8 = check_decode(torch, True, timed=True)  # the JSON line's row: int8, staged
+    check_decode(torch, False, timed=True)
     check_train_step(torch)
     torch.cuda.empty_cache()
     print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
@@ -730,48 +1002,82 @@ def main():
         torch.cuda.empty_cache()
 
         # phase 6 -------------------------------------------------------
+        model = load_model_dir(trained, torch.bfloat16, "cuda")[1]
+        check_stacked_steps(torch, model)
         B, gen_len = 4, 1400
+        inference = os.path.join(trained, "generations", "inference")
+        valence, arousal = ["0.8", "-0.5", "0.3", "-0.9"], ["0.8", "0.5", "-0.3", "-0.9"]
 
-        def serve():
-            t1 = time.perf_counter()
-            generate_cli.main([
-                "--model_dir", trained, "--conditioning", "continuous_concat",
-                "--dtype", "bf16", "--batch_size", str(B),
-                "--valence", "0.8", "-0.5", "0.3", "-0.9",
-                "--arousal", "0.8", "0.5", "-0.3", "-0.9", "--gen_len", str(gen_len),
-                "--max_input_len", "1216", "--device", "cuda", "--quiet",
-            ])
-            torch.cuda.synchronize()
-            return time.perf_counter() - t1
+        def serve(kv_dtype, batch, length, sub):
+            def run():
+                t1 = time.perf_counter()
+                generate_cli.main([
+                    "--model_dir", trained, "--conditioning", "continuous_concat",
+                    "--dtype", "bf16", "--batch_size", str(batch),
+                    "--valence", *valence[:batch], "--arousal", *arousal[:batch],
+                    "--gen_len", str(length), "--max_input_len", "1216", "--device", "cuda",
+                    "--kv_dtype", kv_dtype, "--batch_gen_dir", sub, "--quiet",
+                ])
+                torch.cuda.synchronize()
+                return time.perf_counter() - t1
+            return run
 
-        serve_counts, cli_secs = run_path("generation CLI (trained work dir)",
-                                          ("flash_rel_attn_fwd", "ln_fwd"), serve)
-        print(f"generation CLI run: {cli_secs:.2f} s")
-        out = os.path.join(trained, "generations", "inference")
-        mids = sorted(f for f in os.listdir(out) if f.endswith(".mid"))
-        if len(mids) < B:
-            fail(f"expected >= {B} MIDI files, found {mids}")
-        special = vocab.special_mask()
-        for f in mids:
-            tracks = midi_io.read_midi(os.path.join(out, f))
-            ids = np.load(os.path.join(out, "inds_" + f[:-4] + ".npy"))
-            if ids.shape != (gen_len,) or special[ids[1:]].any() or ids.max() >= 1007:
-                fail(f"{f}: bad sampled ids")
-            print(f"{f}: {len(tracks)} tracks, {sum(len(t.notes) for t in tracks)} notes")
+        serve_counts, cli_secs = run_path("generation CLI (trained work dir, native cache)",
+                                          ("flash_rel_attn_fwd", "ln_fwd"),
+                                          serve("native", B, gen_len, "native"))
+        print(f"generation CLI run, native cache: {cli_secs:.2f} s")
+        check_midis(vocab, os.path.join(inference, "_native"), B, gen_len)
+        int8_counts, int8_secs = run_path(
+            "generation CLI (trained work dir, --kv_dtype int8)",
+            ("flash_rel_attn_fwd", "ln_fwd", "decode_attn_stacked"),
+            serve("int8", B, gen_len, "int8"))
+        print(f"generation CLI run, int8 cache: {int8_secs:.2f} s")
+        check_midis(vocab, os.path.join(inference, "_int8"), B, gen_len)
+        os.environ["MIDI_EMOTION_DECODE_STAGE"] = "0"
+        try:
+            unstaged_counts, _ = run_path(
+                "generation CLI (--kv_dtype int8, MIDI_EMOTION_DECODE_STAGE=0)",
+                ("flash_rel_attn_fwd", "ln_fwd", "decode_attn_stacked"),
+                serve("int8", 2, 100, "int8_unstaged"))
+        finally:
+            del os.environ["MIDI_EMOTION_DECODE_STAGE"]
+        check_midis(vocab, os.path.join(inference, "_int8_unstaged"), 2, 100)
+
+        from midi_emotion_tpu_torch.generation.generate import generate
+
+        varying_out = os.path.join(inference, "_varying")
+        ramp = np.linspace(-0.9, 0.9, 48, dtype=np.float32)
+        exact_counts, (redo_p, redo_d, redo_c) = run_path(
+            "generate() with a varying condition (generate_exact, B 2, 48 tokens, window 256)",
+            ("flash_rel_attn_fwd", "ln_fwd"),
+            lambda: generate(model, vocab, varying_out, "continuous_concat",
+                             varying_condition=[np.stack([ramp, -ramp]), np.stack([-ramp, ramp])],
+                             gen_len=48, max_input_len=256, min_n_instruments=1,
+                             short_filename=True))
+        n_written = len([f for f in os.listdir(varying_out) if f.endswith(".mid")])
+        if n_written + len(redo_c or []) != 2 or n_written == 0:
+            fail(f"generate_exact wrote {n_written} MIDI files of 2")
+        check_midis(vocab, varying_out, n_written, 48)
 
         # phase 7 -------------------------------------------------------
-        model = load_model_dir(trained, torch.bfloat16, "cuda")[1]
         gtps, secs = timed_generation(torch, model, vocab, B, gen_len, 1216)
         print(f"generation tokens/sec: {gtps:.1f} (B={B}, gen_len={gen_len}, window 1216, "
-              f"bf16, {secs:.2f} s) on {card}")
-        tps64, secs64 = timed_generation(torch, model, vocab, 64, 1024, 1216)
-        print(f"headline sampled tokens/sec: {tps64:.1f} (B=64, gen_len=1024, window 1216, "
-              f"top-p 0.7, bf16, {secs64:.2f} s) on {card}")
+              f"bf16, native cache, {secs:.2f} s) on {card}")
+        headline = {}
+        for kv_dtype in ("native", "int8", "bf16"):
+            headline[kv_dtype], secs64 = timed_generation(torch, model, vocab, 64, 1024, 1216,
+                                                          kv_dtype)
+            print(f"headline sampled tokens/sec, {kv_dtype} cache: {headline[kv_dtype]:.1f} "
+                  f"(B=64, gen_len=1024, window 1216, top-p 0.7, bf16, {secs64:.2f} s) on {card}")
+            torch.cuda.empty_cache()
+        for kv_dtype in ("native", "int8"):
+            profile_decode(torch, model, vocab, kv_dtype)
 
     measured = {"flash_rel_attn_fwd": flash, "ln_fwd": ln, "ln_bwd": ln_bwd,
                 "flash_rel_attn_bwd": flash_bwd, "dropout": dropout, "dal_fwd": dal_fwd,
-                "dal_bwd": dal_bwd}
-    paths = (train_counts, drop0_counts, serve_counts)
+                "dal_bwd": dal_bwd, "decode_attn_stacked": decode_int8}
+    paths = (train_counts, drop0_counts, serve_counts, int8_counts, unstaged_counts,
+             exact_counts)
     kernels = []
     for name, route, source, replaces in KERNELS:
         m = measured[name]
@@ -780,7 +1086,9 @@ def main():
             launches=sum(c[name] for c in paths), max_abs_err=m["max_abs_err"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
             library_ms=m["library_ms"]))
-    print(f"total {time.perf_counter() - t_start:.1f} s; train tokens/sec {tps:.1f} on {card}")
+    print(f"total {time.perf_counter() - t_start:.1f} s; train tokens/sec {tps:.1f}; headline "
+          f"sampled tokens/sec native {headline['native']:.1f}, int8 {headline['int8']:.1f}, "
+          f"bf16 {headline['bf16']:.1f} on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

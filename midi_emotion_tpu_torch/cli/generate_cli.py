@@ -10,8 +10,9 @@ the reference's generate.py), plus ``--device``:
 mappings.pt); relative dirs that do not exist resolve against
 ``--output_dir``. Files go to ``<model_dir>/generations/inference``.
 ``--attn_impl auto`` runs the flash kernel on a CUDA device and the plain
-closed form on the CPU; the stacked KV caches (``--kv_dtype int8|bf16``)
-are not ported yet.
+closed form on the CPU. ``--kv_dtype int8|bf16`` serves from the stacked
+cache through the hand-written decode kernel (``ops/decode_attention.py``);
+``MIDI_EMOTION_DECODE_STAGE`` sets its stage depth (default 8, 0 = none).
 """
 
 from __future__ import annotations
@@ -63,8 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
         "closed form on CPU",
     )
     p.add_argument(
-        "--kv_dtype", type=str, default="native", choices=["native"],
-        help="decode KV cache: only the native per-layer cache is ported",
+        "--kv_dtype", type=str, default="native",
+        choices=["native", "int8", "bf16"],
+        help="decode KV cache: 'int8' = quantized stacked cache + fused "
+        "decode kernel (fastest at large batch; not bit-exact); 'bf16' = "
+        "the same stacked layout unquantized",
     )
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")

@@ -1,7 +1,8 @@
 """High-level generation API, in torch.
 
 Counterpart of ``midi_emotion_tpu/generation/generate.py``: assembles the
-batch from conditions and primers, runs the KV-cached sampler, then
+batch from conditions and primers, runs the sampler (KV-cached, or a full
+forward per token for per-step conditions), then
 post-processes each sample (instrument-count gating with redo lists,
 V/A-tagged names) and writes the MIDI file, the token text (``txt_``) and
 the raw ids (``inds_``) through the port's copies of ``data/codec.py`` and
@@ -74,6 +75,7 @@ def generate(
     debug: bool = False,
     verbose: bool = False,
     slide_hop: Optional[int] = None,
+    varying_condition: Optional[Sequence[np.ndarray]] = None,
     kv_dtype: str = "native",
 ):
     """Generate a batch and write MIDI files.
@@ -82,8 +84,12 @@ def generate(
     seeded with ``max(0, seed)``. That stream differs from the JAX
     package's for the same seed, so the two packages sample the same tokens
     only when the same uniforms are injected
-    (``Sampler.generate(uniforms=...)``). Per-step varying conditions need
-    ``Sampler.generate_exact``, which is not ported yet.
+    (``Sampler.generate(uniforms=...)``).
+
+    ``varying_condition``: optional [valences [B, gen_len], arousals
+    [B, gen_len]] per-step interpolation (the reference's generate.py:35-36,
+    110-113). It runs ``Sampler.generate_exact``, a full forward per token,
+    since per-step conditions invalidate cached K/V.
 
     Returns (redo_primers, redo_discrete_conditions,
     redo_continuous_conditions) like the reference, so callers can loop
@@ -98,7 +104,13 @@ def generate(
 
     discrete_prefix_ids = None
     cont = None
-    if conditioning == "none":
+    if varying_condition is not None:
+        valences, arousals = (np.asarray(a, np.float32) for a in varying_condition)
+        if not valences.shape == arousals.shape == (valences.shape[0], gen_len):
+            raise ValueError(f"varying_condition: valences {valences.shape} and arousals "
+                             f"{arousals.shape} must both be [B, gen_len={gen_len}]")
+        batch_size = valences.shape[0]
+    elif conditioning == "none":
         batch_size = len(primers)
     elif conditioning == "discrete_token":
         if discrete_conditions is None:
@@ -129,11 +141,15 @@ def generate(
         seed=seed,
     )
     sampler = Sampler(model, vocab, sampling, slide_hop=slide_hop, kv_dtype=kv_dtype)
-    song = sampler.generate(
-        primer_ids,
-        continuous_conditions=cont,
-        discrete_prefix_ids=discrete_prefix_ids,
-    )
+    if varying_condition is not None:
+        vc = np.stack([valences, arousals], axis=-1)  # [B, gen_len, 2]
+        song = sampler.generate_exact(primer_ids, varying_conditions=vc)
+    else:
+        song = sampler.generate(
+            primer_ids,
+            continuous_conditions=cont,
+            discrete_prefix_ids=discrete_prefix_ids,
+        )
 
     redo_primers: List = []
     redo_discrete: List = []

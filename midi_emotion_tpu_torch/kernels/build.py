@@ -57,7 +57,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-CUDA_SOURCES = ("flash_rel_attn_fwd", "flash_rel_attn_bwd")  # csrc/<name>.cu
+CUDA_SOURCES = ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "decode_attn_stacked")  # csrc/<name>.cu
 
 
 def _start_build(name: str):

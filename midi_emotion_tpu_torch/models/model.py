@@ -7,11 +7,20 @@ reference's ``state_dict`` (``convert/torch_import.py``), so a reference
 checkpoint, or a JAX one through ``convert.state_dict_from_jax_params``,
 loads with ``load_state_dict``.
 
-Besides ``forward`` the model has ``prefill`` / ``decode_step`` for the
-KV-cached sampler. The cache is a dict ``{"k": [L x [B, W, d_model]],
-"v": same, "length": int}``: one time-major buffer per layer, head h in
-columns [h*dh, (h+1)*dh). ``decode_step`` writes its row into each
-buffer in place.
+Besides ``forward`` the model has two KV caches for the sampler:
+
+  * native: ``prefill`` / ``decode_step`` over ``{"k": [L x [B, W,
+    d_model]], "v": same, "length": int}``, one time-major buffer per layer,
+    head h in columns [h*dh, (h+1)*dh);
+  * stacked (``ops/decode_attention.py``): ``prefill_q`` / ``decode_step_q``
+    / ``decode_step_staged`` over ``{"kv": [L, B, W, 2 * d_model] int8 or
+    bf16, "sc": [L, B, 2H, W] bf16 (int8 only), "length": int}``, K|V
+    merged. It stays int8/bf16 whatever the compute type, as in the JAX
+    package. The staged step leaves the cache alone and appends its rows
+    into a step-major stage ``[S, L, B, 2 * d_model]`` bf16 that the sampler
+    flushes every S steps (``flush_pend``).
+
+Every decode step writes its rows into the buffers in place.
 
 Two dtypes: ``dtype`` is the compute type and ``param_dtype`` (default
 ``dtype``) the type the parameters are held in. The serving model holds
@@ -40,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import decode_rel_attention, relative_attention, resolve_attn_impl
+from ..ops.decode_attention import decode_attn_cached, expand_e_rows, merge_self, quantize_rows
 from ..ops.fused_dropout import dropout_add_layernorm, fused_dropout
 from ..ops.layernorm import LayerNorm
 from .config import ModelConfig
@@ -118,6 +128,48 @@ class RelativeGlobalAttention(nn.Module):
         out = decode_rel_attention(q, k_cache, v_cache, self.E.to(x_t.dtype), length)
         return self.fc(out.reshape(B, -1))
 
+    def _qkv_row(self, x_t: torch.Tensor):
+        """-> (q [B, H, dh], k_t [B, d], v_t [B, d])."""
+        return self.Wq(x_t).view(x_t.shape[0], self.n_head, -1), self.Wk(x_t), self.Wv(x_t)
+
+    def decode_q(self, x_t: torch.Tensor, kv8: torch.Tensor, sc: Optional[torch.Tensor],
+                 layer_idx: int, length: int) -> torch.Tensor:
+        """One-token step against the stacked cache (``sc`` None for bf16).
+        ``length`` counts cached rows; the current token is folded in exactly
+        by ``merge_self``. Its K|V row (quantized for int8) is then written
+        into window row ``length`` of this layer IN PLACE: the JAX package
+        defers that append to the next step, which reads the same cache."""
+        q, k_t, v_t = self._qkv_row(x_t)
+        e = self.E.to(x_t.dtype)
+        e_rows = expand_e_rows(e, length + 1, kv8.shape[2])
+        acc, m, l = decode_attn_cached(q, kv8, sc, layer_idx, e_rows, length)
+        out = merge_self(acc, m, l, q, k_t, v_t, e[-1])
+        row = torch.cat([k_t, v_t], dim=-1)
+        if sc is None:
+            kv8[layer_idx, :, length] = row
+        else:
+            row8, rsc = quantize_rows(row[:, None, :], 2 * self.n_head)
+            kv8[layer_idx, :, length] = row8[:, 0]
+            sc[layer_idx, :, :, length] = rsc[:, :, 0]
+        return self.fc(out)
+
+    def decode_q_staged(self, x_t: torch.Tensor, kv8: torch.Tensor, sc: Optional[torch.Tensor],
+                        pend: torch.Tensor, layer_idx: int, f_len: int, p_cnt: int):
+        """decode_q against a cache whose last p_cnt rows are still in the
+        stage ``pend [S, L, B, 2d]`` bf16: one kernel call covers the f_len
+        flushed rows, the stage tail and the self term, and appends this
+        token's row at stage slot (p_cnt, layer_idx) in place. Returns
+        (attn_out [B, d], pend)."""
+        q, k_t, v_t = self._qkv_row(x_t)
+        e = self.E.to(x_t.dtype)
+        S = pend.shape[0]
+        e_rows = expand_e_rows(e, f_len + p_cnt + 1, kv8.shape[2])
+        e_pend = expand_e_rows(e, p_cnt + 1, S + 1)  # row p_cnt is E[max_seq - 1]
+        row = torch.cat([k_t, v_t], dim=-1).to(torch.bfloat16)
+        out, pend = decode_attn_cached(q, kv8, sc, layer_idx, e_rows, f_len, pend, e_pend,
+                                       p_cnt, row)
+        return self.fc(out.to(x_t.dtype)), pend
+
 
 class EncoderLayer(nn.Module):
     """Post-LN block: RGA -> LN(x + dropout(attn)) -> ReLU MLP ->
@@ -153,6 +205,13 @@ class EncoderLayer(nn.Module):
 
     def decode(self, x_t, k_cache, v_cache, length: int):
         return self._mlp_block(x_t, self.rga.decode(x_t, k_cache, v_cache, length))
+
+    def decode_q(self, x_t, kv8, sc, layer_idx: int, length: int):
+        return self._mlp_block(x_t, self.rga.decode_q(x_t, kv8, sc, layer_idx, length))
+
+    def decode_q_staged(self, x_t, kv8, sc, pend, layer_idx: int, f_len: int, p_cnt: int):
+        attn, pend = self.rga.decode_q_staged(x_t, kv8, sc, pend, layer_idx, f_len, p_cnt)
+        return self._mlp_block(x_t, attn), pend
 
 
 class MusicTransformer(nn.Module):
@@ -266,16 +325,24 @@ class MusicTransformer(nn.Module):
         In training mode with ``dropout > 0`` the dropout seeds are drawn
         from ``generator``, a CPU ``torch.Generator`` (torch's default one
         when None)."""
+        x = self.features(tokens, condition, generator)
+        if self.config.is_regression:
+            return self.fc(x[:, 0, :])
+        return self.fc(x)
+
+    def features(self, tokens: torch.Tensor, condition: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 deterministic: bool = False) -> torch.Tensor:
+        """The forward pass up to the output head: [B, T + prefix, d_model].
+        ``deterministic`` runs no dropout even in training mode."""
         x, causal, pad_keys = self._embed(tokens, condition)
-        seeds = self.dropout_seeds(generator)
+        seeds = None if deterministic else self.dropout_seeds(generator)
         if seeds is not None:
             x = fused_dropout(x, seeds[0], self.config.dropout)
         for i, layer in enumerate(self.enc_layers):
             drop = (None, None) if seeds is None else (seeds[1 + 2 * i], seeds[2 + 2 * i])
             x = layer(x, pad_keys, causal, drop_seeds=drop)
-        if self.config.is_regression:
-            return self.fc(x[:, 0, :])
-        return self.fc(x)
+        return x
 
     def dropout_seeds(self, generator: Optional[torch.Generator]) -> Optional[List[int]]:
         """One 31-bit seed per dropout site (1 + 2 * n_layer of them), or
@@ -309,10 +376,65 @@ class MusicTransformer(nn.Module):
         are updated IN PLACE; the returned cache shares them with a length
         one larger. Returns (logits [B, vocab], cache)."""
         length = cache["length"] + 1
-        x = self._scaled_embedding(token_t)
-        if self.config.effective_d_condition > 0:
-            x = torch.cat([x, cond_emb], dim=-1)
-        x = x + self.pos_table[length - 1]
+        x = self._decode_input(token_t, cond_emb, length - 1)
         for layer, k, v in zip(self.enc_layers, cache["k"], cache["v"]):
             x = layer.decode(x, k, v, length)
         return self.fc(x), {"k": cache["k"], "v": cache["v"], "length": length}
+
+    def _decode_input(self, token_t: torch.Tensor, cond_emb: Optional[torch.Tensor],
+                      pos: int) -> torch.Tensor:
+        """A decoded token's embedding (with the continuous_concat block)
+        plus the positional row ``pos`` -> [B, d_model]."""
+        x = self._scaled_embedding(token_t)
+        if self.config.effective_d_condition > 0:
+            x = torch.cat([x, cond_emb], dim=-1)
+        return x + self.pos_table[pos]
+
+    def prefill_q(self, tokens: torch.Tensor, condition: Optional[torch.Tensor],
+                  window: int, quantize: bool = True) -> Tuple[torch.Tensor, Cache]:
+        """Prefill into the stacked cache: kv [L, B, window, 2d] K|V-merged
+        rows, int8 with [L, B, 2H, window] bf16 per-(row, head) scales when
+        ``quantize``, bf16 otherwise. Returns (last-position logits, cache)."""
+        cfg = self.config
+        x, causal, pad_keys = self._embed(tokens, condition)
+        B, T, d = x.shape
+        L = cfg.n_layer
+        kv = torch.zeros((L, B, window, 2 * d), device=x.device,
+                         dtype=torch.int8 if quantize else torch.bfloat16)
+        cache: Cache = {"kv": kv, "length": T}
+        if quantize:
+            cache["sc"] = torch.zeros((L, B, 2 * cfg.n_head, window), dtype=torch.bfloat16,
+                                      device=x.device)
+        for i, layer in enumerate(self.enc_layers):
+            x, k, v = layer(x, pad_keys, causal, return_kv=True)
+            rows = torch.cat([k, v], dim=-1)  # [B, T, 2d]
+            if quantize:
+                kv[i, :, :T], cache["sc"][i, :, :, :T] = quantize_rows(rows, 2 * cfg.n_head)
+            else:
+                kv[i, :, :T] = rows
+        return self.fc(x[:, -1, :]), cache
+
+    def decode_step_q(self, token_t: torch.Tensor, cond_emb: Optional[torch.Tensor],
+                      cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """Advance one token against the stacked cache: each layer's kernel
+        call and exact self-term merge, then the layer's row written at
+        window row ``length`` in place. Returns (logits, cache with length
+        one larger, sharing the buffers)."""
+        length = cache["length"]
+        x = self._decode_input(token_t, cond_emb, length)
+        for i, layer in enumerate(self.enc_layers):
+            x = layer.decode_q(x, cache["kv"], cache.get("sc"), i, length)
+        return self.fc(x), {**cache, "length": length + 1}
+
+    def decode_step_staged(self, token_t: torch.Tensor, cond_emb: Optional[torch.Tensor],
+                           kv8: torch.Tensor, sc: Optional[torch.Tensor], pend: torch.Tensor,
+                           f_len: int, p_cnt: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One token against the stacked cache WITHOUT touching it: each
+        layer's kernel call covers the f_len flushed rows, folds the p_cnt
+        staged rows and appends its own row at stage slot (p_cnt, layer).
+        The sampler flushes the stage every S steps (``flush_pend``).
+        Returns (logits, pend)."""
+        x = self._decode_input(token_t, cond_emb, f_len + p_cnt)
+        for i, layer in enumerate(self.enc_layers):
+            x, pend = layer.decode_q_staged(x, kv8, sc, pend, i, f_len, p_cnt)
+        return self.fc(x), pend

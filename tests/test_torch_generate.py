@@ -1,7 +1,9 @@
-"""Torch port, generation: ``Sampler.generate`` is token-identical to the JAX
-sampler in f32 under injected uniforms, through the cache growth and the
-sliding-window refreshes; ``generate()`` and the CLI write MIDI files that
-read back."""
+"""Torch port, generation: ``Sampler.generate`` (native and stacked caches),
+``generate_exact`` and per-step conditions are token-identical to the JAX
+sampler in f32 under injected uniforms, through the cache growth, the
+stage flushes and the sliding-window refreshes; the stacked decode steps'
+logits match JAX's; ``generate()`` and the CLI write MIDI files that read
+back."""
 
 import os
 
@@ -10,9 +12,12 @@ import pytest
 import torch
 
 import conftest  # noqa: F401 -- pins JAX to the CPU
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
 
 from midi_emotion_tpu.generation.sampler import Sampler as JaxSampler
 from midi_emotion_tpu.models.config import ModelConfig as JaxModelConfig
+from midi_emotion_tpu.models.model import MusicTransformer as JaxMusicTransformer
 from midi_emotion_tpu.ops.sampling import SamplingParams as JaxSamplingParams
 from midi_emotion_tpu.vocab import DEFAULT_VOCAB as JAX_VOCAB
 from midi_emotion_tpu.vocab import emotion_bin_tokens
@@ -20,6 +25,7 @@ from midi_emotion_tpu_torch.cli import generate_cli
 from midi_emotion_tpu_torch.convert import save_reference_dir
 from midi_emotion_tpu_torch.data import midi_io
 from midi_emotion_tpu_torch.generation.generate import generate
+from midi_emotion_tpu_torch.generation import sampler as sampler_module
 from midi_emotion_tpu_torch.generation.sampler import Sampler
 from midi_emotion_tpu_torch.models.config import ModelConfig
 from midi_emotion_tpu_torch.models.model import MusicTransformer
@@ -62,13 +68,165 @@ def test_sampler_matches_jax_under_injected_uniforms(mode):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
-def test_unported_paths_raise():
+@pytest.mark.parametrize("kv_dtype", ["int8", "bf16"])
+def test_stacked_step_logits_match_jax(kv_dtype):
+    """prefill_q, then one decode_step_q and one decode_step_staged from the
+    prefilled cache, at the TINY config: the cache rows and the stage slot
+    equal, the logits as close as the tolerances below say."""
+    cfg = JaxModelConfig(mode="continuous_concat", **TINY)
+    jmodel, params, tmodel = model_pair(cfg)
+    variables = {"params": params}
+    B, T, W, S = 2, 12, 128, 4
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(2, 900, (B, T)).astype(np.int32)
+    cond = np.array([[0.5, -0.5], [0.1, 0.9]], np.float32)
+    nxt = np.array([5, 7], np.int32)
+    quant = kv_dtype == "int8"
+    with pltpu.force_tpu_interpret_mode():
+        jl0, jcache = jmodel.apply(variables, jnp.asarray(tokens), jnp.asarray(cond), W, quant,
+                                   method=JaxMusicTransformer.prefill_q)
+        ce = jmodel.apply(variables, jnp.asarray(cond),
+                          method=JaxMusicTransformer.condition_embedding)
+        jl1, _ = jmodel.apply(variables, jnp.asarray(nxt), ce, jcache,
+                              method=JaxMusicTransformer.decode_step_q)
+        pend = jnp.zeros((S, cfg.n_layer, B, 2 * cfg.d_model), jnp.bfloat16)
+        jl2, jpend = jmodel.apply(variables, jnp.asarray(nxt), ce, jcache["kv"],
+                                  jcache.get("sc"), pend, jcache["length"], 0,
+                                  method=JaxMusicTransformer.decode_step_staged)
+    with torch.inference_mode():
+        tc = torch.from_numpy(cond)
+        tl0, cache = tmodel.prefill_q(torch.from_numpy(tokens).long(), tc, W, quant)
+        np.testing.assert_array_equal(cache["kv"].float().numpy(),
+                                      np.asarray(jcache["kv"].astype(jnp.float32)))
+        tce = tmodel.condition_embedding(tc)
+        tpend = torch.zeros((S, cfg.n_layer, B, 2 * cfg.d_model), dtype=torch.bfloat16)
+        # the staged step leaves the cache alone, so it runs first
+        tl2, tpend = tmodel.decode_step_staged(torch.from_numpy(nxt).long(), tce, cache["kv"],
+                                               cache.get("sc"), tpend, cache["length"], 0)
+        tl1, cache1 = tmodel.decode_step_q(torch.from_numpy(nxt).long(), tce, cache)
+    assert cache1["length"] == T + 1
+    # int8: q is quantized per step, and an f32 GEMM that rounds q one ulp
+    # apart can move one int8 unit (on this seed: batch row 0 of the staged
+    # step, 1.5e-3 of logits ~0.6); each of those flips is within int8
+    # error, 1e-2 of the logit scale. bf16 quantizes nothing: 1e-4.
+    for got, want in ((tl0, jl0), (tl1, jl1), (tl2, jl2)):
+        want = np.asarray(want)
+        tol = 1e-2 * np.abs(want).max() if quant else 1e-4
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    np.testing.assert_array_equal(tpend.float().numpy(), np.asarray(jpend.astype(jnp.float32)))
+
+
+def test_stacked_sampler_matches_jax_under_injected_uniforms():
+    """int8 cache, stage depth 4: three flushed super-steps in the first
+    chunk, then window refreshes every 2 tokens, token-identical to the
+    JAX stacked sampler (Pallas in interpret mode) under the same uniforms."""
+    cfg = JaxModelConfig(mode="continuous_concat", **{**TINY, "n_layer": 1, "n_head": 2,
+                                                      "max_seq": 128})
+    jmodel, params, tmodel = model_pair(cfg)
+    B, gen_len = 2, 24
+    sp = dict(gen_len=gen_len, max_input_len=12, top_p=0.9, penalty_coeff=0.5)
+    kw = dict(kv_dtype="int8", stage_steps=4, slide_hop=2)
+    primer = np.full((B, 1), DEFAULT_VOCAB.start_id, np.int32)
+    cond = np.array([[0.8, -0.4], [-0.6, 0.2]], np.float32)
+    u = np.random.default_rng(0).uniform(size=(gen_len - 1, B)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = JaxSampler(jmodel, params, JAX_VOCAB, JaxSamplingParams(**sp), **kw).generate(
+            primer, continuous_conditions=cond, uniforms=u)
+    sampler = Sampler(tmodel, DEFAULT_VOCAB, SamplingParams(**sp), **kw)
+    flushes = []
+    real_flush = sampler_module.flush_pend
+    sampler_module.flush_pend = lambda kv, sc, pend, f_len, n_head: flushes.append(f_len) or \
+        real_flush(kv, sc, pend, f_len, n_head)
+    try:
+        got = sampler.generate(primer, continuous_conditions=cond, uniforms=u)
+    finally:
+        sampler_module.flush_pend = real_flush
+    assert flushes == [1, 5, 9]
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("varying", [False, True])
+@pytest.mark.parametrize("mode", ["continuous_concat", "continuous_token"])
+def test_generate_exact_matches_jax(mode, varying):
+    """A full forward per token, with constant or per-step conditions,
+    through the window roll (window 16, 30 tokens). The seed is one where
+    no sampling boundary falls within f32 rounding: with seed 3 the varying
+    continuous_concat case met one at token 18 of batch row 1, where the
+    two packages' logits agreed to 6e-7 and still picked different tokens
+    (the uniform sat on a cumulative-probability boundary)."""
+    cfg = JaxModelConfig(mode=mode, **{**TINY, "d_condition": 16 if mode ==
+                                       "continuous_concat" else -1})
+    jmodel, params, tmodel = model_pair(cfg)
+    B, gen_len = 2, 30
+    sp = dict(gen_len=gen_len, max_input_len=16, top_p=0.9, penalty_coeff=0.5)
+    primer = np.full((B, 1), DEFAULT_VOCAB.start_id, np.int32)
+    rng = np.random.default_rng(6)
+    u = rng.uniform(size=(gen_len - 1, B)).astype(np.float32)
+    kw = {"continuous_conditions": np.array([[0.8, -0.4], [-0.6, 0.2]], np.float32)}
+    if varying:
+        kw = {"varying_conditions": rng.uniform(-1, 1, (B, gen_len, 2)).astype(np.float32)}
+    want = JaxSampler(jmodel, params, JAX_VOCAB, JaxSamplingParams(**sp)).generate_exact(
+        primer, uniforms=u, **kw)
+    got = Sampler(tmodel, DEFAULT_VOCAB, SamplingParams(**sp)).generate_exact(
+        primer, uniforms=u, **kw)
+    assert got.shape == (B, gen_len)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_generate_varying_conditions_matches_jax():
+    """The cached approximation: each step's condition block recomputed,
+    through growth and refreshes."""
+    cfg = JaxModelConfig(mode="continuous_concat", **TINY)
+    jmodel, params, tmodel = model_pair(cfg)
+    B, gen_len = 2, 40
+    sp = dict(gen_len=gen_len, max_input_len=24, top_p=0.9, penalty_coeff=0.5)
+    primer = np.full((B, 1), DEFAULT_VOCAB.start_id, np.int32)
+    rng = np.random.default_rng(4)
+    u = rng.uniform(size=(gen_len - 1, B)).astype(np.float32)
+    vc = rng.uniform(-1, 1, (B, gen_len, 2)).astype(np.float32)
+    want = JaxSampler(jmodel, params, JAX_VOCAB, JaxSamplingParams(**sp)).generate(
+        primer, uniforms=u, varying_conditions=vc)
+    got = Sampler(tmodel, DEFAULT_VOCAB, SamplingParams(**sp)).generate(
+        primer, uniforms=u, varying_conditions=vc)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    with pytest.raises(ValueError, match="gen_len"):
+        Sampler(tmodel, DEFAULT_VOCAB, SamplingParams(**sp)).generate(
+            primer, uniforms=u, varying_conditions=vc[:, 1:])
+
+
+def test_stage_steps_knob(monkeypatch):
+    """MIDI_EMOTION_DECODE_STAGE: default 8, an integer in [0, 128]; the
+    native cache never stages."""
     cfg = ModelConfig(mode="continuous_concat", **TINY)
     model = MusicTransformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Sampler(model, DEFAULT_VOCAB, SamplingParams(), kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Sampler(model, DEFAULT_VOCAB, SamplingParams()).generate_exact(np.ones((1, 1)))
+    sp = SamplingParams()
+    monkeypatch.delenv("MIDI_EMOTION_DECODE_STAGE", raising=False)
+    assert Sampler(model, DEFAULT_VOCAB, sp, kv_dtype="int8").stage_steps == 8
+    assert Sampler(model, DEFAULT_VOCAB, sp).stage_steps == 0
+    monkeypatch.setenv("MIDI_EMOTION_DECODE_STAGE", "0")
+    assert Sampler(model, DEFAULT_VOCAB, sp, kv_dtype="bf16").stage_steps == 0
+    monkeypatch.setenv("MIDI_EMOTION_DECODE_STAGE", "eight")
+    with pytest.raises(ValueError, match="must be an integer"):
+        Sampler(model, DEFAULT_VOCAB, sp, kv_dtype="int8")
+    with pytest.raises(ValueError, match=r"\[0, 128\]"):
+        Sampler(model, DEFAULT_VOCAB, sp, kv_dtype="int8", stage_steps=129)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        Sampler(model, DEFAULT_VOCAB, sp, kv_dtype="fp8")
+
+
+@pytest.mark.parametrize("kv_dtype,stage", [("int8", "8"), ("int8", "0"), ("bf16", "3")])
+def test_stacked_sampler_runs_through_slides(monkeypatch, kv_dtype, stage):
+    """Every stacked mode through growth, flushes, remainders and refreshes
+    (the step logits are pinned to JAX above): valid tokens, right shape."""
+    monkeypatch.setenv("MIDI_EMOTION_DECODE_STAGE", stage)
+    cfg = ModelConfig(mode="continuous_concat", **TINY)
+    model = MusicTransformer(cfg, device="cpu").init_weights(torch.Generator().manual_seed(2))
+    sp = SamplingParams(gen_len=60, max_input_len=24, top_p=0.9)
+    song = Sampler(model, DEFAULT_VOCAB, sp, kv_dtype=kv_dtype).generate(
+        np.full((2, 1), DEFAULT_VOCAB.start_id, np.int32),
+        continuous_conditions=np.zeros((2, 2), np.float32))
+    assert song.shape == (2, 60)
+    assert not DEFAULT_VOCAB.special_mask()[song[:, 1:]].any()
 
 
 def test_generate_writes_midi(tmp_path):
@@ -108,3 +266,39 @@ def test_cli_on_reference_work_dir(tmp_path):
     assert sorted(mids) == ["0_V05_A05.mid", "1_V-05_A01.mid"]
     for f in mids:
         midi_io.read_midi(os.path.join(out, f))
+
+
+def test_generate_varying_condition_writes_midi(tmp_path):
+    cfg = ModelConfig(mode="continuous_concat", **TINY)
+    model = MusicTransformer(cfg, device="cpu").init_weights(torch.Generator().manual_seed(0))
+    out = str(tmp_path / "gen")
+    ramp = np.linspace(-0.8, 0.8, 24, dtype=np.float32)
+    generate(model, DEFAULT_VOCAB, out, "continuous_concat",
+             varying_condition=[np.stack([ramp, -ramp]), np.stack([-ramp, ramp])],
+             gen_len=24, max_input_len=16, min_n_instruments=1, short_filename=True)
+    mids = sorted(f for f in os.listdir(out) if f.endswith(".mid"))
+    assert mids
+    for f in mids:
+        midi_io.read_midi(os.path.join(out, f))
+        assert np.load(os.path.join(out, "inds_" + f[:-4] + ".npy")).shape == (24,)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "bf16"])
+def test_cli_stacked_cache_writes_midi(tmp_path, kv_dtype):
+    cfg = ModelConfig(mode="continuous_concat", **{**TINY, "max_seq": 2048})
+    model = MusicTransformer(cfg, device="cpu").init_weights(torch.Generator().manual_seed(1))
+    model_dir = str(tmp_path / "work")
+    save_reference_dir(model_dir, cfg, model.state_dict(), DEFAULT_VOCAB)
+    generate_cli.main([
+        "--model_dir", model_dir, "--conditioning", "continuous_concat",
+        "--valence", "0.5", "-0.5", "--arousal", "0.5", "0.1", "--batch_size", "2",
+        "--gen_len", "40", "--max_input_len", "16", "--kv_dtype", kv_dtype,
+        "--device", "cpu", "--short_filename", "--quiet",
+    ])
+    out = os.path.join(model_dir, "generations", "inference")
+    mids = sorted(f for f in os.listdir(out) if f.endswith(".mid"))
+    assert mids == ["0_V05_A05.mid", "1_V-05_A01.mid"]
+    for f in mids:
+        midi_io.read_midi(os.path.join(out, f))
+        ids = np.load(os.path.join(out, "inds_" + f[:-4] + ".npy"))
+        assert ids.shape == (40,) and not DEFAULT_VOCAB.special_mask()[ids[1:]].any()

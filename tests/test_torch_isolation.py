@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,7 +16,10 @@ from midi_emotion_tpu_torch.convert import load_model_dir, save_reference_dir
 from midi_emotion_tpu_torch.kernels import build
 from midi_emotion_tpu_torch.models.config import ModelConfig
 from midi_emotion_tpu_torch.models.model import MusicTransformer
+from midi_emotion_tpu_torch.generation.sampler import Sampler
 from midi_emotion_tpu_torch.ops import fused_dropout as fd
+from midi_emotion_tpu_torch.ops.decode_attention import decode_attn_cached
+from midi_emotion_tpu_torch.ops.sampling import SamplingParams
 from midi_emotion_tpu_torch.ops.flash_attention import (
     flash_rel_attention, flash_rel_attention_bwd)
 from midi_emotion_tpu_torch.ops.layernorm import layernorm, layernorm_bwd
@@ -44,6 +48,10 @@ cfg = ModelConfig(vocab_size=1007, n_layer=1, n_head=2, d_model=32, d_inner=64,
                   d_condition=8, max_seq=64, dropout=0.1)
 model = MusicTransformer(cfg, device="cpu").init_weights(torch.Generator().manual_seed(0))
 out = Sampler(model, DEFAULT_VOCAB, SamplingParams(gen_len=20, max_input_len=8)).generate(
+    np.ones((2, 1), np.int32), continuous_conditions=np.zeros((2, 2), np.float32))
+assert out.shape == (2, 20), out.shape
+out = Sampler(model, DEFAULT_VOCAB, SamplingParams(gen_len=20, max_input_len=8),
+              kv_dtype="int8", stage_steps=4).generate(
     np.ones((2, 1), np.int32), continuous_conditions=np.zeros((2, 2), np.float32))
 assert out.shape == (2, 20), out.shape
 tokens = torch.randint(2, 1007, (1, 2, 9), generator=torch.Generator().manual_seed(1))
@@ -117,7 +125,8 @@ def test_chip_smoke_refuses_without_cuda():
 
 
 COUNTED = (flash_rel_attention, flash_rel_attention_bwd, layernorm, layernorm_bwd,
-           fd.fused_dropout, fd.dropout_add_layernorm, fd.dropout_add_layernorm_bwd)
+           fd.fused_dropout, fd.dropout_add_layernorm, fd.dropout_add_layernorm_bwd,
+           decode_attn_cached)
 
 
 def test_cpu_paths_never_count_kernel_launches():
@@ -132,6 +141,10 @@ def test_cpu_paths_never_count_kernel_launches():
                  "condition": torch.zeros((1, 2, 2))}
         m = make_train_step(model, make_optimizer(model), clip=1.0)(batch, 1e-3)
         assert torch.isfinite(m["loss"])
+    for kv_dtype in ("int8", "bf16"):  # the stacked caches run the decode twin
+        song = Sampler(model.eval(), DEFAULT_VOCAB, SamplingParams(gen_len=12, max_input_len=8),
+                       kv_dtype=kv_dtype, stage_steps=4).generate(np.ones((1, 1), np.int32))
+        assert song.shape == (1, 12)
     assert all(fn.launches == 0 for fn in COUNTED)
 
 

@@ -9,6 +9,7 @@ import torch
 
 from midi_emotion_tpu_torch.models.config import ModelConfig
 from midi_emotion_tpu_torch.models.model import MusicTransformer
+from midi_emotion_tpu_torch.ops import decode_attention as da
 from midi_emotion_tpu_torch.ops import fused_dropout as fd
 from midi_emotion_tpu_torch.ops.flash_attention import (
     flash_rel_attention, flash_rel_attention_bwd, flash_rel_attention_bwd_plain,
@@ -260,3 +261,90 @@ def test_train_step_kernels_match_plain_twins(cuda):
     torch.testing.assert_close(mg["grad_norm"].cpu(), mc["grad_norm"], rtol=1e-4, atol=1e-5)
     for n in gc:
         torch.testing.assert_close(gg[n], gc[n], rtol=1e-4, atol=1e-5, msg=n)
+
+
+def _decode_inputs(B, W, H, dh, L, S, quant, seed=0):
+    """A stacked cache of random rows (quantized for int8), q, E, a stage
+    and the current row, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D = H * dh
+    rows = torch.randn((L, B, W, 2 * D), generator=g, device="cuda")
+    kv, sc = da.quantize_rows(rows, 2 * H) if quant else (rows.bfloat16(), None)
+    q = torch.randn((B, H, dh), generator=g, device="cuda")
+    e = torch.randn((512, dh), generator=g, device="cuda")
+    pend = torch.randn((S, L, B, 2 * D), generator=g, device="cuda").bfloat16()
+    row = torch.randn((B, 2 * D), generator=g, device="cuda").bfloat16()
+    return kv, sc, q, e, pend, row, rows[..., D:].abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2)],
+                         ids=["flagship", "odd", "w200-dh16"])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_decode_kernel_matches_twin_unstaged(cuda, shape, quant):
+    """acc/l within one P re-quantization unit (int8: max|V|/127, flipped
+    when the f32 score sums round apart; bf16: p rounded to bf16 in both,
+    1e-3 of max|V|), m and l to f32 summation order, length 0 exact."""
+    B, W, H, dh, L = shape
+    kv, sc, q, e, _, _, vmax = _decode_inputs(B, W, H, dh, L, 8, quant)
+    for length in sorted({0, 1, 127, 128, 129, min(700, W), W}):
+        e_rows = da.expand_e_rows(e, length + 1, W)
+        before = da.decode_attn_cached.launches
+        acc, m, l = da.decode_attn_cached(q, kv, sc, L - 1, e_rows, length)
+        assert da.decode_attn_cached.launches == before + 1
+        racc, rm, rl = da.decode_attn_cached_plain(q, kv, sc, L - 1, e_rows, length)
+        if length == 0:
+            assert (m == -1e30).all() and (l == 0).all() and (acc == 0).all()
+            continue
+        torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-5, msg=f"m at {length}")
+        torch.testing.assert_close(l, rl, rtol=1e-5, atol=1e-5, msg=f"l at {length}")
+        norm = lambda a, d: a.view(B, H, dh) / d[..., None]  # noqa: E731
+        tol = vmax / 127 if quant else 1e-3 * vmax
+        err = (norm(acc, l) - norm(racc, rl)).abs().max().item()
+        assert err <= tol, (length, err, tol)
+
+
+@pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2)],
+                         ids=["flagship", "odd", "w200-dh16"])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_decode_kernel_matches_twin_staged(cuda, shape, quant):
+    """Staged (S 8): the normalized bf16 output within one P unit (int8)
+    plus two bf16 ulps of its scale, and the stage written exactly, the
+    p_cnt == S clamp included."""
+    B, W, H, dh, L = shape
+    S = 8
+    kv, sc, q, e, pend, row, vmax = _decode_inputs(B, W, H, dh, L, S, quant, seed=1)
+    for length in sorted({0, 1, 127, 128, 129, min(700, W - S), W - S}):
+        e_rows = da.expand_e_rows(e, length + S + 1, W)
+        for p_cnt in (0, 3, 7, 8):
+            e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1)
+            got_pend, want_pend = pend.clone(), pend.clone()
+            out, _ = da.decode_attn_cached(q, kv, sc, L - 1, e_rows, length, got_pend, e_pend,
+                                           p_cnt, row)
+            ref, _ = da.decode_attn_cached_plain(q, kv, sc, L - 1, e_rows, length, want_pend,
+                                                 e_pend, p_cnt, row)
+            assert torch.equal(got_pend, want_pend), (length, p_cnt)
+            tol = (vmax / 127 if quant else 0) + 2 ** -7 * ref.float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            assert out.dtype == torch.bfloat16 and err <= tol, (length, p_cnt, err, tol)
+
+
+def test_decode_wrapper_guards(cuda):
+    kv, sc, q, e, pend, row, _ = _decode_inputs(2, 256, 4, 48, 2, 4, True)
+    e_rows = da.expand_e_rows(e, 11, 256)
+    before = da.decode_attn_cached.launches
+    with pytest.raises(TypeError, match="int8"):
+        da.decode_attn_cached(q, kv.float(), sc, 1, e_rows, 10)
+    with pytest.raises(TypeError, match="bfloat16"):
+        da.decode_attn_cached(q, kv, sc.float(), 1, e_rows, 10)
+    with pytest.raises(ValueError, match="e_rows"):
+        da.decode_attn_cached(q, kv, sc, 1, e_rows[:128], 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attn_cached(q, kv.transpose(0, 1).contiguous().transpose(0, 1), sc, 1,
+                              e_rows, 10)
+    with pytest.raises(ValueError, match="out of range"):
+        da.decode_attn_cached(q, kv, sc, 2, e_rows, 10)
+    with pytest.raises(ValueError, match="d_head"):
+        da.decode_attn_cached(q[..., :40], kv, sc, 1, e_rows, 10)
+    with pytest.raises(ValueError, match="stage"):
+        da.decode_attn_cached(q, kv, sc, 1, e_rows, 10, pend, da.expand_e_rows(e, 6, 5), 5, row)
+    assert da.decode_attn_cached.launches == before
