@@ -6,16 +6,19 @@
 Phases, each fatal on failure:
   1. refuse to start without CUDA; print the card's name and power limit;
   2. build the hand-written kernels from the sources in this checkout
-     (the CUDA flash attention forward and backward and the stacked-cache
-     decode attention with nvcc into build/kernels/, one nvcc per source,
-     started together; the Triton LayerNorm and dropout kernels at their
-     first launch);
+     (the CUDA flash attention forward, the merged backward, the key-major
+     and query-major backward sweeps of the other decompositions, and the
+     stacked-cache decode attention with nvcc into build/kernels/, one nvcc
+     per source, started together; the Triton LayerNorm and dropout kernels
+     at their first launch);
   3. compare each kernel with its plain PyTorch twin on the card, at the
      flagship shapes, in f32 and bf16 (the decode kernel in its four modes,
      int8 and bf16, unstaged and staged, at the serving shapes L 20, B 64,
      W 1408), and time both and, where one PyTorch call computes the same
-     function, that call; then one small f32 train step through the
-     kernels against the same step on the CPU (twins);
+     function, that call; hold each backward decomposition (split,
+     fused/column, fused/dist) against the merged kernel; then one small f32
+     train step through the kernels against the same step on the CPU
+     (twins);
   4. write a random-init flagship model (continuous_concat, 20 layers,
      d_model 768, 16 heads of 48, seeded torch.Generator) as a
      reference-format work dir and check its forward pass on the card
@@ -23,8 +26,12 @@ Phases, each fatal on failure:
   5. training: write a synthetic dataset with the port's save_song_shard
      and run the port's training CLI at the flagship width (B 8, T 1216,
      bf16, dropout 0.1): a few steps, a checkpoint, a resume; then a short
-     --dropout 0 run at 4 layers (its LayerNorms run kernels 2 and 3); time
-     train tokens/sec over 5 steps after 2 warm-up steps and profile two;
+     --dropout 0 run at 4 layers (its LayerNorms run kernels 2 and 3); then
+     a 2-step run under each other backward decomposition
+     (MIDI_EMOTION_BWD=split, fused, fused with MIDI_EMOTION_DQDE=dist),
+     whose first loss must equal the merged run's; time train tokens/sec
+     over 5 steps after 2 warm-up steps under each decomposition in turn
+     (merged first: the headline) and profile two;
   6. serve the trained work dir: the stacked int8 and bf16 decode steps
      against the native ones (logits within the JAX package's bounds); then
      the port's generation CLI (bf16, batch 4, 1400 tokens, window 1216, so
@@ -37,14 +44,16 @@ Phases, each fatal on failure:
      and bf16 caches in turn, and profile 8 decode steps at B 64 (native
      and int8): device-busy share and the top kernels per step.
 Each path (the dropout-0.1 training run with its resume, the dropout-0
-run, each generation run) runs with every kernel launch counter set to 0
-just before it and read just after; the script fails if a kernel of that
-path was never launched.
+run, the three decomposition runs, each generation run) runs with every
+kernel launch counter set to 0 just before it and read just after; the
+script fails if a kernel of that path was never launched, or if a
+decomposition run launched the merged backward kernel.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import csv
 import json
 import os
@@ -238,6 +247,104 @@ def check_flash_bwd(torch, B, H, T, dh, dtype, causal, tol, timed=False):
                    lambda: flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do),
                    lambda: flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do),
                    iters=5)
+
+
+# the other backward decompositions' kernels: JSON name -> (its wrapper in
+# ops/flash_attention.py, its outputs, operations / dh per visible (query,
+# key) pair, and per visible pair at a distance i - j >= 0, which alone
+# reaches the relative terms); an operation is a multiply or an add
+BWD_KERNELS = {
+    "flash_rel_attn_bwd_dq_de": ("bwd_dq_de", ("dQ", "dE"), 8, 4),
+    "flash_rel_attn_bwd_dq_de_dist": ("bwd_dq_de_dist", ("dQ", "dE"), 8, 10),
+    "flash_rel_attn_bwd_dkdv_dq": ("bwd_dkdv_dq", ("dK", "dV", "dQ_qk"), 12, 0),
+    "flash_rel_attn_bwd_de_dqrel": ("bwd_de_dqrel", ("dQ_rel", "dE"), 0, 10),
+    "flash_rel_attn_bwd_dkdv": ("bwd_dkdv", ("dK", "dV"), 10, 0),
+}
+# (MIDI_EMOTION_BWD, MIDI_EMOTION_DQDE) -> the kernels that decomposition launches
+DECOMPOSITIONS = {
+    ("split", "column"): ("flash_rel_attn_bwd_dkdv_dq", "flash_rel_attn_bwd_de_dqrel"),
+    ("fused", "column"): ("flash_rel_attn_bwd_dq_de", "flash_rel_attn_bwd_dkdv"),
+    ("fused", "dist"): ("flash_rel_attn_bwd_dq_de_dist", "flash_rel_attn_bwd_dkdv"),
+}
+
+
+@contextlib.contextmanager
+def bwd_decomposition(impl, dqde):
+    """MIDI_EMOTION_BWD and MIDI_EMOTION_DQDE set inside, restored after."""
+    old = {k: os.environ.get(k) for k in ("MIDI_EMOTION_BWD", "MIDI_EMOTION_DQDE")}
+    os.environ.update({"MIDI_EMOTION_BWD": impl, "MIDI_EMOTION_DQDE": dqde})
+    try:
+        yield
+    finally:
+        for k, val in old.items():
+            if val is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = val
+
+
+def check_bwd_kernel(torch, kernel, B, H, T, dh, dtype, causal, tol, timed=False):
+    """One of the other decompositions' kernels against its twin, with a
+    fully masked row and a pad tail; each output within tol * (1 + its max
+    |value|), and a zero dQ on the masked row."""
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    wrapper_name, names, ops_pair, ops_dist = BWD_KERNELS[kernel]
+    wrapper, twin = getattr(fa, wrapper_name), getattr(fa, wrapper_name + "_plain")
+    q, k, v, e, pad = _flash_inputs(torch, B, H, T, dh, dtype)
+    o, lse = fa.flash_rel_attention(q, k, v, e, causal, pad)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(dtype)
+    dsum = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, e, causal, pad, lse, dsum, do)
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    want = twin(*args)
+    name = f"{kernel} {dtype_name(dtype)} B={B} H={H} T={T} dh={dh} causal={causal}"
+    worst = 0.0
+    for grad, a, b in zip(names, got, want):
+        err, scale = _rel_err(a, b)
+        print(f"{name}: max|{grad} err|={err:.3e} (tol {tol * (1 + scale):.3e})")
+        if not (a.dtype == b.dtype and torch.isfinite(a).all() and err <= tol * (1 + scale)):
+            fail(f"{name}: {grad} disagrees with its plain twin")
+        if causal and grad.startswith("dQ") and not a[1, :, 0].eq(0).all():
+            fail(f"{name}: the fully masked row has a nonzero {grad}")
+        worst = max(worst, err)
+    el = q.element_size()
+    n_out = sum(e.numel() if grad == "dE" else q.numel() for grad in names)
+    n_bytes = (4 * q.numel() + e.numel() + n_out) * el + pad.numel() + 2 * lse.numel() * 4
+    n_ops = (visible_pairs(torch, pad, H, causal) * ops_pair
+             + visible_pairs(torch, pad, H, True) * ops_dist) * dh
+    out = {"max_abs_err": worst}
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops, dtype_name(dtype))
+    return _report(torch, out, timed, name, lambda: wrapper(*args), lambda: twin(*args), iters=5)
+
+
+def check_bwd_decompositions(torch, tol=2e-2):
+    """Each decomposition's backward against the merged kernel at the
+    flagship backward shape in bf16: dQ, dK, dV and dE within tol of each
+    gradient's scale (every route sums in f32; split rounds its two dQ
+    halves to bf16 before their f32 sum, as the JAX package does)."""
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, e, pad = _flash_inputs(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16)
+    o, lse = fa.flash_rel_attention(q, k, v, e, True, pad)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).bfloat16()
+    with bwd_decomposition("merged", "column"):
+        want = fa.flash_rel_attention_bwd(q, k, v, e, True, pad, o, lse, do)
+    for impl, dqde in DECOMPOSITIONS:
+        with bwd_decomposition(impl, dqde):
+            got = fa.flash_rel_attention_bwd(q, k, v, e, True, pad, o, lse, do)
+        torch.cuda.synchronize()
+        errs = []
+        for grad, a, b in zip(("dQ", "dK", "dV", "dE"), got, want):
+            err, scale = _rel_err(a, b)
+            errs.append(f"{grad} {err:.3e} (tol {tol * (1 + scale):.3e})")
+            if not (torch.isfinite(a).all() and err <= tol * (1 + scale)):
+                fail(f"backward {impl}/{dqde} disagrees with the merged kernel on {grad}")
+        print(f"backward MIDI_EMOTION_BWD={impl} DQDE={dqde} vs merged kernel, bf16 B={TRAIN_B} "
+              f"H=16 T={TRAIN_T} dh=48: max err " + ", ".join(errs))
 
 
 def _rows(torch, rows, D, dtype, n, seed=SEED):
@@ -646,6 +753,16 @@ KERNELS = (  # name, route, source, the TPU kernel it replaces
      "midi_emotion_tpu/ops/layernorm.py:63"),
     ("flash_rel_attn_bwd", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:1417"),
+    ("flash_rel_attn_bwd_dq_de", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
+     "midi_emotion_tpu/ops/pallas_attention.py:808"),
+    ("flash_rel_attn_bwd_dq_de_dist", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
+     "midi_emotion_tpu/ops/pallas_attention.py:874"),
+    ("flash_rel_attn_bwd_dkdv_dq", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_kv.cu",
+     "midi_emotion_tpu/ops/pallas_attention.py:1065"),
+    ("flash_rel_attn_bwd_de_dqrel", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
+     "midi_emotion_tpu/ops/pallas_attention.py:1127"),
+    ("flash_rel_attn_bwd_dkdv", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_kv.cu",
+     "midi_emotion_tpu/ops/pallas_attention.py:1213"),
     ("dropout", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
      "midi_emotion_tpu/ops/fused_dropout.py:132"),
     ("dal_fwd", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
@@ -659,14 +776,14 @@ KERNELS = (  # name, route, source, the TPU kernel it replaces
 
 def counters():
     """Kernel name -> the wrapper that counts its launches."""
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
     from midi_emotion_tpu_torch.ops import fused_dropout as fd
     from midi_emotion_tpu_torch.ops.decode_attention import decode_attn_cached
-    from midi_emotion_tpu_torch.ops.flash_attention import (
-        flash_rel_attention, flash_rel_attention_bwd)
     from midi_emotion_tpu_torch.ops.layernorm import layernorm, layernorm_bwd
 
-    return {"flash_rel_attn_fwd": flash_rel_attention, "ln_fwd": layernorm,
-            "ln_bwd": layernorm_bwd, "flash_rel_attn_bwd": flash_rel_attention_bwd,
+    return {"flash_rel_attn_fwd": fa.flash_rel_attention, "ln_fwd": layernorm,
+            "ln_bwd": layernorm_bwd, "flash_rel_attn_bwd": fa.flash_rel_attention_bwd,
+            **{name: getattr(fa, spec[0]) for name, spec in BWD_KERNELS.items()},
             "dropout": fd.fused_dropout, "dal_fwd": fd.dropout_add_layernorm,
             "dal_bwd": fd.dropout_add_layernorm_bwd, "decode_attn_stacked": decode_attn_cached}
 
@@ -680,9 +797,10 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def run_path(name, required, fn):
+def run_path(name, required, fn, absent=()):
     """Run one main path with every counter at 0 just before and read just
-    after; fail if a kernel the path needs was not launched."""
+    after; fail if a kernel the path needs was not launched, or if a kernel
+    in ``absent`` was."""
     reset_counts()
     result = fn()
     counts = read_counts()
@@ -690,6 +808,9 @@ def run_path(name, required, fn):
     missing = [k for k in required if counts[k] <= 0]
     if missing:
         fail(f"path {name}: kernels never launched: {missing}")
+    stray = [k for k in absent if counts[k] != 0]
+    if stray:
+        fail(f"path {name}: kernels that must not run were launched: {stray}")
     return counts, result
 
 
@@ -828,10 +949,14 @@ def profile_decode(torch, model, vocab, kv_dtype, B=64, prompt_len=600, steps=8)
 
 def _kernel_label(mangled):
     """A readable name for a mangled kernel of this repository's sources."""
-    m = re.search(r"(\w+_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?", mangled)
+    m = re.search(r"\d([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:L[bi](\d)E)?",
+                  mangled)
     if m:
-        kern, t, dh = m.groups()
-        return f"{kern} <{'bf16' if t != 'f' else 'f32'}{', dh=' + dh if dh else ''}>"
+        kern, t, dh, mode = m.groups()
+        modes = {"flash_rel_attn_bwd_kv_kernel": ("dK/dV", "dK/dV/dQ_qk"),
+                 "flash_rel_attn_bwd_q_kernel": ("column", "dist", "rel")}
+        extra = f", {modes[kern][int(mode)]}" if mode and kern in modes else ""
+        return f"{kern} <{'bf16' if t != 'f' else 'f32'}{', dh=' + dh if dh else ''}{extra}>"
     m = re.search(r"(decode_attn_stacked_kernel)ILi(\d+)ELb([01])E", mangled)
     if m:
         kern, dh, quant = m.groups()
@@ -910,6 +1035,16 @@ def main():
     check_flash_bwd(torch, 2, 4, 100, 16, torch.float32, True, 1e-4)
     flash_bwd = check_flash_bwd(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16, True, 2e-2,
                                 timed=True)
+    bwd_kernels = {}
+    for kernel in BWD_KERNELS:  # the other decompositions' kernels, same tolerances
+        check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48, torch.float32, True, 1e-4)
+        check_bwd_kernel(torch, kernel, 2, 4, 333, 64, torch.float32, False, 1e-4)
+        check_bwd_kernel(torch, kernel, 2, 4, 100, 16, torch.float32, True, 1e-4)
+        bwd_kernels[kernel] = check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48,
+                                               torch.bfloat16, True, 2e-2, timed=True)
+        torch.cuda.empty_cache()
+    check_bwd_decompositions(torch)
+    torch.cuda.empty_cache()
     rows = TRAIN_B * TRAIN_T
     check_layernorm(torch, 4864, 768, torch.float32, 1e-5)
     check_layernorm(torch, 4, 768, torch.bfloat16, 2 ** -7)  # a decode step's rows
@@ -965,8 +1100,9 @@ def main():
 
         def train_and_resume():
             t1 = time.perf_counter()
+            # every step's loss logged, for the decomposition runs below
             first = train_cli.main(train_args + ["--work_dir", os.path.join(tmp, "run"),
-                                                 "--max_step", "3"])
+                                                 "--max_step", "3", "--log_step", "1"])
             resumed = train_cli.main(train_args + [
                 "--work_dir", os.path.join(tmp, "resumed"), "--max_step", "4",
                 "--restart_dir", first.args.work_dir])
@@ -985,13 +1121,53 @@ def main():
                 or not all(np.isfinite(losses)):
             fail("the training CLI run did not take its steps with finite losses")
         trained = resumed.args.work_dir
+        merged_losses = train_losses(first.args.work_dir)
         del first
         tps, step_secs, per_step, timed_losses = timed_training(torch, resumed)
         print(f"train tokens/sec: {tps:.1f} (B={TRAIN_B}, T={TRAIN_T}, bf16, dropout 0.1, "
               f"{step_secs * 1e3:.2f} ms/step over 5 steps after 2 warm-up) on {card}")
         print(f"kernel launches per train step: {per_step}")
+        for impl, dqde in DECOMPOSITIONS:  # the same runner, timed in turn in this call
+            with bwd_decomposition(impl, dqde):
+                d_tps, d_secs, d_per_step, _ = timed_training(torch, resumed)
+            print(f"train tokens/sec, MIDI_EMOTION_BWD={impl} DQDE={dqde}: {d_tps:.1f} "
+                  f"({d_secs * 1e3:.2f} ms/step over 5 steps after 2 warm-up) on {card}; "
+                  f"kernel launches per step {d_per_step}")
         del resumed
         torch.cuda.empty_cache()
+
+        # the other backward decompositions through the CLI: same seed and
+        # data, 2 steps each. Step 1's loss is the same forward as the merged
+        # run's, so it must match exactly. Step 2 follows one Adam step taken
+        # with gradients that differ only by where bf16 rounds them (f32 sums
+        # in other orders): Adam's first step moves each parameter by about
+        # lr = 2e-5 whatever its gradient's size, so only gradient elements
+        # whose sign flips move apart, and those are the elements near 0,
+        # which barely move the loss; 1e-3 of the loss bounds that with room.
+        decomposition_counts = []
+        for impl, dqde in DECOMPOSITIONS:
+            def run_decomposition():
+                with bwd_decomposition(impl, dqde):
+                    return train_cli.main(train_args + [
+                        "--work_dir", os.path.join(tmp, f"run_{impl}_{dqde}"), "--max_step", "2",
+                        "--log_step", "1"])
+            counts, runner = run_path(
+                f"train (flagship, dropout 0.1, MIDI_EMOTION_BWD={impl} DQDE={dqde})",
+                ("flash_rel_attn_fwd", *DECOMPOSITIONS[impl, dqde], "dropout", "dal_fwd",
+                 "dal_bwd"),
+                run_decomposition, absent=("flash_rel_attn_bwd",))
+            decomposition_counts.append(counts)
+            d_losses = train_losses(runner.args.work_dir)
+            print(f"train CLI, MIDI_EMOTION_BWD={impl} DQDE={dqde}: logged losses {d_losses}, "
+                  f"merged run {merged_losses[:2]}")
+            if runner.train_step_num != 2 or len(d_losses) != 2 or not all(np.isfinite(d_losses)):
+                fail(f"the {impl}/{dqde} training run did not take its steps with finite losses")
+            if d_losses[0] != merged_losses[0]:
+                fail(f"{impl}/{dqde}: step 1's loss differs from the merged run's")
+            if abs(d_losses[1] - merged_losses[1]) > 1e-3 * (1 + abs(merged_losses[1])):
+                fail(f"{impl}/{dqde}: step 2's loss is off the merged run's by more than 1e-3")
+            del runner
+            torch.cuda.empty_cache()
 
         drop0_counts, _ = run_path(
             "train (4 layers, dropout 0)",
@@ -1074,10 +1250,10 @@ def main():
             profile_decode(torch, model, vocab, kv_dtype)
 
     measured = {"flash_rel_attn_fwd": flash, "ln_fwd": ln, "ln_bwd": ln_bwd,
-                "flash_rel_attn_bwd": flash_bwd, "dropout": dropout, "dal_fwd": dal_fwd,
-                "dal_bwd": dal_bwd, "decode_attn_stacked": decode_int8}
-    paths = (train_counts, drop0_counts, serve_counts, int8_counts, unstaged_counts,
-             exact_counts)
+                "flash_rel_attn_bwd": flash_bwd, **bwd_kernels, "dropout": dropout,
+                "dal_fwd": dal_fwd, "dal_bwd": dal_bwd, "decode_attn_stacked": decode_int8}
+    paths = (train_counts, drop0_counts, *decomposition_counts, serve_counts, int8_counts,
+             unstaged_counts, exact_counts)
     kernels = []
     for name, route, source, replaces in KERNELS:
         m = measured[name]

@@ -57,7 +57,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-CUDA_SOURCES = ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "decode_attn_stacked")  # csrc/<name>.cu
+# csrc/<name>.cu; each includes no header of this repository, so its own
+# bytes are all that library_path needs to hash
+CUDA_SOURCES = ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "flash_rel_attn_bwd_kv",
+                "flash_rel_attn_bwd_q", "decode_attn_stacked")
 
 
 def _start_build(name: str):

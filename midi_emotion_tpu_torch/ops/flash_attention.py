@@ -3,14 +3,30 @@ their plain twins.
 
 Counterpart of ``midi_emotion_tpu/ops/pallas_attention.py``.
 ``flash_rel_attention`` is a ``torch.autograd.Function``: on a CUDA tensor
-its forward launches ``csrc/flash_rel_attn_fwd.cu`` and its backward
-``csrc/flash_rel_attn_bwd.cu``, or raises; on a CPU tensor they run
-``flash_rel_attention_plain`` and ``flash_rel_attention_bwd_plain``.
-Nothing else chooses between them. The forward returns (O, lse) with the
-TPU kernel's documented semantics (``pallas_attention.py:482-496``): a
-query row whose keys are all masked gives O = 0 and lse = +1e30, where the
-closed form in ``ops/attention.py`` gives NaN; its gradients are 0. The
-backward returns dQ, dK, dV and dE (lse is not differentiable).
+its forward launches ``csrc/flash_rel_attn_fwd.cu`` and its backward the
+decomposition ``MIDI_EMOTION_BWD`` names, or raises; on a CPU tensor they
+run the plain twins. Nothing else chooses between them. The forward returns
+(O, lse) with the TPU kernel's documented semantics
+(``pallas_attention.py:482-496``): a query row whose keys are all masked
+gives O = 0 and lse = +1e30, where the closed form in ``ops/attention.py``
+gives NaN; its gradients are 0. The backward returns dQ, dK, dV and dE (lse
+is not differentiable).
+
+The backward decompositions, as in the JAX package
+(``pallas_attention.py:133-145``, dispatched at ``:1745-1777``):
+  * ``MIDI_EMOTION_BWD=merged`` (default): one kernel for everything,
+    ``csrc/flash_rel_attn_bwd.cu`` (``flash_rel_attention_bwd``'s own);
+  * ``split``: dK, dV and dQ's key term in the key-major sweep
+    (``bwd_dkdv_dq``), then dQ's relative term and dE in the distance
+    domain (``bwd_de_dqrel``); the two dQ halves sum in f32 and are cast
+    once;
+  * ``fused``: dQ and dE in one query-major sweep, by key column
+    (``bwd_dq_de``) or, with ``MIDI_EMOTION_DQDE=dist``, with the relative
+    terms in the distance domain (``bwd_dq_de_dist``); dK and dV in a
+    key-major sweep (``bwd_dkdv``). ``MIDI_EMOTION_DQDE`` matters only here.
+Both variables are validated at import, so a typo fails at start, and read
+again at each backward call. The TPU tuning knobs (skew, exponent, block
+sizes, batch per block, VMEM) have no counterpart here.
 
 Scale convention: neither direction pre-scales q. The backward folds
 c = 1/sqrt(dh) into dS once, so dK, dQ and dE each carry it once (the JAX
@@ -33,7 +49,7 @@ Source note for the forward kernel:
     and are not carried over; the CUDA kernel masks its own ragged edge,
     so callers never pad T.
 
-Source note for the backward kernel (details in its source):
+Source note for the merged backward kernel (details in its source):
   * replaces ``pallas_attention.py::_bwd_merged_kernel`` (the default
     ``BWD_IMPL="merged"``, launched by ``_bwd_merged_call``);
   * bound on the H100: CUDA-core f32 FMAs fed from shared memory;
@@ -42,6 +58,20 @@ Source note for the backward kernel (details in its source):
     scratch) and dE (an f32 partial per (b, h), reduced by a second kernel)
     each have one owner: no atomics, deterministic sums, nothing summed in
     bf16.
+
+Source note for the other decompositions' kernels (details in their
+sources), all bound by CUDA-core f32 FMAs fed from shared memory:
+  * ``csrc/flash_rel_attn_bwd_kv.cu``, the key-major sweeps: replaces
+    ``_bwd_dkdv_kernel`` (``bwd_dkdv``: one block per (b, h, key tile),
+    which owns its dK and dV) and ``_bwd_dkdv_dq_kernel`` (``bwd_dkdv_dq``:
+    one block per (b, h) with an f32 dQ scratch, as kernel 4);
+  * ``csrc/flash_rel_attn_bwd_q.cu``, the query-major sweeps: replaces
+    ``_bwd_dq_de_kernel`` (``bwd_dq_de``), ``_bwd_dq_de_dist_kernel``
+    (``bwd_dq_de_dist``) and ``_bwd_de_dqrel_kernel`` (``bwd_de_dqrel``):
+    one block per (b, h); a query tile owns its dQ in registers; dE
+    accumulates in f32 partials per (b, h) indexed by distance, reduced by
+    a second kernel. The TPU's XLA-side flips of K, V, the pad mask and E
+    were Mosaic's need: the kernel reads key i - d directly.
 """
 
 from __future__ import annotations
@@ -49,6 +79,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -57,6 +88,28 @@ from .attention import rel_position_bias
 
 KERNEL_DHS = (16, 32, 48, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# variable -> (default, allowed values), as pallas_attention.py:187-190
+BWD_KNOBS = {
+    "MIDI_EMOTION_BWD": ("merged", ("merged", "split", "fused")),
+    "MIDI_EMOTION_DQDE": ("column", ("column", "dist")),
+}
+
+
+def bwd_knobs() -> Tuple[str, str]:
+    """(MIDI_EMOTION_BWD, MIDI_EMOTION_DQDE) as the environment sets them
+    now. A value outside its allowed set raises a ValueError that names the
+    variable: ``MIDI_EMOTION_BWD=mergd`` never runs another branch."""
+    values = []
+    for name, (default, allowed) in BWD_KNOBS.items():
+        value = os.environ.get(name, default)
+        if value not in allowed:
+            raise ValueError(f"{name}={value!r}: must be one of {allowed}")
+        values.append(value)
+    return values[0], values[1]
+
+
+bwd_knobs()  # a typo fails at import, as in the JAX package
 
 
 def _masked(T: int, causal: bool, pad_keys: Optional[torch.Tensor], device) -> torch.Tensor:
@@ -97,6 +150,60 @@ def flash_rel_attention_plain(
     return out.to(q.dtype), lse[..., 0]
 
 
+# ---------------------------------------------------------------------------
+# the backward twins: f32 math, outputs in the inputs' dtypes
+# ---------------------------------------------------------------------------
+
+
+def _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """f32 (q, k, dO, P, dS') by key column: P recomputed from the saved
+    lse, dS' = c P (dO V^T - dsum), c folded in once."""
+    c = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = (qf @ kf.transpose(-1, -2) + rel_position_bias(qf, e.float())) * c
+    p = torch.exp(s - lse[..., None]).masked_fill(_masked(q.shape[2], causal, pad_keys, q.device), 0)
+    ds = p * (dof @ vf.transpose(-1, -2) - dsum[..., None]) * c
+    return qf, kf, dof, p, ds
+
+
+def _rel_adjoint_column(qf, e, ds):
+    """(dQ_rel, dE) f32 of the key-column dS' through autograd of
+    ``rel_position_bias``: the skew's adjoint, column by column."""
+    with torch.enable_grad():
+        q_leaf = qf.detach().requires_grad_()
+        e_leaf = e.float().detach().requires_grad_()
+        srel = rel_position_bias(q_leaf, e_leaf)
+    return torch.autograd.grad(srel, (q_leaf, e_leaf), ds)
+
+
+def _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do):
+    """(dQ_rel, dE) f32 by distance, derived apart from the column form as
+    ``_bwd_dq_de_dist_kernel`` derives it (``pallas_attention.py:880-903``):
+    index the scores by d = i - j >= 0 (the relative bias is 0 above the
+    diagonal in both models, so no d < 0 reaches E). There the bias is
+    column-pure, Srel_d[i, d] = q_i . E[ms-1-d], a plain product; q.k and
+    dO.V are read at key j = i - d. Then dQ_rel = dS_d E_rev and
+    dE[ms-1-d] = sum_i dS_d[i, d] q_i."""
+    B, H, T, dh = q.shape
+    max_seq = e.shape[0]
+    c = 1.0 / math.sqrt(dh)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    e_rev = e.float()[max_seq - T:].flip(0)  # row d holds E[ms-1-d]
+    ar = torch.arange(T, device=q.device)
+    key = ar[:, None] - ar[None, :]  # [i, d] -> j = i - d
+    masked = (key < 0)[None, None]
+    key = key.clamp(min=0)
+    if pad_keys is not None:
+        masked = masked | pad_keys[:, key][:, None]
+    idx = key.expand(B, H, T, T)
+    s_d = ((qf @ kf.transpose(-1, -2)).gather(-1, idx) + qf @ e_rev.T) * c
+    p_d = torch.exp(s_d - lse[..., None]).masked_fill(masked, 0)
+    ds_d = p_d * ((dof @ vf.transpose(-1, -2)).gather(-1, idx) - dsum[..., None]) * c
+    de = torch.zeros((max_seq, dh), dtype=torch.float32, device=q.device)
+    de[max_seq - T:] = torch.einsum("bhid,bhic->dc", ds_d, qf).flip(0)
+    return ds_d @ e_rev, de
+
+
 def flash_rel_attention_bwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -108,43 +215,87 @@ def flash_rel_attention_bwd_plain(
     lse: torch.Tensor,
     do: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel's math in plain torch, in f32: P recomputed from
-    the saved lse, explicit formulas for dV, dK and dQ's key term, and
-    autograd through ``rel_position_bias`` for the relative term's dQ and
-    dE. Returns (dq, dk, dv, de) in the inputs' dtypes."""
-    dh = q.shape[-1]
-    c = 1.0 / math.sqrt(dh)
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    with torch.enable_grad():
-        q_leaf = qf.detach().requires_grad_()
-        e_leaf = e.float().detach().requires_grad_()
-        srel = rel_position_bias(q_leaf, e_leaf)
-    s = (qf @ kf.transpose(-1, -2) + srel.detach()) * c
-    p = torch.exp(s - lse[..., None]).masked_fill(_masked(q.shape[2], causal, pad_keys, q.device), 0)
-    dsum = (dof * o.float()).sum(-1, keepdim=True)
-    ds = p * (dof @ vf.transpose(-1, -2) - dsum) * c
-    dq_rel, de = torch.autograd.grad(srel, (q_leaf, e_leaf), ds)
+    """The merged backward kernel's math in plain torch, in f32: P
+    recomputed from the saved lse, explicit formulas for dV, dK and dQ's
+    key term, and autograd through ``rel_position_bias`` for the relative
+    term's dQ and dE. Returns (dq, dk, dv, de) in the inputs' dtypes."""
+    dsum = (do.float() * o.float()).sum(-1)
+    qf, kf, dof, p, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    dq_rel, de = _rel_adjoint_column(qf, e, ds)
     dq = ds @ kf + dq_rel
     dk = ds.transpose(-1, -2) @ qf
     dv = p.transpose(-1, -2) @ dof
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), de.to(e.dtype)
 
 
-_N_POINTERS = {"flash_rel_attn_fwd": 7, "flash_rel_attn_bwd": 14}  # then 7 ints, a stream
+def bwd_dkdv_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """Twin of ``_bwd_dkdv_kernel`` -> (dk, dv)."""
+    qf, _, dof, p, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    return (ds.transpose(-1, -2) @ qf).to(k.dtype), (p.transpose(-1, -2) @ dof).to(v.dtype)
+
+
+def bwd_dkdv_dq_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """Twin of ``_bwd_dkdv_dq_kernel`` -> (dk, dv, dq_qk = dS' K)."""
+    qf, kf, dof, p, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    return ((ds.transpose(-1, -2) @ qf).to(k.dtype), (p.transpose(-1, -2) @ dof).to(v.dtype),
+            (ds @ kf).to(q.dtype))
+
+
+def bwd_dq_de_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """Twin of ``_bwd_dq_de_kernel`` -> (dq, de), the relative term by key
+    column."""
+    qf, kf, _, _, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    dq_rel, de = _rel_adjoint_column(qf, e, ds)
+    return (ds @ kf + dq_rel).to(q.dtype), de.to(e.dtype)
+
+
+def bwd_dq_de_dist_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """Twin of ``_bwd_dq_de_dist_kernel`` -> (dq, de): dQ's key term by key
+    column, the relative terms by distance."""
+    _, kf, _, _, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    dq_rel, de = _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do)
+    return (ds @ kf + dq_rel).to(q.dtype), de.to(e.dtype)
+
+
+def bwd_de_dqrel_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """Twin of ``_bwd_de_dqrel_kernel`` -> (dq_rel, de), by distance. The
+    causal flag does not enter: only d = i - j >= 0 is visited."""
+    dq_rel, de = _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do)
+    return dq_rel.to(q.dtype), de.to(e.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA libraries
+# ---------------------------------------------------------------------------
+
+# C function -> (library csrc/<name>.cu, pointer arguments); then 7 ints and
+# a stream
+_C_FUNCTIONS = {
+    "flash_rel_attn_fwd": ("flash_rel_attn_fwd", 7),
+    "flash_rel_attn_bwd": ("flash_rel_attn_bwd", 14),
+    "flash_rel_attn_bwd_dkdv": ("flash_rel_attn_bwd_kv", 10),
+    "flash_rel_attn_bwd_dkdv_dq": ("flash_rel_attn_bwd_kv", 12),
+    "flash_rel_attn_bwd_dq_de": ("flash_rel_attn_bwd_q", 11),
+    "flash_rel_attn_bwd_dq_de_dist": ("flash_rel_attn_bwd_q", 11),
+    "flash_rel_attn_bwd_de_dqrel": ("flash_rel_attn_bwd_q", 11),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
+def _function(name: str):
+    """(the C function, its library's error-string function), built and
+    loaded at first use."""
     from ..kernels.build import cuda_library
 
-    lib = cuda_library(name)
+    lib_name, n_pointers = _C_FUNCTIONS[name]
+    lib = cuda_library(lib_name)
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * _N_POINTERS[name] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
+    err = getattr(lib, f"{lib_name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return lib
+    return fn, err
 
 
 def _check(q, k, v, e, pad_keys):
@@ -170,12 +321,23 @@ def _check(q, k, v, e, pad_keys):
         raise ValueError("q, k, v and e must be contiguous")
 
 
+def _check_saved(q, like_q, rows):
+    """The backward's extra operands: ``like_q`` contiguous and matching q,
+    ``rows`` contiguous f32 [B, H, T] on q's device."""
+    for name, t in like_q.items():
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and match q: {t.dtype} {tuple(t.shape)}")
+    for name, t in rows.items():
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32 or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 [B, H, T], got {t.dtype} {tuple(t.shape)}")
+
+
 def _launch(name: str, *args) -> None:
-    lib = _library(name)
-    rc = getattr(lib, name)(*args)
+    fn, err = _function(name)
+    rc = fn(*args)
     if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({err(rc).decode()})")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -198,6 +360,92 @@ def _fwd(q, k, v, e, causal, pad_keys):
     return o, lse
 
 
+def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch):
+    """Check, allocate and launch one backward kernel of the other
+    decompositions: outputs shaped like the inputs named in ``like``, then
+    the f32 scratch ``scratch`` names: a dQ accumulator [B, H, T, dh]
+    ("dq"), per-(b, h) dE partials [B*H, T, dh] ("de") or none."""
+    _check(q, k, v, e, pad_keys)
+    _check_saved(q, {"do": do}, {"lse": lse, "dsum": dsum})
+    B, H, T, dh = q.shape
+    inputs = {"q": q, "k": k, "v": v, "e": e}
+    outs = [torch.empty_like(inputs[n]) for n in like]
+    shapes = {"dq": (B, H, T, dh), "de": (B * H, T, dh)}
+    extra = [] if scratch is None else [
+        torch.empty(shapes[scratch], dtype=torch.float32, device=q.device)]
+    _launch(name,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), *(t.data_ptr() for t in outs + extra),
+            B, H, T, dh, e.shape[0], int(causal), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return outs
+
+
+# Each wrapper below takes (q, k, v, e, causal, pad_keys, lse, dsum, do):
+# the forward's inputs, its lse, dsum = rowsum(dO * O) in f32 [B, H, T] and
+# the cotangent dO. On a CUDA tensor it launches its kernel or raises; on a
+# CPU tensor it runs its twin.
+
+
+def bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """-> (dk, dv): ``csrc/flash_rel_attn_bwd_kv.cu`` for the TPU's
+    ``_bwd_dkdv_kernel`` (``MIDI_EMOTION_BWD=fused``)."""
+    if q.device.type == "cpu":
+        return bwd_dkdv_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    dk, dv = _launch_bwd("flash_rel_attn_bwd_dkdv", q, k, v, e, causal, pad_keys, lse, dsum, do,
+                         ("k", "v"), None)
+    bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """-> (dk, dv, dq_qk): ``csrc/flash_rel_attn_bwd_kv.cu`` for the TPU's
+    ``_bwd_dkdv_dq_kernel`` (``MIDI_EMOTION_BWD=split``)."""
+    if q.device.type == "cpu":
+        return bwd_dkdv_dq_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    dk, dv, dq_qk = _launch_bwd("flash_rel_attn_bwd_dkdv_dq", q, k, v, e, causal, pad_keys, lse,
+                                dsum, do, ("k", "v", "q"), "dq")
+    bwd_dkdv_dq.launches += 1
+    return dk, dv, dq_qk
+
+
+def bwd_dq_de(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """-> (dq, de): ``csrc/flash_rel_attn_bwd_q.cu`` for the TPU's
+    ``_bwd_dq_de_kernel`` (``MIDI_EMOTION_BWD=fused``, ``DQDE=column``)."""
+    if q.device.type == "cpu":
+        return bwd_dq_de_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de", q, k, v, e, causal, pad_keys, lse, dsum, do,
+                         ("q", "e"), "de")
+    bwd_dq_de.launches += 1
+    return dq, de
+
+
+def bwd_dq_de_dist(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """-> (dq, de): ``csrc/flash_rel_attn_bwd_q.cu`` for the TPU's
+    ``_bwd_dq_de_dist_kernel`` (``MIDI_EMOTION_BWD=fused``, ``DQDE=dist``)."""
+    if q.device.type == "cpu":
+        return bwd_dq_de_dist_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de_dist", q, k, v, e, causal, pad_keys, lse, dsum,
+                         do, ("q", "e"), "de")
+    bwd_dq_de_dist.launches += 1
+    return dq, de
+
+
+def bwd_de_dqrel(q, k, v, e, causal, pad_keys, lse, dsum, do):
+    """-> (dq_rel, de): ``csrc/flash_rel_attn_bwd_q.cu`` for the TPU's
+    ``_bwd_de_dqrel_kernel`` (``MIDI_EMOTION_BWD=split``)."""
+    if q.device.type == "cpu":
+        return bwd_de_dqrel_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    dq_rel, de = _launch_bwd("flash_rel_attn_bwd_de_dqrel", q, k, v, e, causal, pad_keys, lse,
+                             dsum, do, ("q", "e"), "de")
+    bwd_de_dqrel.launches += 1
+    return dq_rel, de
+
+
+for _wrapper in (bwd_dkdv, bwd_dkdv_dq, bwd_dq_de, bwd_dq_de_dist, bwd_de_dqrel):
+    _wrapper.launches = 0  # kernel launches since the last reset
+
+
 def flash_rel_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -210,21 +458,33 @@ def flash_rel_attention_bwd(
     do: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of ``flash_rel_attention`` -> (dq, dk, dv, de) from the
-    forward's inputs, its (O, lse) and the cotangent dO. On a CUDA tensor
-    this launches the hand-written kernel or raises; on a CPU tensor it
-    runs :func:`flash_rel_attention_bwd_plain`."""
-    if q.device.type == "cpu":
-        return flash_rel_attention_bwd_plain(q, k, v, e, causal, pad_keys, o, lse, do)
-    if q.device.type != "cuda":
+    forward's inputs, its (O, lse) and the cotangent dO, by the
+    decomposition ``MIDI_EMOTION_BWD`` (and ``MIDI_EMOTION_DQDE``) name now.
+    ``merged``: on a CUDA tensor this launches the merged kernel (counted
+    here) or raises; on a CPU tensor it runs
+    :func:`flash_rel_attention_bwd_plain`. ``split`` and ``fused`` compose
+    the wrappers above, each a kernel or its twin by the same rule."""
+    impl, dqde = bwd_knobs()
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_rel_attention_bwd: unsupported device {q.device}")
-    _check(q, k, v, e, pad_keys)
-    B, H, T, dh = q.shape
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous and match q: {t.dtype} {tuple(t.shape)}")
-    if lse.shape != (B, H, T) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError(f"lse must be contiguous f32 [B, H, T], got {lse.dtype} {tuple(lse.shape)}")
+    if impl == "merged" and q.device.type == "cpu":
+        return flash_rel_attention_bwd_plain(q, k, v, e, causal, pad_keys, o, lse, do)
+    if q.device.type == "cuda":
+        _check(q, k, v, e, pad_keys)
+        _check_saved(q, {"o": o, "do": do}, {"lse": lse})
     dsum = (do.float() * o.float()).sum(-1)  # [B, H, T] f32
+    if impl == "split":
+        dk, dv, dq_qk = bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do)
+        dq_rel, de = bwd_de_dqrel(q, k, v, e, causal, pad_keys, lse, dsum, do)
+        # the two dQ halves sum in f32 before the one output cast, as in
+        # pallas_attention.py:1762-1765
+        return (dq_qk.float() + dq_rel.float()).to(q.dtype), dk, dv, de
+    if impl == "fused":
+        dq, de = (bwd_dq_de_dist if dqde == "dist" else bwd_dq_de)(
+            q, k, v, e, causal, pad_keys, lse, dsum, do)
+        dk, dv = bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do)
+        return dq, dk, dv, de
+    B, H, T, dh = q.shape
     dq, dk, dv, de = (torch.empty_like(t) for t in (q, k, v, e))
     dq_acc = torch.empty((B, H, T, dh), dtype=torch.float32, device=q.device)
     de_part = torch.empty((B * H, T, dh), dtype=torch.float32, device=q.device)
@@ -238,7 +498,7 @@ def flash_rel_attention_bwd(
     return dq, dk, dv, de
 
 
-flash_rel_attention_bwd.launches = 0  # kernel launches since the last reset
+flash_rel_attention_bwd.launches = 0  # merged kernel launches since the last reset
 
 
 class _FlashRelAttention(torch.autograd.Function):

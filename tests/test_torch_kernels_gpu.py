@@ -10,6 +10,7 @@ import torch
 from midi_emotion_tpu_torch.models.config import ModelConfig
 from midi_emotion_tpu_torch.models.model import MusicTransformer
 from midi_emotion_tpu_torch.ops import decode_attention as da
+from midi_emotion_tpu_torch.ops import flash_attention as fa
 from midi_emotion_tpu_torch.ops import fused_dropout as fd
 from midi_emotion_tpu_torch.ops.flash_attention import (
     flash_rel_attention, flash_rel_attention_bwd, flash_rel_attention_bwd_plain,
@@ -123,6 +124,101 @@ def test_flash_wrapper_guards_and_counter(cuda):
     o, _ = flash_rel_attention(q.requires_grad_(), k, v, e)
     o.sum().backward()
     assert flash_rel_attention_bwd.launches == bwd_before + 1 and q.grad is not None
+
+
+# the other decompositions' kernels: wrapper -> the names of its outputs
+BWD_KERNELS = {
+    "bwd_dkdv": ("dk", "dv"),
+    "bwd_dkdv_dq": ("dk", "dv", "dq_qk"),
+    "bwd_dq_de": ("dq", "de"),
+    "bwd_dq_de_dist": ("dq", "de"),
+    "bwd_de_dqrel": ("dq_rel", "de"),
+}
+
+
+def _bwd_kernel_pair(kernel, q, k, v, e, causal, pad, seed=2):
+    """(kernel, twin) outputs of one of the five wrappers, for one forward
+    and one cotangent (zero on pad query rows); the launch is counted."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(q.dtype)
+    dsum = (do.float() * o.float()).sum(-1)
+    wrapper = getattr(fa, kernel)
+    before = wrapper.launches
+    got = wrapper(q, k, v, e, causal, pad, lse, dsum, do)
+    assert wrapper.launches == before + 1
+    return got, getattr(fa, kernel + "_plain")(q, k, v, e, causal, pad, lse, dsum, do)
+
+
+@pytest.mark.parametrize("kernel", list(BWD_KERNELS))
+@pytest.mark.parametrize("dh", [16, 32, 48, 64])
+@pytest.mark.parametrize("T", [1, 65, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_decomposition_kernel_matches_twin_f32(cuda, kernel, dh, T, causal):
+    q, k, v, e = _qkve(2, 3, T, dh, 256, torch.float32)
+    got, want = _bwd_kernel_pair(kernel, q, k, v, e, causal, _pad(2, T, cuda))
+    # f32 in both, different summation orders over <= 200 terms (dE: 1200)
+    for name, a, b in zip(BWD_KERNELS[kernel], got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+        if causal and name.startswith("dq"):  # the fully masked row gets no gradient
+            assert a[1, :, 0].eq(0).all(), name
+
+
+@pytest.mark.parametrize("kernel", list(BWD_KERNELS))
+def test_flash_bwd_decomposition_kernel_matches_twin_bf16(cuda, kernel):
+    q, k, v, e = _qkve(2, 4, 1216, 48, 2048, torch.bfloat16, seed=3)
+    got, want = _bwd_kernel_pair(kernel, q, k, v, e, True, _pad(2, 1216, cuda))
+    # f32 sums in both from the same bf16 inputs, rounded once to bf16
+    for name, a, b in zip(BWD_KERNELS[kernel], got, want):
+        assert a.dtype == torch.bfloat16, name
+        bound = 2e-2 * (1 + b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= bound, name
+
+
+@pytest.mark.parametrize("impl,dqde", [("split", "column"), ("fused", "column"),
+                                       ("fused", "dist")])
+def test_flash_bwd_decomposition_matches_merged_kernel(cuda, monkeypatch, impl, dqde):
+    """Autograd through flash_rel_attention under each decomposition against
+    the merged kernel (f32, 1e-4); only the decomposition's kernels launch."""
+    q, k, v, e = _qkve(2, 3, 200, 48, 256, torch.float32, seed=4)
+    pad = _pad(2, 200, cuda)
+    do = torch.randn(q.shape, device=cuda) * (~pad)[:, None, :, None]
+    grads = {}
+    for run in ("merged", impl):
+        monkeypatch.setenv("MIDI_EMOTION_BWD", run)
+        monkeypatch.setenv("MIDI_EMOTION_DQDE", dqde)
+        xs = [t.clone().requires_grad_() for t in (q, k, v, e)]
+        before = {n: getattr(fa, n).launches for n in BWD_KERNELS}
+        merged_before = flash_rel_attention_bwd.launches
+        o, _ = flash_rel_attention(*xs, True, pad)
+        grads[run] = torch.autograd.grad(o, xs, do)
+        launched = {n for n in BWD_KERNELS if getattr(fa, n).launches > before[n]}
+        want = {"merged": set(), "split": {"bwd_dkdv_dq", "bwd_de_dqrel"},
+                "fused": {"bwd_dkdv", "bwd_dq_de_dist" if dqde == "dist" else "bwd_dq_de"}}[run]
+        assert launched == want, (run, launched)
+        assert flash_rel_attention_bwd.launches == merged_before + (run == "merged")
+    for name, a, b in zip(("dq", "dk", "dv", "de"), grads[impl], grads["merged"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def test_flash_bwd_decomposition_wrapper_guards(cuda):
+    q, k, v, e = _qkve(1, 2, 64, 48, 128, torch.float32)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    dsum = torch.zeros((1, 2, 64), device=cuda)
+    for kernel in BWD_KERNELS:
+        wrapper = getattr(fa, kernel)
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="contiguous"):
+            wrapper(q, k, v, e, True, None, lse, dsum, q.transpose(2, 3).contiguous().transpose(2, 3))
+        with pytest.raises(ValueError, match="f32"):
+            wrapper(q, k, v, e, True, None, lse.bfloat16(), dsum, q)
+        with pytest.raises(ValueError, match="d_head"):
+            wrapper(*_qkve(1, 2, 64, 40, 128, torch.float32), True, None, lse, dsum,
+                    q[..., :40].contiguous())
+        with pytest.raises(TypeError):
+            wrapper(q, k.double(), v, e, True, None, lse, dsum, q)
+        assert wrapper.launches == before, kernel
 
 
 @pytest.mark.parametrize("rows,D", [(1, 768), (7, 768), (4864, 768), (5, 100), (3, 4096)])
