@@ -210,9 +210,26 @@ def check_flash(torch, B, H, T, dh, dtype, causal, tol_o, tol_lse, timed=False):
     out = {"max_abs_err": err_o}
     out["bound_ms"], out["bound_by"] = bound(
         n_bytes, visible_pairs(torch, pad, H, causal) * 6 * dh, dtype_name(dtype))
+    library = None
+    if timed:
+        # F.scaled_dot_product_attention computing O as the kernel does: the
+        # skewed relative logits, the causal and the pad masks folded into a
+        # float mask built outside the timing (SDPA scales q.k by 1/sqrt(dh)
+        # itself and adds the mask as it is)
+        import torch.nn.functional as F
+
+        from midi_emotion_tpu_torch.ops.attention import rel_position_bias
+        from midi_emotion_tpu_torch.ops.flash_attention import _masked
+
+        mask = (rel_position_bias(q.float(), e.float()) / dh ** 0.5).masked_fill(
+            _masked(T, causal, pad, q.device), float("-inf")).to(dtype)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
     return _report(torch, out, timed, name,
                    lambda: flash_rel_attention(q, k, v, e, causal, pad),
-                   lambda: flash_rel_attention_plain(q, k, v, e, causal, pad))
+                   lambda: flash_rel_attention_plain(q, k, v, e, causal, pad), library)
 
 
 def check_flash_bwd(torch, B, H, T, dh, dtype, causal, tol, timed=False):
@@ -545,7 +562,7 @@ def check_decode(torch, quant, timed=False):
     kv, sc, q, e, pend, row, vmax = _decode_cache(torch, quant, SEED + 5)
     p_tol = vmax / 127 if quant else 0.0
     worst = {"unstaged": 0.0, "staged": 0.0, "m/l": 0.0}
-    for length in (0, 1, 127, 128, 129, 700, 1400):
+    for length in (0, 1, 127, 128, 129, 700, 1216, 1281, 1400):
         e_rows = da.expand_e_rows(e, length + 1, W)
         acc, m, l = da.decode_attn_cached(q, kv, sc, layer, e_rows, length)
         torch.cuda.synchronize()

@@ -38,17 +38,25 @@ The math, per (b, h), over the ``length`` flushed rows in window blocks of
 Source note for the kernel (``csrc/decode_attn_stacked.cu``):
   * replaces ``ops/decode_attention.py::_kernel`` (launched by ``_run``);
   * bound on the H100: bytes. One decode step reads each layer's live cache
-    once: at B 64, length 1216, D 768 the int8 rows of one layer are
-    64 * 1216 * 1536 B = 120 MB plus ~5 MB of scales, ~37 us at 3.35 TB/s;
-    bf16 doubles it. The arithmetic (an int8 dot of 48 channels per key and
-    head) is far below the card's operation rate;
-  * its design: one block per (b, h) walks the window blocks up to
-    ``length`` (blocks past it are never read), a thread per key computes
-    the score with ``__dp4a`` over 16-byte loads of the int8 head slice
-    (exact integer sums), and the re-quantized P is staged in shared
-    memory for an integer PV sum. The TPU kernel's (bb, bw) grid, its
-    block-diagonal q and its host-built layouts were Mosaic's needs and are
-    not carried over.
+    once: at B 64, length 1216, D 768 the int8 rows and scales of one layer
+    are 126.1 MB, 37.6 us at 3.35 TB/s; bf16 240.6 MB, 71.8 us. The
+    arithmetic (an int8 dot of 48 channels per key and head) is far below
+    the card's operation rate;
+  * its design: one thread-block cluster per batch row covers all heads,
+    so each cache row leaves HBM once: a producer warp copies tiles of 32
+    rows into a 2-4 stage ring with tensor-map (TMA) copies (K halves with
+    their E rows and scales, then V halves), completing on mbarriers, and
+    15 consumer warps compute on them. The cluster's CTAs split the live
+    window blocks, exchange their per-(block, head) maxima in distributed
+    shared memory and take the prefix max ``m_j`` (the twin's running max
+    at block j), so P re-quantizes as the twin's does; rank 0 sums the
+    partial (acc, l) in a fixed order and runs the staged tail. Scores,
+    bias and PV are ``mma.sync`` products (int8 m16n8k32 with exact integer
+    sums, bf16 m16n8k16) with keys or channels on the rows and 8 heads on
+    the columns. q is quantized and cast inside the kernel, so the wrapper
+    launches nothing else. It takes ``H * dh <= 1024`` (``MAX_WIDTH``). The
+    TPU kernel's (bb, bw) grid and its host-built layouts were Mosaic's
+    needs and are not carried over.
 """
 
 from __future__ import annotations
@@ -63,7 +71,8 @@ import torch.nn.functional as F
 
 NEG = -1e30
 KERNEL_DHS = (16, 32, 48, 64)
-MAX_STAGE = 128  # the kernel folds the staged tail with one thread per row
+MAX_STAGE = 128  # the kernel folds at most this many stage rows
+MAX_WIDTH = 1024  # H * dh the kernel takes (its PV chunks and shared memory are sized for it)
 
 
 def quantize_rows(t: torch.Tensor, n_groups: int):
@@ -217,8 +226,8 @@ def decode_attn_cached_plain(q_t, kv8, sc, layer, e_rows, length, pend=None, e_p
 
 # ---- the CUDA kernel --------------------------------------------------------
 
-_N_POINTERS = 13  # q8, sq, qh, kv, sc, e_rows, pend, e_pend, row, acc, m, l, out
-_N_INTS = 11      # L, B, W, H, dh, layer, length, S, p_cnt, bw, quant; then a stream
+_N_POINTERS = 11  # q, kv, sc, e_rows, pend, e_pend, row, acc, m, l, out
+_N_INTS = 12      # L, B, W, H, dh, layer, length, S, p_cnt, bw, quant, q_bf16; then a stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,6 +263,8 @@ def _check(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t) -> N
     B, H, dh = q_t.shape
     if dh not in KERNEL_DHS:
         raise ValueError(f"decode kernel takes d_head in {KERNEL_DHS}, got {dh}")
+    if H * dh > MAX_WIDTH:
+        raise ValueError(f"decode kernel takes H * d_head <= {MAX_WIDTH}, got {H * dh}")
     if q_t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q_t must be float32 or bfloat16, got {q_t.dtype}")
     if kv8.dim() != 4:
@@ -282,10 +293,7 @@ def _kernel(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t):
     L, _, W, _ = kv8.shape
     dev = q_t.device
     quant = sc is not None
-    q8 = sq = None
-    if quant:
-        q8, sq = quantize_q(q_t)
-    qh = q_t.to(torch.bfloat16).contiguous()
+    q = q_t.contiguous()  # the kernel quantizes and casts q itself
     staged = pend is not None
     f32 = dict(dtype=torch.float32, device=dev)
     if staged:
@@ -298,9 +306,9 @@ def _kernel(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t):
     S = pend.shape[0] if staged else 0
     lib = _library()
     rc = lib.decode_attn_stacked(
-        ptr(q8), ptr(sq), qh.data_ptr(), kv8.data_ptr(), ptr(sc), e_rows.data_ptr(),
-        ptr(pend), ptr(e_pend), ptr(row_t), ptr(acc), ptr(m), ptr(l), ptr(out),
-        L, B, W, H, dh, int(layer), int(length), S, int(p_cnt or 0), window_block(W), int(quant),
+        q.data_ptr(), kv8.data_ptr(), ptr(sc), e_rows.data_ptr(), ptr(pend), ptr(e_pend),
+        ptr(row_t), ptr(acc), ptr(m), ptr(l), ptr(out), L, B, W, H, dh, int(layer), int(length),
+        S, int(p_cnt or 0), window_block(W), int(quant), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.decode_attn_stacked_error_string(rc).decode()

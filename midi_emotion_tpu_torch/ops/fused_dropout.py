@@ -35,9 +35,12 @@ Source notes for the kernels:
     one write of each output; the mask costs Philox arithmetic in
     registers, no memory;
   * design: the TPU's hardware PRNG, seeded per 256-row block, becomes
-    counter-based Philox keyed by (seed, flat element index), so the mask
-    is independent of how the kernel is blocked. dgamma/dbeta are per-
-    program f32 partials reduced by a second kernel.
+    counter-based Philox4x32-10 keyed by (seed, flat element index i):
+    element i takes word i % 4 of the call at counter i // 4, so the mask
+    is independent of how the kernel is blocked. ``dropout`` draws one call
+    per four elements (``tl.randint4x``) and interleaves its words; the row
+    kernels pick each element's word from the same call. dgamma/dbeta are
+    per-program f32 partials reduced by a second kernel.
 """
 
 from __future__ import annotations

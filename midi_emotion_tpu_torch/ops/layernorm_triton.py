@@ -10,12 +10,15 @@
 * ``col_sum``: the second pass of ``ln_bwd``, summing its per-program f32
   dgamma/dbeta partials.
 
-The dropout mask is ``_keep``: Philox bits from ``tl.randint(seed, i)``
-at the element's flat index i of its [N, D] tensor, kept iff
-``(bits >> 8) < thresh`` with ``thresh = round((1 - rate) * 2**24)`` (the
-JAX package's rule). It depends on (seed, index) only, not on the block
-layout, so the forward and backward kernels of one site, and the dropout
-and dropout+LN kernels given one seed and shape, draw the same mask.
+The dropout mask: element i of a flat [N, D] tensor is kept iff
+``(word[i % 4] of Philox4x32-10(seed, counter i // 4)) >> 8 < thresh``, with
+``thresh = round((1 - rate) * 2**24)`` (the JAX package's 24-bit rule). One
+Philox call serves four consecutive elements: ``dropout`` draws
+``tl.randint4x`` once per four elements and interleaves the words into
+element order; ``_keep``, for the row kernels, draws the same call per
+element and picks its word. The mask depends on (seed, index) only, not on
+the block layout, so the forward and backward kernels of one site, and the
+dropout and dropout+LN kernels given one seed and shape, draw the same mask.
 
 Importing this module imports triton, which CPU-only machines lack, so the
 ops import it on their first launch on a CUDA tensor.
@@ -32,10 +35,19 @@ import triton.language as tl  # noqa: E402 -- after the cache dir is set
 
 
 @triton.jit
+def _keep_bits(bits, thresh):
+    """Keep iff the top 24 of the 32 Philox bits lie below ``thresh``."""
+    return (bits.to(tl.uint32, bitcast=True) >> 8).to(tl.int32) < thresh
+
+
+@triton.jit
 def _keep(seed, offs, thresh):
-    """Keep-mask of the elements at flat indices ``offs`` for ``seed``."""
-    bits = tl.randint(seed, offs).to(tl.uint32, bitcast=True)
-    return (bits >> 8).to(tl.int32) < thresh
+    """Keep-mask of the elements at flat indices ``offs`` for ``seed``: word
+    ``offs % 4`` of the Philox call at counter ``offs // 4``."""
+    r0, r1, r2, r3 = tl.randint4x(seed, offs // 4)
+    lane = offs % 4
+    bits = tl.where(lane == 0, r0, tl.where(lane == 1, r1, tl.where(lane == 2, r2, r3)))
+    return _keep_bits(bits, thresh)
 
 
 @triton.jit
@@ -147,12 +159,16 @@ def col_sum(part_ptr, out_ptr, P, D, BLOCK_P: tl.constexpr, BLOCK_D: tl.constexp
 
 @triton.jit(do_not_specialize=["seed"])
 def dropout(x_ptr, y_ptr, N, seed, thresh, inv_keep, BLOCK: tl.constexpr):
-    """y = where(keep, x * inv_keep, 0) over a flat block of BLOCK elements."""
-    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    """y = where(keep, x * inv_keep, 0) over a flat block of BLOCK elements,
+    one Philox call per four elements (the mask of ``_keep``)."""
+    pid = tl.program_id(0)
+    r0, r1, r2, r3 = tl.randint4x(seed, pid * (BLOCK // 4) + tl.arange(0, BLOCK // 4))
+    # words in element order: element 4c + w takes word w of counter c
+    bits = tl.interleave(tl.interleave(r0, r2), tl.interleave(r1, r3))
+    offs = pid * BLOCK + tl.arange(0, BLOCK)
     live = offs < N
     x = tl.load(x_ptr + offs, mask=live, other=0.0)
-    y = _dropped(x, _keep(seed, offs, thresh), inv_keep)
-    tl.store(y_ptr + offs, y, mask=live)
+    tl.store(y_ptr + offs, _dropped(x, _keep_bits(bits, thresh), inv_keep), mask=live)
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,7 +3,13 @@
 sampler in f32 under injected uniforms, through the cache growth, the
 stage flushes and the sliding-window refreshes; the stacked decode steps'
 logits match JAX's; ``generate()`` and the CLI write MIDI files that read
-back."""
+back.
+
+The JAX side runs its Pallas kernels through their own CPU path
+(``interpret=True``, chosen by the kernels on the CPU backend). The
+threaded TPU interpreter (``pltpu.force_tpu_interpret_mode``) is not
+forced here: under a loaded multi-worker run it has hung in a futex
+wait with every thread idle."""
 
 import os
 
@@ -13,7 +19,6 @@ import torch
 
 import conftest  # noqa: F401 -- pins JAX to the CPU
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from midi_emotion_tpu.generation.sampler import Sampler as JaxSampler
 from midi_emotion_tpu.models.config import ModelConfig as JaxModelConfig
@@ -82,17 +87,16 @@ def test_stacked_step_logits_match_jax(kv_dtype):
     cond = np.array([[0.5, -0.5], [0.1, 0.9]], np.float32)
     nxt = np.array([5, 7], np.int32)
     quant = kv_dtype == "int8"
-    with pltpu.force_tpu_interpret_mode():
-        jl0, jcache = jmodel.apply(variables, jnp.asarray(tokens), jnp.asarray(cond), W, quant,
-                                   method=JaxMusicTransformer.prefill_q)
-        ce = jmodel.apply(variables, jnp.asarray(cond),
-                          method=JaxMusicTransformer.condition_embedding)
-        jl1, _ = jmodel.apply(variables, jnp.asarray(nxt), ce, jcache,
-                              method=JaxMusicTransformer.decode_step_q)
-        pend = jnp.zeros((S, cfg.n_layer, B, 2 * cfg.d_model), jnp.bfloat16)
-        jl2, jpend = jmodel.apply(variables, jnp.asarray(nxt), ce, jcache["kv"],
-                                  jcache.get("sc"), pend, jcache["length"], 0,
-                                  method=JaxMusicTransformer.decode_step_staged)
+    jl0, jcache = jmodel.apply(variables, jnp.asarray(tokens), jnp.asarray(cond), W, quant,
+                               method=JaxMusicTransformer.prefill_q)
+    ce = jmodel.apply(variables, jnp.asarray(cond),
+                      method=JaxMusicTransformer.condition_embedding)
+    jl1, _ = jmodel.apply(variables, jnp.asarray(nxt), ce, jcache,
+                          method=JaxMusicTransformer.decode_step_q)
+    pend = jnp.zeros((S, cfg.n_layer, B, 2 * cfg.d_model), jnp.bfloat16)
+    jl2, jpend = jmodel.apply(variables, jnp.asarray(nxt), ce, jcache["kv"],
+                              jcache.get("sc"), pend, jcache["length"], 0,
+                              method=JaxMusicTransformer.decode_step_staged)
     with torch.inference_mode():
         tc = torch.from_numpy(cond)
         tl0, cache = tmodel.prefill_q(torch.from_numpy(tokens).long(), tc, W, quant)
@@ -129,9 +133,8 @@ def test_stacked_sampler_matches_jax_under_injected_uniforms():
     primer = np.full((B, 1), DEFAULT_VOCAB.start_id, np.int32)
     cond = np.array([[0.8, -0.4], [-0.6, 0.2]], np.float32)
     u = np.random.default_rng(0).uniform(size=(gen_len - 1, B)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        want = JaxSampler(jmodel, params, JAX_VOCAB, JaxSamplingParams(**sp), **kw).generate(
-            primer, continuous_conditions=cond, uniforms=u)
+    want = JaxSampler(jmodel, params, JAX_VOCAB, JaxSamplingParams(**sp), **kw).generate(
+        primer, continuous_conditions=cond, uniforms=u)
     sampler = Sampler(tmodel, DEFAULT_VOCAB, SamplingParams(**sp), **kw)
     flushes = []
     real_flush = sampler_module.flush_pend

@@ -444,3 +444,116 @@ def test_decode_wrapper_guards(cuda):
     with pytest.raises(ValueError, match="stage"):
         da.decode_attn_cached(q, kv, sc, 1, e_rows, 10, pend, da.expand_e_rows(e, 6, 5), 5, row)
     assert da.decode_attn_cached.launches == before
+
+
+@pytest.mark.parametrize("B", [4, 64, 160], ids=["B4", "B64", "B160"])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_decode_kernel_every_cluster_split(cuda, quant, B):
+    """Lengths 128k - 1, 128k and 128k + 1 up to W at the flagship widths,
+    unstaged and staged. On 132 SMs the launch aims at one CTA an SM: B 4
+    runs clusters of up to 8 CTAs (one or two window blocks each), B 64
+    clusters of up to 2 (up to six blocks each), B 160 one CTA per batch
+    row (up to eleven blocks, a two-stage ring). One launch, and one
+    kernel, per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    W, H, dh, L, S = 1408, 16, 48, 2, 8
+    kv, sc, q, e, pend, row, vmax = _decode_inputs(B, W, H, dh, L, S, quant, seed=2)
+    lengths = sorted({n for k in range(1, W // 128 + 1) for n in (128 * k - 1, 128 * k, 128 * k + 1)
+                      if n <= W - S})
+    rows = [da.expand_e_rows(e, length + 1, W) for length in lengths]
+    before = da.decode_attn_cached.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [da.decode_attn_cached(q, kv, sc, L - 1, e_rows, length)
+                for length, e_rows in zip(lengths, rows)]
+        torch.cuda.synchronize()
+    assert da.decode_attn_cached.launches == before + len(lengths)
+    # the card's profiler can drop kernel records under back-to-back launches,
+    # so it is held to "no other kernel, none extra", the counter to one each
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(names) <= len(lengths), names
+    assert all("decode_attn_stacked" in n for n in names), names
+    for i, (length, e_rows, (acc, m, l)) in enumerate(zip(lengths, rows, outs)):
+        racc, rm, rl = da.decode_attn_cached_plain(q, kv, sc, L - 1, e_rows, length)
+        torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-5, msg=f"m at {length}")
+        torch.testing.assert_close(l, rl, rtol=1e-5, atol=1e-5, msg=f"l at {length}")
+        err = (acc.view(B, H, dh) / l[..., None] - racc.view(B, H, dh) / rl[..., None]).abs().max()
+        assert err.item() <= (vmax / 127 if quant else 1e-3 * vmax), (length, err)
+        p_cnt = (0, 3, 7, 8)[i % 4]
+        e_rows = da.expand_e_rows(e, length + p_cnt + 1, W)
+        e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1)
+        got_pend, want_pend = pend.clone(), pend.clone()
+        before = da.decode_attn_cached.launches
+        out, _ = da.decode_attn_cached(q, kv, sc, L - 1, e_rows, length, got_pend, e_pend, p_cnt,
+                                       row)
+        assert da.decode_attn_cached.launches == before + 1
+        ref, _ = da.decode_attn_cached_plain(q, kv, sc, L - 1, e_rows, length, want_pend, e_pend,
+                                             p_cnt, row)
+        assert torch.equal(got_pend, want_pend), (length, p_cnt)
+        tol = (vmax / 127 if quant else 0) + 2 ** -7 * ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= tol, (length, p_cnt)
+
+
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16], ids=["q-f32", "q-bf16"])
+def test_decode_kernel_q_dtypes_and_head_groups(cuda, quant, q_dtype):
+    """q as it comes (f32 or bf16; the kernel quantizes and casts it) against
+    the twin given the same q, at H 16 and at H 20: the kernel's score units
+    take 8 heads, so H 20 ends on a partial unit of 4."""
+    for B, W, H, dh in ((4, 384, 16, 48), (3, 512, 20, 32)):
+        kv, sc, q, e, pend, row, vmax = _decode_inputs(B, W, H, dh, 2, 8, quant, seed=3)
+        q = q.to(q_dtype)
+        for length in (1, 300, W - 8):
+            e_rows = da.expand_e_rows(e, length + 1, W)
+            acc, m, l = da.decode_attn_cached(q, kv, sc, 1, e_rows, length)
+            racc, rm, rl = da.decode_attn_cached_plain(q, kv, sc, 1, e_rows, length)
+            torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(l, rl, rtol=1e-5, atol=1e-5)
+            err = (acc.view(B, H, dh) / l[..., None] - racc.view(B, H, dh) / rl[..., None]).abs()
+            assert err.max().item() <= (vmax / 127 if quant else 1e-3 * vmax), (H, length)
+            got_pend, want_pend = pend.clone(), pend.clone()
+            e_pend = da.expand_e_rows(e, 4, 9)
+            out, _ = da.decode_attn_cached(q, kv, sc, 1, e_rows, length, got_pend, e_pend, 3, row)
+            ref, _ = da.decode_attn_cached_plain(q, kv, sc, 1, e_rows, length, want_pend, e_pend,
+                                                 3, row)
+            assert torch.equal(got_pend, want_pend)
+            tol = (vmax / 127 if quant else 0) + 2 ** -7 * ref.float().abs().max().item()
+            assert (out.float() - ref.float()).abs().max().item() <= tol, (H, length)
+
+
+@pytest.mark.parametrize("rows,D", [(5, 99), (9728, 768)])
+def test_dropout_mask_shared_by_kernels_10_11_12(cuda, rows, D):
+    """One (seed, shape) gives one mask: kernel 10 forward and backward,
+    kernel 11 (dropout + add + LayerNorm) and kernel 12 (its backward) all
+    agree with the twins given the mask recovered through kernel 10; and
+    the keep fraction is within 6 binomial standard deviations."""
+    rate, seed = 0.1, 4321
+    g = torch.Generator(device="cuda").manual_seed(7)
+    sub, res, dy = (torch.randn((rows, D), generator=g, device=cuda) for _ in range(3))
+    w, b = torch.randn((D,), generator=g, device=cuda), torch.randn((D,), generator=g, device=cuda)
+    keep = fd.fused_dropout(torch.ones_like(sub), seed, rate) != 0
+    n = keep.numel()
+    assert abs(keep.float().mean().item() - (1 - rate)) <= 6 * (rate * (1 - rate) / n) ** 0.5
+    xg = sub.clone().requires_grad_()
+    fd.fused_dropout(xg, seed, rate).backward(torch.ones_like(sub))
+    assert torch.equal(xg.grad != 0, keep)
+    y = fd.dropout_add_layernorm(sub, res, w, b, seed, rate)
+    torch.testing.assert_close(y, fd.dropout_add_layernorm_plain(sub, res, w, b, keep, rate),
+                               rtol=1e-5, atol=1e-5)
+    got = fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate)
+    want = fd.dropout_add_layernorm_bwd_plain(sub, res, dy, w, keep, rate)
+    assert not got[0][~keep].any()  # dsub is zero off the mask
+    for name, a, r in zip(("dsub", "dres"), got[:2], want[:2]):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def test_dropout_mask_lanes_independent(cuda):
+    """Elements 4c and 4c + 1 take two words of one Philox call: the share
+    of pairs with both kept is within 6 standard deviations of (1 - rate)^2."""
+    rate = 0.1
+    keep = (fd.fused_dropout(torch.ones((9728, 768), device=cuda), 99, rate) != 0).view(-1, 4)
+    for a, b in ((0, 1), (1, 2), (2, 3), (0, 3)):
+        both = (keep[:, a] & keep[:, b]).float()
+        p = (1 - rate) ** 2
+        sd = (p * (1 - p) / both.numel()) ** 0.5
+        assert abs(both.mean().item() - p) <= 6 * sd, (a, b, both.mean().item())
