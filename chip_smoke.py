@@ -15,7 +15,11 @@ Phases, each fatal on failure:
      flagship shapes, in f32 and bf16 (the decode kernel in its four modes,
      int8 and bf16, unstaged and staged, at the serving shapes L 20, B 64,
      W 1408), and time both and, where one PyTorch call computes the same
-     function, that call; hold each backward decomposition (split,
+     function, that call; every attention kernel also at the head shapes
+     past the flagship's, at small sizes (d_head 96 and 128 in f32 and
+     bf16, the tensor-core kernels 1 and 4 at every d_head, and the decode
+     kernel at D 1280, two head groups; kernels 1 and 4 timed at d_head
+     128 beside 64); hold each backward decomposition (split,
      fused/column, fused/dist) against the merged kernel; then one small f32
      train step through the kernels against the same step on the CPU
      (twins);
@@ -260,10 +264,31 @@ def check_flash_bwd(torch, B, H, T, dh, dtype, causal, tol, timed=False):
     out = {"max_abs_err": worst}
     out["bound_ms"], out["bound_by"] = bound(
         n_bytes, visible_pairs(torch, pad, H, causal) * 16 * dh, dtype_name(dtype))
+    library = None
+    if timed:
+        # F.scaled_dot_product_attention's backward with the relative, causal
+        # and pad logits as a float mask that requires grad, its graph built
+        # outside the timing: dQ, dK, dV, and dS' as the mask's grad (dE would
+        # follow from dS' by a skewed reduction, not timed)
+        import torch.nn.functional as F
+
+        from midi_emotion_tpu_torch.ops.attention import rel_position_bias
+        from midi_emotion_tpu_torch.ops.flash_attention import _masked
+
+        mask = (rel_position_bias(q.float(), e.float()) / dh ** 0.5).masked_fill(
+            _masked(T, causal, pad, q.device), float("-inf")).to(dtype).requires_grad_()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out_l = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+        def library():
+            return torch.autograd.grad(out_l, (*leaves, mask), do, retain_graph=True)
+
+    # the kernel's time: the whole wrapper call, its dsum, backward kernel
+    # and reductions, every one of them the port's own
     return _report(torch, out, timed, name,
                    lambda: flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do),
                    lambda: flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do),
-                   iters=5)
+                   library, iters=5)
 
 
 # the other backward decompositions' kernels: JSON name -> (its wrapper in
@@ -516,13 +541,19 @@ def check_dal(torch, rows, D, dtype, rate, tol, timed=False):
 DECODE = dict(L=20, B=64, W=1408, H=16, dh=48, S=8)
 
 
-def _decode_cache(torch, quant, seed):
-    """A stacked cache of random rows at the serving shapes (quantized per
-    layer for int8), q, E, a stage and the current row, on the card; and
-    max |V| before quantization."""
+# the head shapes past the flagship's, at a small cache: d_head 96 and 128,
+# and a width above 1024 (two head groups of 5)
+DECODE_SHAPES = (dict(L=2, B=4, W=256, H=8, dh=96, S=8), dict(L=2, B=4, W=256, H=8, dh=128, S=8),
+                 dict(L=2, B=4, W=256, H=10, dh=128, S=8))
+
+
+def _decode_cache(torch, quant, seed, shape=DECODE):
+    """A stacked cache of random rows at ``shape`` (quantized per layer for
+    int8), q, E, a stage and the current row, on the card; and max |V|
+    before quantization."""
     from midi_emotion_tpu_torch.ops import decode_attention as da
 
-    L, B, W, H, dh, S = (DECODE[k] for k in ("L", "B", "W", "H", "dh", "S"))
+    L, B, W, H, dh, S = (shape[k] for k in ("L", "B", "W", "H", "dh", "S"))
     D = H * dh
     g = torch.Generator(device="cuda").manual_seed(seed)
     kv = torch.empty((L, B, W, 2 * D), dtype=torch.int8 if quant else torch.bfloat16,
@@ -543,10 +574,11 @@ def _decode_cache(torch, quant, seed):
     return kv, sc, q, e, pend, row, vmax
 
 
-def check_decode(torch, quant, timed=False):
-    """Kernel 13 against its twin at the serving shapes, layer 13 of 20,
-    unstaged at each length and staged (S 8) at each (length, p_cnt), p_cnt
-    8 being the clamp. Tolerances: the integer score sums are exact, but
+def check_decode(torch, quant, timed=False, shape=DECODE,
+                 lengths=(0, 1, 127, 128, 129, 700, 1216, 1281, 1400)):
+    """Kernel 13 against its twin at ``shape`` (by default the serving
+    shapes, layer 13 of 20), unstaged at each length and staged (S 8) at
+    each (length, p_cnt), p_cnt 8 being the clamp. Tolerances: the integer score sums are exact, but
     the f32 scores round apart by an ulp, and a flip of one P
     re-quantization unit moves a head's output by at most about
     max|V|/127 (int8); bf16 rounds p to bf16 in both, so the unstaged
@@ -555,14 +587,14 @@ def check_decode(torch, quant, timed=False):
     summation order (1e-5 relative); the written stage exactly."""
     from midi_emotion_tpu_torch.ops import decode_attention as da
 
-    L, B, W, H, dh, S = (DECODE[k] for k in ("L", "B", "W", "H", "dh", "S"))
+    L, B, W, H, dh, S = (shape[k] for k in ("L", "B", "W", "H", "dh", "S"))
     D = H * dh
     layer = min(13, L - 1)  # a nonzero layer
     mode = "int8" if quant else "bf16"
-    kv, sc, q, e, pend, row, vmax = _decode_cache(torch, quant, SEED + 5)
+    kv, sc, q, e, pend, row, vmax = _decode_cache(torch, quant, SEED + 5, shape)
     p_tol = vmax / 127 if quant else 0.0
     worst = {"unstaged": 0.0, "staged": 0.0, "m/l": 0.0}
-    for length in (0, 1, 127, 128, 129, 700, 1216, 1281, 1400):
+    for length in lengths:
         e_rows = da.expand_e_rows(e, length + 1, W)
         acc, m, l = da.decode_attn_cached(q, kv, sc, layer, e_rows, length)
         torch.cuda.synchronize()
@@ -598,9 +630,11 @@ def check_decode(torch, quant, timed=False):
                 fail(f"decode {mode} staged length {length} p_cnt {p_cnt}: err {err:.3e} "
                      f"(tol {tol:.3e}), stage equal {torch.equal(got_pend, want_pend)}")
     name = f"decode {mode} L={L} B={B} W={W} H={H} dh={dh}"
-    print(f"{name}: lengths 0..1400, p_cnt 0/3/7/8: max err unstaged {worst['unstaged']:.3e}, "
-          f"staged {worst['staged']:.3e} (P unit max|V|/127 = {vmax / 127:.3e}), m/l "
-          f"{worst['m/l']:.3e}; stage writes exact")
+    print(f"{name}: lengths {lengths[0]}..{lengths[-1]}, p_cnt 0/3/7/8: max err unstaged "
+          f"{worst['unstaged']:.3e}, staged {worst['staged']:.3e} (P unit max|V|/127 = "
+          f"{vmax / 127:.3e}), m/l {worst['m/l']:.3e}; stage writes exact")
+    if shape is not DECODE:
+        return None
 
     # timed: staged, length 1216 (the window), 4 rows in the stage
     length, p_cnt = 1216, 4
@@ -966,18 +1000,23 @@ def profile_decode(torch, model, vocab, kv_dtype, B=64, prompt_len=600, steps=8)
 
 def _kernel_label(mangled):
     """A readable name for a mangled kernel of this repository's sources."""
-    m = re.search(r"\d([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:L[bi](\d)E)?",
+    m = re.search(r"(decode_attn_stacked_kernel)ILi(\d+)ELb([01])E", mangled)
+    if m:
+        kern, dh, quant = m.groups()
+        return f"{kern} <dh={dh}, {'int8' if quant == '1' else 'bf16'}>"
+    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(13__nv_bfloat16|f)?(?:Li(\d+)E)?(?:L[bi](\d)E)?)?",
                   mangled)
     if m:
         kern, t, dh, mode = m.groups()
         modes = {"flash_rel_attn_bwd_kv_kernel": ("dK/dV", "dK/dV/dQ_qk"),
                  "flash_rel_attn_bwd_q_kernel": ("column", "dist", "rel")}
         extra = f", {modes[kern][int(mode)]}" if mode and kern in modes else ""
-        return f"{kern} <{'bf16' if t != 'f' else 'f32'}{', dh=' + dh if dh else ''}{extra}>"
-    m = re.search(r"(decode_attn_stacked_kernel)ILi(\d+)ELb([01])E", mangled)
-    if m:
-        kern, dh, quant = m.groups()
-        return f"{kern} <dh={dh}, {'int8' if quant == '1' else 'bf16'}>"
+        # the tensor-core kernels take bf16 alone, the CUDA-core flash
+        # kernels of kernels 1 and 4 f32 alone; the others name their type
+        if t is None and dh is None:
+            return kern  # not a template
+        bf16 = t == "13__nv_bfloat16" or (t is None and "_tc_" in kern)
+        return f"{kern} <{'bf16' if bf16 else 'f32'}{', dh=' + dh if dh else ''}{extra}>"
     return mangled
 
 
@@ -1042,21 +1081,38 @@ def main():
     check_flash(torch, 2, 16, 1216, 48, torch.float32, True, 1e-4, 1e-4)
     check_flash(torch, 2, 16, 1216, 48, torch.bfloat16, True, 2e-2, 1e-3)
     check_flash(torch, 2, 16, 200, 48, torch.float32, False, 1e-4, 1e-4)
-    for dh in (16, 32, 64):  # the other d_head instantiations, one each
+    check_flash(torch, 2, 16, 200, 48, torch.bfloat16, False, 2e-2, 1e-3)
+    for dh in (16, 32, 64, 96, 128):  # the other d_head instantiations, one each
         check_flash(torch, 2, 4, 333, dh, torch.float32, True, 1e-4, 1e-4)
+        check_flash(torch, 2, 4, 333, dh, torch.bfloat16, True, 2e-2, 1e-3)
     # the CLI run's two prefill shapes: the one-token primer, then a refresh
     check_flash(torch, 4, 16, 1, 48, torch.bfloat16, True, 2e-2, 1e-3)
     flash = check_flash(torch, 4, 16, 1216, 48, torch.bfloat16, True, 2e-2, 1e-3, timed=True)
     check_flash_bwd(torch, TRAIN_B, 16, TRAIN_T, 48, torch.float32, True, 1e-4)
     check_flash_bwd(torch, 2, 4, 333, 64, torch.float32, False, 1e-4)
+    check_flash_bwd(torch, 2, 4, 333, 64, torch.bfloat16, False, 2e-2)
     check_flash_bwd(torch, 2, 4, 100, 16, torch.float32, True, 1e-4)
+    for dh in (16, 32, 96, 128):  # bf16 at each other d_head, f32 at the new ones
+        check_flash_bwd(torch, 2, 4, 200, dh, torch.bfloat16, True, 2e-2)
+        if dh > 64:
+            check_flash_bwd(torch, 2, 4, 200, dh, torch.float32, True, 1e-4)
     flash_bwd = check_flash_bwd(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16, True, 2e-2,
                                 timed=True)
+    # what the widest heads cost: d_head 128 timed beside d_head 64 at one
+    # width (H * dh = 1024), kernels 1 and 4 in both dtypes, at B 2
+    for H, dh in ((16, 64), (8, 128)):
+        check_flash(torch, 2, H, 1216, dh, torch.float32, True, 1e-4, 1e-4, timed=True)
+        check_flash(torch, 2, H, 1216, dh, torch.bfloat16, True, 2e-2, 1e-3, timed=True)
+        check_flash_bwd(torch, 2, H, 1216, dh, torch.float32, True, 1e-4, timed=True)
+        check_flash_bwd(torch, 2, H, 1216, dh, torch.bfloat16, True, 2e-2, timed=True)
     bwd_kernels = {}
     for kernel in BWD_KERNELS:  # the other decompositions' kernels, same tolerances
         check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48, torch.float32, True, 1e-4)
         check_bwd_kernel(torch, kernel, 2, 4, 333, 64, torch.float32, False, 1e-4)
         check_bwd_kernel(torch, kernel, 2, 4, 100, 16, torch.float32, True, 1e-4)
+        for dh in (96, 128):
+            check_bwd_kernel(torch, kernel, 2, 4, 200, dh, torch.float32, True, 1e-4)
+            check_bwd_kernel(torch, kernel, 2, 4, 200, dh, torch.bfloat16, True, 2e-2)
         bwd_kernels[kernel] = check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48,
                                                torch.bfloat16, True, 2e-2, timed=True)
         torch.cuda.empty_cache()
@@ -1074,6 +1130,9 @@ def main():
     dal_fwd, dal_bwd = check_dal(torch, rows, 768, torch.bfloat16, 0.1, 2 ** -7, timed=True)
     decode_int8 = check_decode(torch, True, timed=True)  # the JSON line's row: int8, staged
     check_decode(torch, False, timed=True)
+    for shape in DECODE_SHAPES:
+        for quant in (True, False):
+            check_decode(torch, quant, shape=shape, lengths=(0, 1, 127, 128, 129, 200, 248))
     check_train_step(torch)
     torch.cuda.empty_cache()
     print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")

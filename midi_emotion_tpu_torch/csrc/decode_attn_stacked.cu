@@ -57,7 +57,18 @@
 //     while the first tiles land), the self term and the stage write: one
 //     launch a layer-step, no combine kernel;
 //   * host launches: q is quantised and cast inside the kernel, so the
-//     wrapper launches nothing else.
+//     wrapper launches nothing else;
+//   * widths: a CTA holds the channels of one head group, the most heads
+//     dividing H within 1024 channels (all 16 heads at D 768; 2 groups of 5
+//     heads of 128 at D 1280), and the grid's z index is the group. Heads are
+//     independent in attention (softmax, P and PV never mix them), so the
+//     groups need no combine: each runs the whole pipeline above on its
+//     columns, addressed by a slab offset in the same tensor map. This keeps a
+//     ring stage (32 rows of the group's K or V half) at the size the 1024
+//     channel design has, so two or more stages fit at any width; a loop over
+//     groups inside one CTA would instead re-run the window once a group with
+//     the SMs split fewer ways. d_head 96 and 128 E rows (192 and 256 bytes)
+//     are copied unswizzled.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is found at run time)
@@ -75,7 +86,7 @@ constexpr int NW = NT / 32;
 constexpr int TK = 32;           // cache rows per tile
 constexpr int NS_MAX = 4;        // ring stages at most
 constexpr int CHUNK = 64;        // channels per warp in the PV product
-constexpr int MAX_D = 1024;       // H * dh at most
+constexpr int MAX_D = 1024;       // channels of a head group (a CTA's H * dh) at most
 constexpr int PRODUCER = NW - 1;   // the warp that issues the tile copies
 constexpr int NC = NW - 1;         // the consumer warps, 0..NC - 1
 constexpr int MAX_SLOTS = 2;       // PV chunks a consumer warp: D <= NC * CHUNK * 2
@@ -102,8 +113,10 @@ struct Params {
   float* l;
   __nv_bfloat16* out;
   int L, B, W, H, layer, length, S, p_cnt, bw, q_bf16;
+  int Ht;       // heads of the model; H is a head group's, blockIdx.z the group
   int nblk, per, ns;  // live window blocks, blocks per CTA, ring stages
-  int nsh;      // slabs in a half row
+  int nsh;      // slabs in a head group's half row
+  int nsh_t;    // slabs in a whole half row
   int bulk_sc;  // the scale rows are 16-byte multiples: copied by tensor map
   float scale;
 };
@@ -291,7 +304,8 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
   const int b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int H = p.H, D = H * DH, bw = p.bw;
+  const int H = p.H, D = H * DH, bw = p.bw;  // this head group's
+  const int hg0 = blockIdx.z * H, Dt = p.Ht * DH;  // its first head; the model's width
   constexpr int ITEM = QUANT ? 1 : 2;
   constexpr int KS = QUANT ? 32 : 16;  // channels per score k-step (32 bytes)
   constexpr int NKS = 8 * DH / KS;     // k-steps over 8 heads' channels
@@ -332,9 +346,10 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
     tile = r;
   };
   const size_t lb = (size_t)p.layer * p.B + b;  // (layer, b)
-  const __nv_bfloat16* sc_b = QUANT ? p.sc + lb * 2 * H * p.W : nullptr;
-  const size_t slot = (size_t)p.L * p.B * 2 * D;  // one stage slot
-  const __nv_bfloat16* pend_b = p.pend + lb * 2 * D;  // slot 0 (staged only)
+  const __nv_bfloat16* sc_b = QUANT ? p.sc + lb * 2 * p.Ht * p.W : nullptr;
+  const size_t slot = (size_t)p.L * p.B * 2 * Dt;  // one stage slot
+  const __nv_bfloat16* pend_b = p.pend + lb * 2 * Dt;  // slot 0 (staged only)
+  const int sh0 = hg0 * DH * ITEM / S;  // the group's first slab in a half row
 
   // the producer warp: copy job tj's tile into its stage as tensor-map
   // boxes (the cache rows, rows at and past length read as zeros; for a K
@@ -355,7 +370,8 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
       for (int c = lane; c < 2 * H * TK; c += 32) {
         const int r = c / TK, k = c - r * TK;
         if (key0 + k < p.W)
-          (r < H ? ks_dst : vs_dst)[(r % H) * TK + k] = sc_b[(size_t)r * p.W + key0 + k];
+          (r < H ? ks_dst : vs_dst)[(r % H) * TK + k] =
+              sc_b[(size_t)(r < H ? hg0 + r : p.Ht + hg0 + r - H) * p.W + key0 + k];
       }
     }
     __syncwarp();
@@ -364,25 +380,26 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
       const bool sc_tma = QUANT && is_k && p.bulk_sc;
       mbar_expect_tx(bar,
                      TK * D * ITEM + (is_k ? TK * DH * 2 : 0) + (sc_tma ? 2 * H * TK * 2 : 0));
-      tma_load(st, &p.tmap, 0, key0, is_k ? 0 : p.nsh, b, p.layer, bar);
+      tma_load(st, &p.tmap, 0, key0, is_k ? sh0 : p.nsh_t + sh0, b, p.layer, bar);
       if (is_k) tma_load(st + lo.e_at, &p.emap, 0, key0, 0, 0, 0, bar);
       if (sc_tma) {  // key scales into the stage, value scales into vsc_s
-        tma_load(st + lo.ks_at, &p.smap, key0, 0, b, p.layer, 0, bar);
-        tma_load(vsc_s + ((size_t)i * lo.tpb + tile) * lo.vpitch, &p.smap, key0, H, b, p.layer, 0,
-                 bar);
+        tma_load(st + lo.ks_at, &p.smap, key0, hg0, b, p.layer, 0, bar);
+        tma_load(vsc_s + ((size_t)i * lo.tpb + tile) * lo.vpitch, &p.smap, key0, p.Ht + hg0, b,
+                 p.layer, 0, bar);
       }
     }
   };
 
   // ---- q first (its latency overlaps the first tiles'): up to 4 heads a
-  // warp, D <= 1024 and dh >= 16
-  float qv[4][2];
+  // warp (a group's D <= 1024 and dh >= 16), NE channels a lane
+  constexpr int NE = (DH + 31) / 32;
+  float qv[4][NE];
 #pragma unroll
   for (int k = 0; k < 4; ++k)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
+    for (int e = 0; e < NE; ++e) {
       const int h = warp + NW * k, c = lane + 32 * e;
-      const size_t at = ((size_t)b * H + h) * DH + c;
+      const size_t at = ((size_t)b * p.Ht + hg0 + h) * DH + c;
       qv[k][e] = h >= H || c >= DH ? 0.f
                  : p.q_bf16 ? bf2f(static_cast<const __nv_bfloat16*>(p.q)[at])
                             : static_cast<const float*>(p.q)[at];
@@ -398,8 +415,8 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
   if (warp == PRODUCER)
     for (int tj = 0; tj < p.ns - 1; ++tj) issue(tj);
   if (warp == 1 && rank == 0 && p.pend != nullptr) {  // the tail's rows, into L2
-    for (int s = lane; s < p.p_cnt; s += 32) prefetch_l2(pend_b + s * slot, 2 * D * 2);
-    if (lane == 0) prefetch_l2(p.row + (size_t)b * 2 * D, 2 * D * 2);
+    for (int s = lane; s < p.p_cnt; s += 32) prefetch_l2(pend_b + s * slot + hg0 * DH, D * 2);
+    if (lane == 0) prefetch_l2(p.row + (size_t)b * 2 * Dt + hg0 * DH, D * 2);
   }
 
   // ---- bf16 cast and (int8 mode) per-head quantisation, one warp a head
@@ -411,9 +428,12 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
   for (int k = 0; k < 4; ++k) {
     const int h = warp + NW * k;
     if (h >= H) break;
-    const float sq = warp_max(fmaxf(fabsf(qv[k][0]), fabsf(qv[k][1]))) / 127.f + 1e-20f;
+    float qmax = 0.f;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
+    for (int e = 0; e < NE; ++e) qmax = fmaxf(qmax, fabsf(qv[k][e]));
+    const float sq = warp_max(qmax) / 127.f + 1e-20f;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
       const int c = lane + 32 * e;
       if (c < DH) {
         qh_s[h * DH + c] = __float2bfloat16(qv[k][e]);
@@ -484,7 +504,8 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
       // E rows of dh * 2 bytes, swizzled as the copy engine writes them
       // where that is 32, 64 or 128 bytes (the same for rows r0 and r0 + 8)
       constexpr int EB = DH * 2, ELS = EB == 128 ? 7 : EB == 64 ? 6 : 5;
-      const int ex = EB == 96 ? 0 : ((r0 >> (7 - ELS)) & (EB / 16 - 1)) << 4;
+      const int ex = EB == 32 || EB == 64 || EB == 128 ? ((r0 >> (7 - ELS)) & (EB / 16 - 1)) << 4
+                                                        : 0;  // 96, 192, 256: unswizzled
       const unsigned char* er = st + lo.e_at + r0 * EB;
       const unsigned char* qn =
           reinterpret_cast<const unsigned char*>(qh_s + (col ? hn : 0) * DH) + 4 * t;
@@ -725,7 +746,7 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
   };
 
   const int np = p.p_cnt;
-  const __nv_bfloat16* row = p.row + (size_t)b * 2 * D;
+  const __nv_bfloat16* row = p.row + (size_t)b * 2 * Dt;
   __syncthreads();  // q is ready
   if (rank == 0 && p.pend != nullptr && warp < NC) {
     // the tail's logits, while the first tiles land: stage rows (a lane a
@@ -733,11 +754,11 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
     for (int h = warp; h < H; h += NC) {
       const __nv_bfloat16* qh = qh_s + h * DH;
       for (int s = lane; s < np; s += 32)
-        tail_lg[h * (p.S + 1) + s] = (dot_bf16<DH>(pend_b + s * slot + h * DH, qh) +
+        tail_lg[h * (p.S + 1) + s] = (dot_bf16<DH>(pend_b + s * slot + (hg0 + h) * DH, qh) +
                                       dot_bf16<DH>(p.e_pend + (size_t)s * DH, qh)) * p.scale;
       float qk = 0.f, qe = 0.f;
       for (int c = lane; c < DH; c += 32) {
-        qk += bf2f(qh[c]) * bf2f(row[h * DH + c]);
+        qk += bf2f(qh[c]) * bf2f(row[(hg0 + h) * DH + c]);
         qe += bf2f(qh[c]) * bf2f(p.e_pend[(size_t)np * DH + c]);
       }
       qk = warp_sum(qk);
@@ -800,10 +821,10 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
   __syncthreads();
 
   if (p.pend == nullptr) {
-    for (int c = tid; c < D; c += NT) p.acc[(size_t)b * D + c] = acc_s[c];
+    for (int c = tid; c < D; c += NT) p.acc[(size_t)b * Dt + hg0 * DH + c] = acc_s[c];
     for (int h = tid; h < H; h += NT) {
-      p.m[(size_t)b * H + h] = mfin_s[h];
-      p.l[(size_t)b * H + h] = l_s[h];
+      p.m[(size_t)b * p.Ht + hg0 + h] = mfin_s[h];
+      p.l[(size_t)b * p.Ht + hg0 + h] = l_s[h];
     }
     return;
   }
@@ -842,20 +863,21 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
       float res = 0.f;
 #pragma unroll 4
       for (int s = 0; s < np; ++s)
-        res = fmaf(tp[s], bf2f(pend_b[s * slot + D + h * DH + c]), res);
+        res = fmaf(tp[s], bf2f(pend_b[s * slot + Dt + (hg0 + h) * DH + c]), res);
       const float a = acc_s[h * DH + c] * alpha + res;
-      p.out[(size_t)b * D + h * DH + c] =
-          __float2bfloat16((a * a_old + bf2f(row[D + h * DH + c]) * a_new) / denom);
+      p.out[(size_t)b * Dt + (hg0 + h) * DH + c] =
+          __float2bfloat16((a * a_old + bf2f(row[Dt + (hg0 + h) * DH + c]) * a_new) / denom);
     }
     __syncwarp();  // tp is the next head's
   }
 
-  // ---- append the current row at stage slot p_cnt: one writer per b. The
-  // slot is never read above (rows >= p_cnt are not live). ----
-  if (np < p.S) {
+  // ---- append the current row at stage slot p_cnt: one writer per b (head
+  // group 0 writes the whole row). The slot is never read above (rows >=
+  // p_cnt are not live). ----
+  if (np < p.S && blockIdx.z == 0) {
     const uint4* src = reinterpret_cast<const uint4*>(row);
-    uint4* dst = reinterpret_cast<uint4*>(p.pend + (size_t)np * slot + lb * 2 * D);
-    for (int i = tid; i < 2 * D * 2 / 16; i += NT) dst[i] = src[i];
+    uint4* dst = reinterpret_cast<uint4*>(p.pend + (size_t)np * slot + lb * 2 * Dt);
+    for (int i = tid; i < 2 * Dt * 2 / 16; i += NT) dst[i] = src[i];
   }
 }
 
@@ -896,13 +918,14 @@ EncodeTiled tensor_map_encoder() {
 // eight distinct 16-byte units. e_rows: [W][dh], a box of TK rows, swizzled
 // at its row's width where that is 32, 64 or 128 bytes. sc (int8, rows of
 // 16-byte multiples): [L][B][2H][W], a box of H rows of TK keys.
-cudaError_t encode_maps(Params& p, int D, int dh, bool quant) {
+cudaError_t encode_maps(Params& p, int dh, bool quant) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const int item = quant ? 1 : 2, half = D * item;
+  const int item = quant ? 1 : 2, half = p.H * dh * item, half_t = p.Ht * dh * item;
   const int slab = half % 128 == 0 ? 128 : 16;
   p.nsh = half / slab;
-  const cuuint64_t row = 2 * (cuuint64_t)half, elems = slab / item;
+  p.nsh_t = half_t / slab;
+  const cuuint64_t row = 2 * (cuuint64_t)half_t, elems = slab / item;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   auto swizzle = [](int bytes) {
     return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -911,7 +934,7 @@ cudaError_t encode_maps(Params& p, int D, int dh, bool quant) {
                          : CU_TENSOR_MAP_SWIZZLE_NONE;
   };
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint64_t kv_dims[5] = {elems, (cuuint64_t)p.length, 2 * (cuuint64_t)p.nsh,
+  const cuuint64_t kv_dims[5] = {elems, (cuuint64_t)p.length, 2 * (cuuint64_t)p.nsh_t,
                                  (cuuint64_t)p.B, (cuuint64_t)p.L};
   const cuuint64_t kv_strides[4] = {row, (cuuint64_t)slab, p.W * row, p.B * p.W * row};
   const cuuint32_t kv_box[5] = {(cuuint32_t)elems, TK, (cuuint32_t)p.nsh, 1, 1};
@@ -932,8 +955,8 @@ cudaError_t encode_maps(Params& p, int D, int dh, bool quant) {
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   p.bulk_sc = quant && p.W % 8 == 0;
   if (!p.bulk_sc) return cudaSuccess;
-  const cuuint64_t s_row = (cuuint64_t)p.W * 2, s_b = s_row * 2 * p.H, s_l = s_b * p.B;
-  const cuuint64_t s_dims[5] = {(cuuint64_t)p.W, 2 * (cuuint64_t)p.H, (cuuint64_t)p.B,
+  const cuuint64_t s_row = (cuuint64_t)p.W * 2, s_b = s_row * 2 * p.Ht, s_l = s_b * p.B;
+  const cuuint64_t s_dims[5] = {(cuuint64_t)p.W, 2 * (cuuint64_t)p.Ht, (cuuint64_t)p.B,
                                 (cuuint64_t)p.L, 1};
   const cuuint64_t s_strides[4] = {s_row, s_b, s_l, s_l * p.L};
   const cuuint32_t s_box[5] = {TK, (cuuint32_t)p.H, 1, 1, 1};
@@ -948,7 +971,8 @@ cudaError_t launch(Params p, cudaStream_t stream) {
   p.nblk = (p.length + p.bw - 1) / p.bw;
   // about one CTA an SM over the batch: the cluster size the SMs allow per
   // batch row, grown where a CTA's blocks do not fit its shared memory
-  int want = max(1, min(MAX_CLUSTER, sm_count() / p.B));
+  const int groups = p.Ht / p.H;
+  int want = max(1, min(MAX_CLUSTER, sm_count() / (p.B * groups)));
   Layout lo;
   for (;;) {
     p.per = p.nblk ? (p.nblk + want - 1) / want : 1;
@@ -961,7 +985,7 @@ cudaError_t launch(Params p, cudaStream_t stream) {
     ++want;
   }
   cudaError_t err = cudaSuccess;
-  if (p.nblk > 0 && (err = encode_maps(p, p.H * DH, DH, QUANT)) != cudaSuccess) return err;
+  if (p.nblk > 0 && (err = encode_maps(p, DH, QUANT)) != cudaSuccess) return err;
   const int n_cta = p.nblk ? (p.nblk + p.per - 1) / p.per : 1;
   auto kernel = decode_attn_stacked_kernel<DH, QUANT, S>;
   static bool smem_set[64] = {};  // per device: this instantiation may use SMEM_MAX
@@ -979,7 +1003,7 @@ cudaError_t launch(Params p, cudaStream_t stream) {
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_cta, p.B, 1);
+  cfg.gridDim = dim3(n_cta, p.B, groups);
   cfg.blockDim = dim3(NT, 1, 1);
   cfg.dynamicSmemBytes = lo.total;
   cfg.stream = stream;
@@ -997,6 +1021,8 @@ cudaError_t dispatch_dh(const Params& p, int dh, cudaStream_t stream) {
     case 32: return launch<32, QUANT, S>(p, stream);
     case 48: return launch<48, QUANT, S>(p, stream);
     case 64: return launch<64, QUANT, S>(p, stream);
+    case 96: return launch<96, QUANT, S>(p, stream);
+    case 128: return launch<128, QUANT, S>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1021,7 +1047,7 @@ int decode_attn_stacked(const void* q, const void* kv, const void* sc, const voi
                         void* l, void* out, int L, int B, int W, int H, int dh, int layer,
                         int length, int S, int p_cnt, int bw, int quant, int q_bf16,
                         void* stream) {
-  if (L <= 0 || B <= 0 || W <= 0 || H <= 0 || H * dh > MAX_D || layer < 0 ||
+  if (L <= 0 || B <= 0 || W <= 0 || H <= 0 || dh <= 0 || dh > MAX_D || layer < 0 ||
       layer >= L || length < 0 || length > W || bw <= 0 || W % bw != 0 || q == nullptr ||
       kv == nullptr || e_rows == nullptr)
     return cudaErrorInvalidValue;
@@ -1048,7 +1074,13 @@ int decode_attn_stacked(const void* q, const void* kv, const void* sc, const voi
   p.L = L;
   p.B = B;
   p.W = W;
-  p.H = H;
+  p.Ht = H;
+  p.H = 1;  // the head group: the most heads, dividing H, within MAX_D channels
+  for (int hg = H; hg >= 1; --hg)
+    if (H % hg == 0 && hg * dh <= MAX_D) {
+      p.H = hg;
+      break;
+    }
   p.layer = layer;
   p.length = length;
   p.S = S;

@@ -18,45 +18,78 @@
 // dQ and dE each carry it exactly once. Srel is 0 above the diagonal even in
 // the non-causal (regression) model, so only distances d = i - j >= 0 reach E.
 //
-// Design (simple and correct first; see PERF.md for its time):
-//   * one block of 256 threads per (b, h) sweeps its 64-key tiles and, inside,
-//     the 64-row query tiles that see them, as the TPU's sequential grid did.
-//     So every accumulation has one owner: dK and dV of the key tile live in
-//     registers; dQ accumulates in an f32 scratch [B, H, T, dh] that only
-//     this block touches; dE accumulates in an f32 partial [B*H, T, dh]
-//     indexed by distance, again only this block's. A second kernel reduces
-//     the partials over B*H into dE. No atomics, no sum through bf16, and the
-//     result is deterministic. At B 8, H 16 that is 128 blocks: one wave on
-//     the H100's 132 SMs;
-//   * per tile pair the block stages K, V, Q, dO and the band of BQ + BK - 1
-//     E rows (zero for negative distances, as in the forward) in shared
-//     memory as f32, then runs four phases with its threads remapped:
-//     A, thread = (query row, 16 keys): recompute P, dP and dS' into shared
-//     [BQ][BK] tiles; B, thread = (key row, dh/4 columns): dV and dK; C,
-//     thread = (query row, dh/4 columns): dQ; D, thread = (distance, dh/4
-//     columns): the band's dE diagonals;
-//   * causal: query tiles above a key tile are never visited.
+// Both dtype paths keep the TPU kernel's ownership scheme: a block sweeps
+// 64-key tiles of one (b, h) and, inside, the 64-row query tiles that see
+// them (causal: those at or below the diagonal), as the TPU's sequential
+// grid did. dK and dV of the key tile live in registers; dQ accumulates in
+// an f32 scratch and dE in an f32 partial indexed by distance, each only
+// this block's; second kernels reduce the partials in a fixed order. No
+// atomics, no sum through bf16, a deterministic result.
 //
-// What bounds it on the H100: CUDA-core f32 FMAs fed from shared memory (no
-// tensor cores), and the 8 warps a block gives each SM. wgmma tiles and a
-// split of the key sweep over more blocks are the later steps.
+// bf16 (the training path). Bound on the H100: operations. At B 8, H 16,
+// T 1216, dh 48 the nine products over the visible pairs are about 72
+// GFLOP, 73 us at the tensor cores' 989 TFLOP/s. The design puts every
+// product on the tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums)
+// with 8 warps a block, per tile pair:
+//   1. S = Q K^T and the band Q E_band^T (bq + bk rows of E), skewed into
+//      Srel through a per-warp shared scratch; P = exp(s - lse);
+//   2. dP = dO V^T; dS' = c P (dP - dsum) in f32, rounded to bf16 as the
+//      TPU kernel rounds ds; P rounded to bf16 (both into shared tiles);
+//   3. dS' scattered by distance into dsd (the skew back, 0 where the
+//      distance is negative), which feeds dQ_rel = dsd E_band and
+//      dE += dsd^T Q as plain products;
+//   4. dV += P^T dO, dK += dS'^T Q (operands read transposed by ldmatrix),
+//      dQ += dS' K + dsd E_band.
+// Two blocks share a (b, h), taking alternate key tiles, each with its own
+// dQ and dE partials (the reductions sum the two in block order): at B 8,
+// H 16 that is 256 blocks, two an SM at d_head <= 48, so one block's
+// products run while the other waits at a barrier or on its copies. The
+// band moves 64 distances a query tile, so a warp's upper dE block is the
+// next pair's lower one and stays in registers (each dE partial row is
+// read and written once a key tile, not twice), and E lives in a ring of
+// 64-row chunks of which a pair copies one. Q, dO, lse, dsum and E come by
+// cp.async (at d_head <= 32 in a two-stage ring, the next pair's copies
+// under this pair's products); rows are padded by 16 bytes so ldmatrix
+// reads are free of bank conflicts. mma.sync and not wgmma, chosen without
+// a wgmma version written or timed: a warp's 16-row fragments are the unit
+// of the skews and of the register reuse between products. Nothing rules
+// wgmma out: it takes A (P, dS' and their transposes' fragments) from
+// registers, and its shared-memory B operands take 32- and 64-byte swizzles
+// or padded rows, so d_head 48 and 96 fit. A wgmma version, each B tile read
+// once a 64-row warpgroup, is the next step.
+//
+// f32 (the checks' path, held to 1e-4 of each gradient's scale): CUDA
+// cores, because TF32 products keep about three decimal digits. A block of
+// 4 threads a row (256 at 64-row tiles, 128 at d_head 128, whose 32-row tiles
+// keep the f32 staging inside 227 KB) stages K, V, Q, dO and the band of
+// BQ + BK - 1 E rows (zero for negative distances) in shared memory as f32,
+// then runs four phases with its threads remapped: A, thread = (query row,
+// BK/4 keys): P, dP and dS' into shared tiles; B, thread = (key row, dh/4
+// columns): dV and dK; C, thread = (query row, dh/4 columns): dQ; D, thread
+// = (distance, dh/4 columns): the band's dE diagonals. CUDA-core FMAs fed
+// from shared memory bound it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BQ = 64;             // query rows per tile
-constexpr int BK = 64;             // keys per tile
-constexpr int BAND = BQ + BK - 1;  // distinct distances i - j in one tile pair
-constexpr int NT = 256;            // threads per block: 4 per row in phases B-D
-constexpr int PS = BK + 1;         // row stride of the P and dS' tiles
-static_assert(NT == 4 * BQ && NT == 4 * BK, "phases map 4 threads to a row");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Tile sides by d_head: 64 rows, or 32 at d_head 128, where 64-row f32 tiles
+// would pass the 232,448 bytes of shared memory a block may use. The threads
+// follow the tile: 4 a row.
+template <int DH>
+struct Tile {
+  static constexpr int BQ = DH > 96 ? 32 : 64;  // query rows per tile
+  static constexpr int BK = BQ;                  // keys per tile
+  static constexpr int BAND = BQ + BK - 1;       // distinct distances i - j in one tile pair
+  static constexpr int NT = 4 * BQ;              // threads per block: 4 per row
+  static constexpr int PS = BK + 1;              // row stride of the P and dS' tiles
+  static constexpr int BS = BAND + 2;            // row stride of a band tile (distinct banks)
+};
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -69,20 +102,23 @@ __host__ __device__ constexpr int row_stride() { return DH + 4; }  // 16-byte al
 
 template <int DH>
 __host__ __device__ constexpr size_t smem_bytes() {
+  constexpr int BQ = Tile<DH>::BQ, BK = Tile<DH>::BK, BAND = Tile<DH>::BAND, PS = Tile<DH>::PS;
   return (size_t)((2 * BK + 2 * BQ + BAND) * row_stride<DH>() + 2 * BQ * PS + 2 * BQ + BK) *
          sizeof(float);
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-flash_rel_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ e,
-                          const uint8_t* __restrict__ pad, const T* __restrict__ dout,
+template <int DH>
+__global__ void __launch_bounds__(Tile<DH>::NT)
+flash_rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ e,
+                          const uint8_t* __restrict__ pad, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dsum,
-                          T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                          float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
                           float* __restrict__ dq_acc, float* __restrict__ de_part, int H,
                           int T_len, int max_seq, int causal, float scale) {
   static_assert(DH % 16 == 0, "each of 4 threads takes a float4-aligned quarter row");
+  constexpr int BQ = Tile<DH>::BQ, BK = Tile<DH>::BK, BAND = Tile<DH>::BAND, NT = Tile<DH>::NT,
+                PS = Tile<DH>::PS;
   constexpr int RS = row_stride<DH>();
   constexpr int CH = DH / 4;  // columns per thread in phases B, C and D
   extern __shared__ float4 smem4[];
@@ -121,8 +157,8 @@ flash_rel_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kx = 0.f, vx = 0.f;
       if (j < nk) {
         const size_t g = base + (size_t)(k0 + j) * DH + d;
-        kx = to_f32(k[g]);
-        vx = to_f32(v[g]);
+        kx = k[g];
+        vx = v[g];
       }
       ks[j * RS + d] = kx;
       vs[j * RS + d] = vx;
@@ -142,8 +178,8 @@ flash_rel_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float qx = 0.f, dox = 0.f;
         if (q0 + r < T_len) {
           const size_t g = base + (size_t)(q0 + r) * DH + d;
-          qx = to_f32(q[g]);
-          dox = to_f32(dout[g]);
+          qx = q[g];
+          dox = dout[g];
         }
         qs[r * RS + d] = qx;
         dos[r * RS + d] = dox;
@@ -158,7 +194,7 @@ flash_rel_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int u = x / DH, d = x - u * DH;
         const int dist = dist0 + u;
         float ev = 0.f;
-        if (dist >= 0 && dist < max_seq) ev = to_f32(e[(size_t)(max_seq - 1 - dist) * DH + d]);
+        if (dist >= 0 && dist < max_seq) ev = e[(size_t)(max_seq - 1 - dist) * DH + d];
         es[u * RS + d] = ev;
       }
       __syncthreads();
@@ -283,14 +319,14 @@ flash_rel_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const size_t g = base + (size_t)(k0 + row4) * DH + c * CH;
 #pragma unroll
       for (int x = 0; x < CH; ++x) {
-        dk[g + x] = from_f32<T>(dk_acc[x]);
-        dv[g + x] = from_f32<T>(dv_acc[x]);
+        dk[g + x] = dk_acc[x];
+        dv[g + x] = dv_acc[x];
       }
     }
   }
 
   __syncthreads();  // every dQ accumulation of this (b, h) has landed
-  for (int x = tid; x < T_len * DH; x += NT) dq[base + x] = from_f32<T>(dqa[x]);
+  for (int x = tid; x < T_len * DH; x += NT) dq[base + x] = dqa[x];
 }
 
 // dE[row] = sum over b*h of de_part[bh][max_seq - 1 - row], zero for rows
@@ -310,27 +346,537 @@ __global__ void de_reduce_kernel(const float* __restrict__ de_part, T* __restric
   de[x] = from_f32<T>(acc);
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// dsum[row] = dO[row] . O[row] in f32, a warp a row: the backward's one
+// input that the forward does not save (XLA work beside the TPU kernel).
+template <typename T>
+__global__ void dsum_kernel(const T* __restrict__ dout, const T* __restrict__ o,
+                            float* __restrict__ dsum, int rows, int dh) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (row >= rows) return;  // whole warps
+  const size_t base = (size_t)row * dh;
+  float acc = 0.f;
+  for (int d = lane; d < dh; d += 32) acc += to_f32(dout[base + d]) * to_f32(o[base + d]);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) dsum[row] = acc;
+}
+
+
+// ---------------------------------------------------------------------------
+// the bf16 path: tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // keys per tile
+constexpr int NWARP = 8;
+constexpr int NTH = 32 * NWARP;
+constexpr int SPLIT = 2;      // blocks a (b, h): block s takes key tiles s, s + SPLIT, ...
+constexpr int EB = BQ + BK;   // band rows staged per tile pair (the last one unused)
+constexpr int PS = BK + 8;    // bf16 row stride of the P and dS' tiles
+constexpr int DS = EB + 8;    // bf16 row stride of the distance-domain dS' tile
+constexpr int WB = 48;        // band rows a warp multiplies in phase A: its 47 distances
+constexpr int WBS = WB + 8;   // row stride of a warp's band scratch (floats)
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH>
+struct Layout {
+  static constexpr int RS = DH + 8;   // bf16 row stride: an odd number of 16-byte units
+  static constexpr int CPR = DH / 8;  // 16-byte chunks a row
+  static constexpr int STAGES = DH <= 32 ? 2 : 1;  // the ring: two stages where they fit
+  static constexpr int KV_BYTES = 2 * BK * RS * 2 + BK * 4;               // K, V, live
+  static constexpr int ST_BYTES = 2 * BQ * RS * 2 + 2 * BQ * 4;  // Q, dO, lse, dsum
+  static constexpr int NSLOT = 2 * STAGES;  // E chunks of 64 rows: two a pair in work
+  static constexpr int ST_AT = STAGES * KV_BYTES;
+  static constexpr int E_AT = ST_AT + STAGES * ST_BYTES;
+  static constexpr int P_AT = E_AT + NSLOT * 64 * RS * 2;
+  static constexpr int DSD_AT = P_AT + 2 * BQ * PS * 2;
+  static constexpr int SCR_AT = DSD_AT + BQ * DS * 2;
+  static constexpr int TOTAL = SCR_AT + NWARP * 16 * WBS * 4;
+  // two blocks an SM (the SM's 228 KB, 1 KB of it per block reserved)
+  static constexpr int MIN_BLOCKS = 2 * (TOTAL + 1024) <= 233472 ? 2 : 1;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 (or 4) bytes global -> shared, zeros where !ok (no byte is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc[n] += A (16 x 16, fragments a) times the 16 x (8 NH) slab of a
+// row-major [k][n] shared tile at `b` (row stride rs, first k row and
+// column already applied), read transposed by ldmatrix: lane rows
+// (lane & 7) + 8 ((lane >> 3) & 1), 8-column groups by lane >> 4
+template <int NH>
+__device__ __forceinline__ void mma_kn(float (*acc)[4], const uint32_t* a,
+                                       const __nv_bfloat16* b, int rs, int lane) {
+  const __nv_bfloat16* row = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * rs;
+#pragma unroll
+  for (int n = 0; n + 1 < NH; n += 2) {
+    uint32_t bf[4];
+    ldsm_x4_t(bf, row + 8 * n + (lane >> 4) * 8);
+    mma(acc[n], a, bf[0], bf[1]);
+    mma(acc[n + 1], a, bf[2], bf[3]);
+  }
+  if constexpr (NH % 2 == 1) {
+    uint32_t bf[2];
+    ldsm_x2_t(bf, row + 8 * (NH - 1));
+    mma(acc[NH - 1], a, bf[0], bf[1]);
+  }
+}
+
+// Block s of the SPLIT a (b, h) sweeps key tiles s, s + SPLIT, ... and,
+// inside, the query tiles that see them (see the note at the top), with 8
+// warps. Per tile pair:
+//   phase A, warp (rows 16 (w % 4), keys 32 (w / 4)): S = Q K^T, the band
+//     Q E_band^T over its 48 distances and dP = dO V^T on the tensor cores;
+//     the band skewed into Srel through a per-warp scratch; P = exp(s -
+//     lse), dS' = c P (dP - dsum) in f32, both rounded to bf16 into shared
+//     tiles, and dS' also scattered by distance into dsd[i][i - j + BK - 1]
+//     (0 where the distance is negative); entries no key reaches stay 0;
+//   phase B, warp (16-row block w / 2, channel half w % 2): dV += P^T dO and
+//     dK += dS'^T Q (registers, the key tile's own), dQ += dS' K + dsd E_band
+//     (f32 scratch, this block's own), dE += dsd^T Q (two 16-distance
+//     blocks, f32 partial by distance, this block's own; the upper block
+//     carried in registers to the next query tile, whose lower block it is).
+template <int DH>
+__global__ void __launch_bounds__(NTH, Layout<DH>::MIN_BLOCKS)
+flash_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ e,
+                    const uint8_t* __restrict__ pad, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ dsum,
+                    __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, float* __restrict__ dq_acc,
+                    float* __restrict__ de_part, int H, int T_len, int max_seq, int causal,
+                    float scale, float scale_log2) {
+  using L = Layout<DH>;
+  constexpr int RS = L::RS, CPR = L::CPR, KS = DH / 16, NH = DH / 16;  // NH: n-tiles a half
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / SPLIT, sp = blockIdx.x % SPLIT, b = bh / H;
+  const size_t base = (size_t)bh * T_len * DH, rbase = (size_t)bh * T_len;
+  const size_t part = ((size_t)sp * (gridDim.x / SPLIT) + bh) * T_len * DH;  // this block's
+  float* dqa = dq_acc + part;   // [T][DH]
+  float* dep = de_part + part;  // [T][DH], row = distance
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + L::P_AT);  // P [BQ][PS]
+  __nv_bfloat16* dss = ps + BQ * PS;                                      // dS' [BQ][PS]
+  __nv_bfloat16* dsd = reinterpret_cast<__nv_bfloat16*>(smem + L::DSD_AT);  // [BQ][DS]
+  float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
+  auto kv_buf = [&](int i) { return reinterpret_cast<__nv_bfloat16*>(smem + i * L::KV_BYTES); };
+  auto st_buf = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + L::ST_AT + s * L::ST_BYTES);
+  };
+
+  const int n_tiles = (T_len + BK - 1) / BK;
+  auto first_q = [&](int kt) { return causal ? kt : 0; };
+  // dQ rows no pair of this block reaches (query tiles above its first key
+  // tile, or all when it has none) are zero in its partial
+  const int dq_zero = sp >= n_tiles ? T_len : min(T_len, first_q(sp) * BQ);
+  for (int x = tid; x < BQ * DS; x += NTH) dsd[x] = __float2bfloat16(0.f);
+  for (int x = tid; x < T_len * DH; x += NTH) dep[x] = 0.f;
+  for (int x = tid; x < dq_zero * DH; x += NTH) dqa[x] = 0.f;
+  if (sp >= n_tiles) return;
+  // The E band of a pair (row u at distance q0 - k0 - (BK - 1) + u, zero
+  // where negative) is two chunks of 64 rows in a ring of NSLOT: the next
+  // query tile's band starts 64 distances on, so its lower chunk is this
+  // pair's upper one and only its upper chunk is copied (both at a key
+  // tile's first pair). Chunk c sits in slot c % NSLOT.
+  static_assert(BQ == 64 && BK == 64, "the band moves one 64-row chunk a query tile");
+  __nv_bfloat16* e_ring = reinterpret_cast<__nv_bfloat16*>(smem + L::E_AT);
+  auto e_slot = [&](int c) { return e_ring + (c % L::NSLOT) * 64 * RS; };
+  int n_chunks = 0;  // chunks copied so far
+  auto load_chunk = [&](int c, int dist_first) {
+    __nv_bfloat16* dst = e_slot(c);
+    for (int x = tid; x < 64 * CPR; x += NTH) {
+      const int u = x / CPR, cc = x - u * CPR;
+      const int dist = dist_first + u;
+      const bool ok = dist >= 0 && dist < max_seq;
+      cp_async16(dst + u * RS + cc * 8, e + (size_t)(ok ? max_seq - 1 - dist : 0) * DH + cc * 8,
+                 ok);
+    }
+  };
+  // pair (kt, qt) into ring stage s: at a key tile's first pair its K, V and
+  // key flags; always Q, dO, lse, dsum and the band's new chunks; (lo, hi)
+  // come back as the band's chunks, given the last pair's upper one in hi
+  auto load = [&](int kt, int qt, int s, int& lo, int& hi) {
+    const int k0 = kt * BK, q0 = qt * BQ;
+    const int dist0 = q0 - k0 - (BK - 1);
+    if (qt == first_q(kt)) {
+      lo = n_chunks++;
+      load_chunk(lo, dist0);
+    } else {
+      lo = hi;
+    }
+    hi = n_chunks++;
+    load_chunk(hi, dist0 + 64);
+    if (qt == first_q(kt)) {
+      __nv_bfloat16* ks = kv_buf(kt / SPLIT % L::STAGES);
+      __nv_bfloat16* vs = ks + BK * RS;
+      float* live = reinterpret_cast<float*>(vs + BK * RS);
+      for (int x = tid; x < BK * CPR; x += NTH) {
+        const int j = x / CPR, c = x - j * CPR;
+        const bool ok = k0 + j < T_len;
+        const size_t at = base + (size_t)(ok ? k0 + j : 0) * DH + c * 8;
+        cp_async16(ks + j * RS + c * 8, k + at, ok);
+        cp_async16(vs + j * RS + c * 8, v + at, ok);
+      }
+      for (int j = tid; j < BK; j += NTH)
+        live[j] = (k0 + j < T_len && !(pad != nullptr && pad[(size_t)b * T_len + k0 + j])) ? 1.f
+                                                                                           : 0.f;
+    }
+    __nv_bfloat16* qs = st_buf(s);
+    __nv_bfloat16* dos = qs + BQ * RS;
+    float* lse_s = reinterpret_cast<float*>(dos + BQ * RS);
+    for (int x = tid; x < BQ * CPR; x += NTH) {
+      const int r = x / CPR, c = x - r * CPR;
+      const bool ok = q0 + r < T_len;
+      const size_t at = base + (size_t)(ok ? q0 + r : 0) * DH + c * 8;
+      cp_async16(qs + r * RS + c * 8, q + at, ok);
+      cp_async16(dos + r * RS + c * 8, dout + at, ok);
+    }
+    for (int r = tid; r < BQ; r += NTH) {
+      const bool ok = q0 + r < T_len;
+      const size_t at = rbase + (ok ? q0 + r : 0);
+      cp_async4(lse_s + r, lse + at, ok);
+      cp_async4(lse_s + BQ + r, dsum + at, ok);
+    }
+    cp_commit();
+  };
+
+  float dva[NH][4], dka[NH][4];  // dV, dK of keys 16 (w / 2).., channel half w % 2
+  float ecarry[NH][4];           // dE of the upper distance block, for the next pair
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dva[n][x] = dka[n][x] = ecarry[n][x] = 0.f;
+  const int ra = 16 * (warp & 3), ka = 32 * (warp >> 2), ub = ra - ka + 32;  // phase A
+  const int mq = warp >> 1, c0 = (warp & 1) * (DH / 2);                        // phase B
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;  // A row-major
+  const int brow = (lane & 7) + (lane >> 4) * 8, bcol = ((lane >> 3) & 1) * 8;  // B, A^T
+
+  int kt = sp, qt = first_q(sp), nk = kt, nq = qt;
+  auto next = [&](int& a, int& c) {
+    if (++c == n_tiles) c = first_q(a += SPLIT);
+  };
+  next(nk, nq);
+  int lo = 0, hi = 0, nlo = 0, nhi = 0;  // this pair's band chunks, and the next pair's
+  load(kt, qt, 0, lo, hi);
+  for (int pair = 0;; ++pair) {
+    const int s = pair % L::STAGES;
+    const bool more = nk < n_tiles;
+    cp_wait<0>();
+    __syncthreads();  // this pair's tiles have landed; every warp is done with the last pair
+    // the next pair into the other stage, whose last reader was the last pair
+    nhi = hi;
+    if (L::STAGES > 1 && more) load(nk, nq, (pair + 1) % L::STAGES, nlo, nhi);
+    const int k0 = kt * BK, q0 = qt * BQ, dist0 = q0 - k0 - (BK - 1);
+    const __nv_bfloat16* ks = kv_buf(kt / SPLIT % L::STAGES);
+    const __nv_bfloat16* vs = ks + BK * RS;
+    const float* live = reinterpret_cast<const float*>(vs + BK * RS);
+    const __nv_bfloat16* qs = st_buf(s);
+    const __nv_bfloat16* dos = qs + BQ * RS;
+    const float* lse_s = reinterpret_cast<const float*>(dos + BQ * RS);
+    const float* dsum_s = lse_s + BQ;
+    const __nv_bfloat16* elo = e_slot(lo);
+    const __nv_bfloat16* ehi = e_slot(hi);
+    // band row r (a 16-row group never straddles the chunks)
+    auto erow = [&](int r) { return (r < 64 ? elo : ehi) + (r & 63) * RS; };
+
+    // ---- phase A
+    {
+      float sacc[4][4], bacc[WB / 8][4], dpacc[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) sacc[n][x] = dpacc[n][x] = 0.f;
+#pragma unroll
+      for (int n = 0; n < WB / 8; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) bacc[n][x] = 0.f;
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+        uint32_t qa[4], da[4];
+        ldsm_x4(qa, qs + (ra + lrow) * RS + st * 16 + lcol);
+        ldsm_x4(da, dos + (ra + lrow) * RS + st * 16 + lcol);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bf[4];
+          ldsm_x4(bf, ks + (ka + np * 16 + brow) * RS + st * 16 + bcol);
+          mma(sacc[2 * np], qa, bf[0], bf[1]);
+          mma(sacc[2 * np + 1], qa, bf[2], bf[3]);
+          ldsm_x4(bf, vs + (ka + np * 16 + brow) * RS + st * 16 + bcol);
+          mma(dpacc[2 * np], da, bf[0], bf[1]);
+          mma(dpacc[2 * np + 1], da, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int np = 0; np < WB / 16; ++np) {
+          uint32_t bf[4];
+          ldsm_x4(bf, erow(ub + np * 16 + brow) + st * 16 + bcol);
+          mma(bacc[2 * np], qa, bf[0], bf[1]);
+          mma(bacc[2 * np + 1], qa, bf[2], bf[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < WB / 8; ++n) {
+        *reinterpret_cast<float2*>(scr + g * WBS + 8 * n + 2 * t) =
+            make_float2(bacc[n][0], bacc[n][1]);
+        *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * n + 2 * t) =
+            make_float2(bacc[n][2], bacc[n][3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = g + 8 * h, il = ra + r, i = q0 + il, c = 8 * n + 2 * t, jj = ka + c;
+          float p[2], ds[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            // the skew: Srel of (row r, key c + x) is band column r - (c + x) + 31
+            const float sc = sacc[n][2 * h + x] + scr[r * WBS + r - c - x + 31];
+            const bool ok = i < T_len && live[jj + x] != 0.f && !(causal && k0 + jj + x > i);
+            p[x] = ok ? exp2f(sc * scale_log2 - lse_s[il] * LOG2E) : 0.f;
+            ds[x] = p[x] * (dpacc[n][2 * h + x] - dsum_s[il]) * scale;
+          }
+          *reinterpret_cast<uint32_t*>(ps + il * PS + jj) = pack_bf16(p[0], p[1]);
+          const uint32_t dsb = pack_bf16(ds[0], ds[1]);
+          *reinterpret_cast<uint32_t*>(dss + il * PS + jj) = dsb;
+          const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
+          const __nv_bfloat16 zero = __float2bfloat16(0.f);
+          const int u = il - jj + BK - 1;  // key jj + x sits at u - x
+          dsd[il * DS + u] = dist0 + u >= 0 ? d2.x : zero;
+          dsd[il * DS + u - 1] = dist0 + u - 1 >= 0 ? d2.y : zero;
+        }
+    }
+    __syncthreads();
+
+    // ---- phase B. The dQ and dE partials this warp adds to are loaded
+    // first, so their latency passes under the products. The upper dE block
+    // (distances 16 (mq + 4)..) is the next pair's lower block (the band
+    // moves 64 distances a query tile), so it goes on in registers (ecarry)
+    // and reaches the partial once, at the key tile's last pair.
+    const bool last = qt == n_tiles - 1;
+    float2 qold[2][NH], eold[2][2][NH];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = q0 + 16 * mq + g + 8 * h;
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+        qold[h][n] =  // a query tile's first pair is with key tile sp
+            kt > sp && i < T_len
+                ? *reinterpret_cast<const float2*>(dqa + (size_t)i * DH + c0 + 8 * n + 2 * t)
+                : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int hb = 0; hb < 2; ++hb) {
+        const int dist = dist0 + 16 * (mq + 4 * hb) + g + 8 * h;
+#pragma unroll
+        for (int n = 0; n < NH; ++n)
+          eold[hb][h][n] =
+              (hb == 0 || last) && dist >= 0 && dist < T_len
+                  ? *reinterpret_cast<const float2*>(dep + (size_t)dist * DH + c0 + 8 * n + 2 * t)
+                  : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq) {  // dV += P^T dO, dK += dS'^T Q
+      uint32_t pa[4], sa[4];
+      ldsm_x4_t(pa, ps + (16 * kq + brow) * PS + 16 * mq + bcol);
+      ldsm_x4_t(sa, dss + (16 * kq + brow) * PS + 16 * mq + bcol);
+      mma_kn<NH>(dva, pa, dos + 16 * kq * RS + c0, RS, lane);
+      mma_kn<NH>(dka, sa, qs + 16 * kq * RS + c0, RS, lane);
+    }
+    {  // dQ += dS' K + dsd E_band, rows 16 mq..: dsd row i is nonzero at u in [i, i + BK - 1]
+      float qacc[NH][4];
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) qacc[n][x] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, dss + (16 * mq + lrow) * PS + 16 * kk + lcol);
+        mma_kn<NH>(qacc, a, ks + 16 * kk * RS + c0, RS, lane);
+      }
+#pragma unroll
+      for (int ku = mq; ku <= mq + BK / 16; ++ku) {
+        uint32_t a[4];
+        ldsm_x4(a, dsd + (16 * mq + lrow) * DS + 16 * ku + lcol);
+        mma_kn<NH>(qacc, a, erow(16 * ku) + c0, RS, lane);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = q0 + 16 * mq + g + 8 * h;
+        if (i >= T_len) continue;
+#pragma unroll
+        for (int n = 0; n < NH; ++n)
+          *reinterpret_cast<float2*>(dqa + (size_t)i * DH + c0 + 8 * n + 2 * t) =
+              make_float2(qold[h][n].x + qacc[n][2 * h], qold[h][n].y + qacc[n][2 * h + 1]);
+      }
+    }
+#pragma unroll
+    for (int hb = 0; hb < 2; ++hb) {  // dE += dsd^T Q, distances 16 ublk..
+      const int ublk = mq + 4 * hb;
+      float eacc[NH][4];
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) eacc[n][x] = hb == 0 ? ecarry[n][x] : 0.f;
+      // rows i reach u in [i, i + BK - 1]: query steps ublk - 4 .. ublk
+      for (int kq = max(0, ublk - BK / 16); kq <= min(BQ / 16 - 1, ublk); ++kq) {
+        uint32_t a[4];
+        ldsm_x4_t(a, dsd + (16 * kq + brow) * DS + 16 * ublk + bcol);
+        mma_kn<NH>(eacc, a, qs + 16 * kq * RS + c0, RS, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) ecarry[n][x] = hb == 1 && !last ? eacc[n][x] : 0.f;
+      if (hb == 1 && !last) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int dist = dist0 + 16 * ublk + g + 8 * h;
+        if (dist < 0 || dist >= T_len) continue;
+#pragma unroll
+        for (int n = 0; n < NH; ++n)
+          *reinterpret_cast<float2*>(dep + (size_t)dist * DH + c0 + 8 * n + 2 * t) =
+              make_float2(eold[hb][h][n].x + eacc[n][2 * h], eold[hb][h][n].y + eacc[n][2 * h + 1]);
+      }
+    }
+
+    if (qt == n_tiles - 1) {  // the key tile's last pair: its dK and dV
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = k0 + 16 * mq + g + 8 * h;
+#pragma unroll
+        for (int n = 0; n < NH; ++n) {
+          if (key < T_len) {
+            const size_t at = base + (size_t)key * DH + c0 + 8 * n + 2 * t;
+            *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(dka[n][2 * h], dka[n][2 * h + 1]);
+            *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dva[n][2 * h], dva[n][2 * h + 1]);
+          }
+          dka[n][2 * h] = dka[n][2 * h + 1] = dva[n][2 * h] = dva[n][2 * h + 1] = 0.f;
+        }
+      }
+    }
+    if (!more) break;
+    kt = nk;
+    qt = nq;
+    next(nk, nq);
+    if (L::STAGES == 1) {
+      __syncthreads();  // every warp is done with the one stage
+      load(kt, qt, 0, lo, hi);
+    } else {
+      lo = nlo;
+      hi = nhi;
+    }
+  }
+}
+
+// dQ = the SPLIT blocks' partials summed in block order, cast once
+__global__ void dq_reduce_kernel(const float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq,
+                                 size_t n) {
+  const size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= n) return;
+  float acc = 0.f;
+#pragma unroll
+  for (int s = 0; s < SPLIT; ++s) acc += dq_acc[s * n + x];
+  dq[x] = __float2bfloat16(acc);
+}
+
+}  // namespace tc
+
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    const void* dout, const void* lse, const void* dsum, void* dq, void* dk,
                    void* dv, void* de, void* dq_acc, void* de_part, int B, int H, int T_len,
                    int max_seq, int causal, cudaStream_t stream) {
-  auto kernel = flash_rel_attn_bwd_kernel<T, DH>;
-  const size_t smem = smem_bytes<DH>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<B * H, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(e), static_cast<const uint8_t*>(pad), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dq_acc),
-      static_cast<float*>(de_part), H, T_len, max_seq, causal, 1.f / sqrtf((float)DH));
+  const float scale = 1.f / sqrtf((float)DH);
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    auto kernel = flash_rel_attn_bwd_kernel<DH>;
+    const size_t smem = smem_bytes<DH>();
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<B * H, Tile<DH>::NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(e), static_cast<const uint8_t*>(pad),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(dsum), static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), static_cast<float*>(dq_acc), static_cast<float*>(de_part), H,
+        T_len, max_seq, causal, scale);
+  } else {
+    using B16 = __nv_bfloat16;
+    auto kernel = tc::flash_bwd_tc_kernel<DH>;
+    const int smem = tc::Layout<DH>::TOTAL;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<B * H * tc::SPLIT, tc::NTH, smem, stream>>>(
+        static_cast<const B16*>(q), static_cast<const B16*>(k), static_cast<const B16*>(v),
+        static_cast<const B16*>(e), static_cast<const uint8_t*>(pad), static_cast<const B16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<B16*>(dq),
+        static_cast<B16*>(dk), static_cast<B16*>(dv), static_cast<float*>(dq_acc),
+        static_cast<float*>(de_part), H, T_len, max_seq, causal, scale, scale * tc::LOG2E);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t n = (size_t)B * H * T_len * DH;
+    tc::dq_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        static_cast<const float*>(dq_acc), static_cast<B16*>(dq), n);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  // the bf16 path's partials: SPLIT per (b, h)
+  const int parts = std::is_same<T, float>::value ? B * H : B * H * tc::SPLIT;
   const int n = max_seq * DH, threads = 256;
   de_reduce_kernel<T><<<(n + threads - 1) / threads, threads, 0, stream>>>(
-      static_cast<const float*>(de_part), static_cast<T*>(de), B * H, T_len, max_seq, DH);
+      static_cast<const float*>(de_part), static_cast<T*>(de), parts, T_len, max_seq, DH);
   return cudaGetLastError();
 }
 
@@ -349,6 +895,8 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
     FLASH_BWD_CASE(32)
     FLASH_BWD_CASE(48)
     FLASH_BWD_CASE(64)
+    FLASH_BWD_CASE(96)
+    FLASH_BWD_CASE(128)
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_BWD_CASE
@@ -360,9 +908,10 @@ extern "C" {
 
 // Returns a cudaError_t: 0 when both launches were accepted. dtype: 0 =
 // float32, 1 = bfloat16 (q, k, v, e, dout, dq, dk, dv, de); lse and dsum are
-// f32 [B, H, T]; pad may be null. dq_acc is f32 scratch [B, H, T, dh] and
-// de_part f32 scratch [B*H, T, dh]; the kernel zeroes both. Launches on
-// `stream` and does not synchronise.
+// f32 [B, H, T]; pad may be null. dq_acc is f32 scratch [2, B, H, T, dh] and
+// de_part f32 scratch [2*B*H, T, dh] (the f32 path uses their first halves,
+// the bf16 path one half per block of a (b, h)); the kernels fill both.
+// Launches on `stream` and does not synchronise.
 int flash_rel_attn_bwd(const void* q, const void* k, const void* v, const void* e,
                        const void* pad, const void* dout, const void* lse, const void* dsum,
                        void* dq, void* dk, void* dv, void* de, void* dq_acc, void* de_part,
@@ -377,6 +926,27 @@ int flash_rel_attn_bwd(const void* q, const void* k, const void* v, const void* 
     return dispatch_dh<__nv_bfloat16>(q, k, v, e, pad, dout, lse, dsum, dq, dk, dv, de, dq_acc,
                                       de_part, B, H, T_len, dh, max_seq, causal, s);
   return cudaErrorInvalidValue;
+}
+
+// dsum = rowsum(dout * o) in f32 [rows] for dout and o [rows, dh] of one
+// dtype (0 = float32, 1 = bfloat16). Returns a cudaError_t; launches on
+// `stream` and does not synchronise.
+int flash_rel_attn_dsum(const void* dout, const void* o, void* dsum, int rows, int dh,
+                        int dtype, void* stream) {
+  if (rows <= 0 || dh <= 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = 256, blocks = (int)(((size_t)rows * 32 + threads - 1) / threads);
+  if (dtype == 0)
+    dsum_kernel<float><<<blocks, threads, 0, s>>>(static_cast<const float*>(dout),
+                                                  static_cast<const float*>(o),
+                                                  static_cast<float*>(dsum), rows, dh);
+  else if (dtype == 1)
+    dsum_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(o),
+        static_cast<float*>(dsum), rows, dh);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 const char* flash_rel_attn_bwd_error_string(int err) {

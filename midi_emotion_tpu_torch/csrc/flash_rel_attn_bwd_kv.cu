@@ -17,7 +17,9 @@
 // kernel (flash_rel_attn_bwd_q.cu), as on the TPU.
 //
 // Design (simple and correct first; see PERF.md for its time):
-//   * dK/dV alone: one 256-thread block per (b, h, 64-key tile). The tile owns
+//   * tiles of 64 rows (32 at d_head 128, so the f32 staging fits a block's
+//     shared memory) and 4 threads a row;
+//   * dK/dV alone: one block per (b, h, key tile). The tile owns
 //     its dK and dV, kept in registers, and sweeps the query tiles that see
 //     it (causal: those at or below the diagonal). At B 8, H 16, T 1216 that
 //     is 2 432 blocks, so every SM holds work to the end;
@@ -44,12 +46,18 @@
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per tile
-constexpr int BK = 64;             // keys per tile
-constexpr int BAND = BQ + BK - 1;  // distinct distances i - j in one tile pair
-constexpr int NT = 256;            // threads per block: 4 per row in phases B and C
-constexpr int PS = BK + 1;         // row stride of the P and dS' tiles
-static_assert(NT == 4 * BQ && NT == 4 * BK, "phases map 4 threads to a row");
+// Tile sides by d_head: 64 rows, or 32 at d_head 128, where 64-row f32 tiles
+// would pass the 232,448 bytes of shared memory a block may use. The threads
+// follow the tile: 4 a row.
+template <int DH>
+struct Tile {
+  static constexpr int BQ = DH > 96 ? 32 : 64;  // query rows per tile
+  static constexpr int BK = BQ;                  // keys per tile
+  static constexpr int BAND = BQ + BK - 1;       // distinct distances i - j in one tile pair
+  static constexpr int NT = 4 * BQ;              // threads per block: 4 per row
+  static constexpr int PS = BK + 1;              // row stride of the P and dS' tiles
+  static constexpr int BS = BAND + 2;            // row stride of a band tile (distinct banks)
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -65,12 +73,13 @@ __host__ __device__ constexpr int row_stride() { return DH + 4; }  // 16-byte al
 
 template <int DH>
 __host__ __device__ constexpr size_t smem_bytes() {
+  constexpr int BQ = Tile<DH>::BQ, BK = Tile<DH>::BK, BAND = Tile<DH>::BAND, PS = Tile<DH>::PS;
   return (size_t)((2 * BK + 2 * BQ + BAND) * row_stride<DH>() + 2 * BQ * PS + 2 * BQ + BK) *
          sizeof(float);
 }
 
 template <typename T, int DH, bool WITH_DQ>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Tile<DH>::NT)
 flash_rel_attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ e,
                              const uint8_t* __restrict__ pad, const T* __restrict__ dout,
@@ -79,6 +88,8 @@ flash_rel_attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              float* __restrict__ dq_acc, int H, int T_len, int max_seq,
                              int causal, float scale) {
   static_assert(DH % 16 == 0, "each of 4 threads takes a float4-aligned quarter row");
+  constexpr int BQ = Tile<DH>::BQ, BK = Tile<DH>::BK, BAND = Tile<DH>::BAND, NT = Tile<DH>::NT,
+                PS = Tile<DH>::PS;
   constexpr int RS = row_stride<DH>();
   constexpr int CH = DH / 4;  // columns per thread in phases B and C
   extern __shared__ float4 smem4[];
@@ -271,8 +282,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = WITH_DQ ? B * H : B * H * ((T_len + BK - 1) / BK);
-  kernel<<<blocks, NT, smem, stream>>>(
+  const int blocks = WITH_DQ ? B * H : B * H * ((T_len + Tile<DH>::BK - 1) / Tile<DH>::BK);
+  kernel<<<blocks, Tile<DH>::NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(e), static_cast<const uint8_t*>(pad), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<T*>(dk),
@@ -294,9 +305,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* e,
                                     H, T_len, max_seq, causal, s);
   if (dtype == 0) {
     KV_CASE(float, 16) KV_CASE(float, 32) KV_CASE(float, 48) KV_CASE(float, 64)
+    KV_CASE(float, 96) KV_CASE(float, 128)
   } else if (dtype == 1) {
     KV_CASE(__nv_bfloat16, 16) KV_CASE(__nv_bfloat16, 32)
     KV_CASE(__nv_bfloat16, 48) KV_CASE(__nv_bfloat16, 64)
+    KV_CASE(__nv_bfloat16, 96) KV_CASE(__nv_bfloat16, 128)
   }
 #undef KV_CASE
   return cudaErrorInvalidValue;

@@ -29,7 +29,9 @@
 // key i - d directly.
 //
 // Design (simple and correct first; see PERF.md for its time):
-//   * one 256-thread block per (b, h) sweeps its 64-row query tiles and,
+//   * tiles of 64 rows (32 at d_head 128, so the f32 staging fits a block's
+//     shared memory) and 4 threads a row;
+//   * one block per (b, h) sweeps its query tiles and,
 //     inside, the key tiles they see. A query tile owns its dQ, kept in
 //     registers and written once. dE crosses every tile, so it accumulates
 //     in an f32 partial [B*H, T, dh] indexed by distance that only this block
@@ -62,13 +64,18 @@
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per tile
-constexpr int BK = 64;             // keys per tile
-constexpr int BAND = BQ + BK - 1;  // distinct distances i - j in one tile pair
-constexpr int NT = 256;            // threads per block: 4 per row
-constexpr int PS = BK + 1;         // row stride of the dS' tile
-constexpr int BS = BAND + 2;       // row stride of the band tile (rows land on distinct banks)
-static_assert(NT == 4 * BQ && NT == 4 * BK, "phases map 4 threads to a row");
+// Tile sides by d_head: 64 rows, or 32 at d_head 128, where 64-row f32 tiles
+// would pass the 232,448 bytes of shared memory a block may use. The threads
+// follow the tile: 4 a row.
+template <int DH>
+struct Tile {
+  static constexpr int BQ = DH > 96 ? 32 : 64;  // query rows per tile
+  static constexpr int BK = BQ;                  // keys per tile
+  static constexpr int BAND = BQ + BK - 1;       // distinct distances i - j in one tile pair
+  static constexpr int NT = 4 * BQ;              // threads per block: 4 per row
+  static constexpr int PS = BK + 1;              // row stride of the P and dS' tiles
+  static constexpr int BS = BAND + 2;            // row stride of a band tile (distinct banks)
+};
 
 enum Mode { COLUMN = 0, DIST = 1, REL = 2 };
 
@@ -86,6 +93,8 @@ __host__ __device__ constexpr int row_stride() { return DH + 4; }  // 16-byte al
 
 template <int DH>
 __host__ __device__ constexpr size_t smem_bytes() {
+  constexpr int BQ = Tile<DH>::BQ, BK = Tile<DH>::BK, BAND = Tile<DH>::BAND, PS = Tile<DH>::PS,
+                BS = Tile<DH>::BS;
   return (size_t)((2 * BK + 2 * BQ + BAND) * row_stride<DH>() + BQ * PS + BQ * BS + 2 * BQ +
                   BK) *
          sizeof(float);
@@ -116,7 +125,7 @@ __device__ __forceinline__ void score_dot(const float* qr, const float* dor, con
 }
 
 template <typename T, int DH, int MODE>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Tile<DH>::NT)
 flash_rel_attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ e,
                             const uint8_t* __restrict__ pad, const T* __restrict__ dout,
@@ -124,6 +133,8 @@ flash_rel_attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             T* __restrict__ dq, float* __restrict__ de_part, int H, int T_len,
                             int max_seq, int causal, float scale) {
   static_assert(DH % 16 == 0, "each of 4 threads takes a float4-aligned quarter row");
+  constexpr int BQ = Tile<DH>::BQ, BK = Tile<DH>::BK, BAND = Tile<DH>::BAND, NT = Tile<DH>::NT,
+                PS = Tile<DH>::PS, BS = Tile<DH>::BS;
   constexpr int RS = row_stride<DH>();
   constexpr int CH = DH / 4;  // columns per thread in phases C and D
   constexpr bool KEY_COLUMN = MODE != REL;  // phase A and dQ's key term
@@ -354,7 +365,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, NT, smem, stream>>>(
+  kernel<<<B * H, Tile<DH>::NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(e), static_cast<const uint8_t*>(pad), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<T*>(dq),
@@ -380,9 +391,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* e, const v
                                  T_len, max_seq, causal, s);
   if (dtype == 0) {
     Q_CASE(float, 16) Q_CASE(float, 32) Q_CASE(float, 48) Q_CASE(float, 64)
+    Q_CASE(float, 96) Q_CASE(float, 128)
   } else if (dtype == 1) {
     Q_CASE(__nv_bfloat16, 16) Q_CASE(__nv_bfloat16, 32)
     Q_CASE(__nv_bfloat16, 48) Q_CASE(__nv_bfloat16, 64)
+    Q_CASE(__nv_bfloat16, 96) Q_CASE(__nv_bfloat16, 128)
   }
 #undef Q_CASE
   return cudaErrorInvalidValue;

@@ -54,9 +54,11 @@ Source note for the kernel (``csrc/decode_attn_stacked.cu``):
     bias and PV are ``mma.sync`` products (int8 m16n8k32 with exact integer
     sums, bf16 m16n8k16) with keys or channels on the rows and 8 heads on
     the columns. q is quantized and cast inside the kernel, so the wrapper
-    launches nothing else. It takes ``H * dh <= 1024`` (``MAX_WIDTH``). The
-    TPU kernel's (bb, bw) grid and its host-built layouts were Mosaic's
-    needs and are not carried over.
+    launches nothing else. Any width: a CTA takes one head group (the most
+    heads dividing H within 1024 channels), the grid's third index runs over
+    the groups, and a model with d_model above 1024 runs as independent head
+    groups. The TPU kernel's (bb, bw) grid and its host-built layouts were
+    Mosaic's needs and are not carried over.
 """
 
 from __future__ import annotations
@@ -70,9 +72,8 @@ import torch
 import torch.nn.functional as F
 
 NEG = -1e30
-KERNEL_DHS = (16, 32, 48, 64)
+KERNEL_DHS = (16, 32, 48, 64, 96, 128)
 MAX_STAGE = 128  # the kernel folds at most this many stage rows
-MAX_WIDTH = 1024  # H * dh the kernel takes (its PV chunks and shared memory are sized for it)
 
 
 def quantize_rows(t: torch.Tensor, n_groups: int):
@@ -263,8 +264,6 @@ def _check(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t) -> N
     B, H, dh = q_t.shape
     if dh not in KERNEL_DHS:
         raise ValueError(f"decode kernel takes d_head in {KERNEL_DHS}, got {dh}")
-    if H * dh > MAX_WIDTH:
-        raise ValueError(f"decode kernel takes H * d_head <= {MAX_WIDTH}, got {H * dh}")
     if q_t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q_t must be float32 or bfloat16, got {q_t.dtype}")
     if kv8.dim() != 4:

@@ -31,36 +31,57 @@ sizes, batch per block, VMEM) have no counterpart here.
 Scale convention: neither direction pre-scales q. The backward folds
 c = 1/sqrt(dh) into dS once, so dK, dQ and dE each carry it once (the JAX
 backward pre-scales q and fixes dQ up afterwards, ``pallas_attention.py:
-1737-1744``). ``dsum = rowsum(dO * O)`` in f32 is plain torch, as it is XLA
-work in the JAX package (``pallas_attention.py:1733-1735``).
+1737-1744``). ``dsum = rowsum(dO * O)`` in f32, XLA work in the JAX
+package (``pallas_attention.py:1733-1735``), is a small kernel of
+``csrc/flash_rel_attn_bwd.cu`` on a CUDA tensor, so every decomposition's
+backward runs only the port's own kernels.
 
-Source note for the forward kernel:
+Head shapes: every kernel here takes d_head in ``KERNEL_DHS`` (16, 32, 48,
+64, 96, 128), in f32 and bf16, any T <= max_seq; another d_head raises a
+ValueError that names it. bf16 operands must be 16-byte aligned (the
+kernels copy 16-byte units); fresh and contiguous tensors are.
+
+Source note for the forward kernel (``csrc/flash_rel_attn_fwd.cu``):
   * replaces ``pallas_attention.py::_flash_kernel`` (launched by
     ``_flash_fwd_impl`` through ``flash_relative_attention``);
-  * bound on the H100: it runs on the CUDA cores at f32, one thread per
-    query row, so shared-memory reads and occupancy bound it rather than
-    HBM (it reads q, k, v and the E band once per tile pair and writes O
-    and lse once);
-  * its design: online softmax over 64-key tiles staged in shared memory
-    with the E band of the tile pair, Srel folded into the score dot as
-    q.(k + E), causal tiles above the diagonal skipped, heaviest query
-    tiles first. The TPU kernel's time-on-lanes layout, head/batch
-    blocking, strided-rotate skew and E front-padding were Mosaic's needs
-    and are not carried over; the CUDA kernel masks its own ragged edge,
-    so callers never pad T.
+  * bf16, the main path: bound by operations (QK^T, the relative term and
+    PV on the tensor cores); every product is an ``mma.sync`` m16n8k16 with
+    f32 sums (wgmma fits too but was not tried; the source says why it is
+    the next step): per 64-key tile S = Q K^T and the band Q E_band^T, the band
+    skewed into Srel through shared memory (band rows of negative distance
+    are zero, so Srel is 0 above the diagonal), an online softmax in f32, P
+    rounded to bf16 into the A operand of P V, as the TPU kernel casts P;
+    K, V and the E band of the next tile land by cp.async while the current
+    one computes;
+  * f32, the checks' path (held to 1e-4, which TF32 products cannot meet):
+    the CUDA cores, a thread a query row, Srel folded into the score dot as
+    q.(k + E), shared-memory traffic and occupancy bound it;
+  * both: causal tiles above the diagonal skipped, heaviest query tiles
+    first, the ragged edge masked in the kernel, so callers never pad T.
+    The TPU kernel's time-on-lanes layout, head/batch blocking, strided-
+    rotate skew and E front-padding were Mosaic's needs and are not
+    carried over.
 
-Source note for the merged backward kernel (details in its source):
+Source note for the merged backward kernel (``csrc/flash_rel_attn_bwd.cu``):
   * replaces ``pallas_attention.py::_bwd_merged_kernel`` (the default
     ``BWD_IMPL="merged"``, launched by ``_bwd_merged_call``);
-  * bound on the H100: CUDA-core f32 FMAs fed from shared memory;
-  * its design: one 256-thread block per (b, h) sweeps key tiles and,
-    inside, query tiles, as the TPU's sequential grid did, so dQ (an f32
-    scratch) and dE (an f32 partial per (b, h), reduced by a second kernel)
-    each have one owner: no atomics, deterministic sums, nothing summed in
-    bf16.
+  * both dtypes: a block sweeps key tiles of one (b, h) and, inside, query
+    tiles, as the TPU's sequential grid did, so each dQ (an f32 scratch)
+    and dE (an f32 partial by distance) has one owning block and the
+    reductions sum them in a fixed order: no atomics, deterministic sums,
+    nothing summed in bf16;
+  * bf16, the training path: bound by operations; all nine products of a
+    tile pair (S, the band, dP, dV, dK, dQ by key and by distance, dE) are
+    ``mma.sync`` m16n8k16 (wgmma not tried) with f32 sums over 8 warps; dS' is rounded to
+    bf16 as the TPU kernel rounds ds and scattered into the distance domain
+    through shared memory, where dQ_rel and dE are plain products; two
+    blocks share a (b, h) on alternate key tiles (two an SM at d_head <= 48),
+    each with its own dQ and dE partials;
+  * f32, the checks' path: CUDA-core f32 FMAs fed from shared memory.
 
 Source note for the other decompositions' kernels (details in their
-sources), all bound by CUDA-core f32 FMAs fed from shared memory:
+sources), both dtypes on the CUDA cores, bound by f32 FMAs fed from shared
+memory:
   * ``csrc/flash_rel_attn_bwd_kv.cu``, the key-major sweeps: replaces
     ``_bwd_dkdv_kernel`` (``bwd_dkdv``: one block per (b, h, key tile),
     which owns its dK and dV) and ``_bwd_dkdv_dq_kernel`` (``bwd_dkdv_dq``:
@@ -72,6 +93,8 @@ sources), all bound by CUDA-core f32 FMAs fed from shared memory:
     accumulates in f32 partials per (b, h) indexed by distance, reduced by
     a second kernel. The TPU's XLA-side flips of K, V, the pad mask and E
     were Mosaic's need: the kernel reads key i - d directly.
+  * their tiles are 64 rows, 32 at d_head 128, so the f32 staging fits a
+    block's shared memory.
 """
 
 from __future__ import annotations
@@ -86,7 +109,7 @@ import torch
 
 from .attention import rel_position_bias
 
-KERNEL_DHS = (16, 32, 48, 64)
+KERNEL_DHS = (16, 32, 48, 64, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # variable -> (default, allowed values), as pallas_attention.py:187-190
@@ -268,11 +291,12 @@ def bwd_de_dqrel_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
 # the CUDA libraries
 # ---------------------------------------------------------------------------
 
-# C function -> (library csrc/<name>.cu, pointer arguments); then 7 ints and
-# a stream
+# C function -> (library csrc/<name>.cu, pointer arguments[, int arguments,
+# 7 when not given]); then the ints and a stream
 _C_FUNCTIONS = {
     "flash_rel_attn_fwd": ("flash_rel_attn_fwd", 7),
     "flash_rel_attn_bwd": ("flash_rel_attn_bwd", 14),
+    "flash_rel_attn_dsum": ("flash_rel_attn_bwd", 3, 3),
     "flash_rel_attn_bwd_dkdv": ("flash_rel_attn_bwd_kv", 10),
     "flash_rel_attn_bwd_dkdv_dq": ("flash_rel_attn_bwd_kv", 12),
     "flash_rel_attn_bwd_dq_de": ("flash_rel_attn_bwd_q", 11),
@@ -287,10 +311,10 @@ def _function(name: str):
     loaded at first use."""
     from ..kernels.build import cuda_library
 
-    lib_name, n_pointers = _C_FUNCTIONS[name]
+    lib_name, n_pointers, n_ints = (*_C_FUNCTIONS[name], 7)[:3]
     lib = cuda_library(lib_name)
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{lib_name}_error_string")
     err.argtypes = [ctypes.c_int]
@@ -319,6 +343,14 @@ def _check(q, k, v, e, pad_keys):
             raise ValueError("pad_keys must be contiguous on q's device")
     if not all(t.is_contiguous() for t in (q, k, v, e)):
         raise ValueError("q, k, v and e must be contiguous")
+    _check_aligned(q=q, k=k, v=v, e=e)
+
+
+def _check_aligned(**tensors):
+    """bf16 operands: 16-byte aligned, as the kernels copy 16-byte units."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the bf16 kernels")
 
 
 def _check_saved(q, like_q, rows):
@@ -327,6 +359,7 @@ def _check_saved(q, like_q, rows):
     for name, t in like_q.items():
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous and match q: {t.dtype} {tuple(t.shape)}")
+    _check_aligned(**like_q)
     for name, t in rows.items():
         if (t.shape != q.shape[:3] or t.dtype != torch.float32 or t.device != q.device
                 or not t.is_contiguous()):
@@ -379,6 +412,18 @@ def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch
             B, H, T, dh, e.shape[0], int(causal), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     return outs
+
+
+def _dsum(o, do):
+    """rowsum(dO * O) in f32 [B, H, T]: on a CUDA tensor the backward
+    source's own kernel (o and do already checked), on a CPU tensor torch."""
+    if o.device.type == "cpu":
+        return (do.float() * o.float()).sum(-1)
+    dsum = torch.empty(o.shape[:3], dtype=torch.float32, device=o.device)
+    _launch("flash_rel_attn_dsum", do.data_ptr(), o.data_ptr(), dsum.data_ptr(),
+            dsum.numel(), o.shape[-1], _DTYPE_CODES[o.dtype],
+            torch.cuda.current_stream(o.device).cuda_stream)
+    return dsum
 
 
 # Each wrapper below takes (q, k, v, e, causal, pad_keys, lse, dsum, do):
@@ -472,7 +517,7 @@ def flash_rel_attention_bwd(
     if q.device.type == "cuda":
         _check(q, k, v, e, pad_keys)
         _check_saved(q, {"o": o, "do": do}, {"lse": lse})
-    dsum = (do.float() * o.float()).sum(-1)  # [B, H, T] f32
+    dsum = _dsum(o, do)  # [B, H, T] f32
     if impl == "split":
         dk, dv, dq_qk = bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do)
         dq_rel, de = bwd_de_dqrel(q, k, v, e, causal, pad_keys, lse, dsum, do)
@@ -486,8 +531,10 @@ def flash_rel_attention_bwd(
         return dq, dk, dv, de
     B, H, T, dh = q.shape
     dq, dk, dv, de = (torch.empty_like(t) for t in (q, k, v, e))
-    dq_acc = torch.empty((B, H, T, dh), dtype=torch.float32, device=q.device)
-    de_part = torch.empty((B * H, T, dh), dtype=torch.float32, device=q.device)
+    # f32 scratch: a dQ and a dE partial for each of the (up to) two blocks
+    # that share a (b, h), summed in a fixed order by the kernel's reductions
+    dq_acc = torch.empty((2, B, H, T, dh), dtype=torch.float32, device=q.device)
+    de_part = torch.empty((2 * B * H, T, dh), dtype=torch.float32, device=q.device)
     _launch("flash_rel_attn_bwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),

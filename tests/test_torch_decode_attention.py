@@ -1,7 +1,9 @@
 """Torch port, stacked-cache decode attention (``ops/decode_attention.py``):
 the cache helpers and the kernel's plain twin against the JAX package, the
-Pallas kernel run in interpret mode as tests/test_decode_attention.py runs
-it. Inputs come from numpy with a seed and go through both packages.
+Pallas kernel run through its own CPU path (``interpret=True``, which it
+picks on the CPU backend; the threaded TPU interpreter is not forced: under
+a loaded multi-worker run it has hung). Inputs come from numpy with a seed
+and go through both packages.
 
 Tolerances: quantize_rows, expand_e_rows and flush_pend are held bit for
 bit, and so is the stage slot the kernel writes. m and l are f32 sums of
@@ -17,7 +19,6 @@ import torch
 
 import conftest  # noqa: F401 -- pins JAX to the CPU
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from midi_emotion_tpu.ops import decode_attention as jda
 from midi_emotion_tpu_torch.ops import decode_attention as tda
@@ -32,14 +33,15 @@ def _np(x):
         else np.asarray(x)
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, dims=(B, W, H, DH, S)):
+    b, w, h, dh, s = dims
     rng = np.random.default_rng(seed)
     return dict(
-        kv=rng.standard_normal((L, B, W, 2 * D)).astype(np.float32),
-        q=rng.standard_normal((B, H, DH)).astype(np.float32),
-        e=rng.standard_normal((MS, DH)).astype(np.float32),
-        pend=rng.standard_normal((S, L, B, 2 * D)).astype(np.float32),
-        row=rng.standard_normal((B, 2 * D)).astype(np.float32),
+        kv=rng.standard_normal((L, b, w, 2 * h * dh)).astype(np.float32),
+        q=rng.standard_normal((b, h, dh)).astype(np.float32),
+        e=rng.standard_normal((MS, dh)).astype(np.float32),
+        pend=rng.standard_normal((s, L, b, 2 * h * dh)).astype(np.float32),
+        row=rng.standard_normal((b, 2 * h * dh)).astype(np.float32),
     )
 
 
@@ -102,27 +104,26 @@ def test_flush_pend_places_rows(quant):
         tda.flush_pend(tkv, tsc, tpend, W - S + 1, H)
 
 
-@pytest.mark.parametrize("p_cnt", [None, 0, S - 1, S])  # None: unstaged; S: the clamp
-@pytest.mark.parametrize("length", [0, 100, 129])
-@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
-def test_twin_matches_pallas_kernel(quant, length, p_cnt):
-    x = _inputs()
+def _twin_vs_pallas(x, dims, quant, length, p_cnt):
+    """Kernel 13's twin against the Pallas kernel on the inputs ``x`` of
+    ``_inputs(dims=dims)``, unstaged (``p_cnt`` None) or staged."""
+    b, w, h, dh, s = dims
+    d = h * dh
     if quant:
-        jkv, jsc = jda.quantize_rows(jnp.asarray(x["kv"]), 2 * H)
-        tkv, tsc = tda.quantize_rows(torch.from_numpy(x["kv"]), 2 * H)
+        jkv, jsc = jda.quantize_rows(jnp.asarray(x["kv"]), 2 * h)
+        tkv, tsc = tda.quantize_rows(torch.from_numpy(x["kv"]), 2 * h)
     else:
         jkv, jsc = jnp.asarray(x["kv"]).astype(jnp.bfloat16), None
         tkv, tsc = torch.from_numpy(x["kv"]).bfloat16(), None
-    vmax = np.abs(x["kv"][..., D:]).max()
+    vmax = np.abs(x["kv"][..., d:]).max()
     tol = (1e-2 if quant else 4e-3) * vmax
     q, e = x["q"], x["e"]
     n = length + (p_cnt or 0)
-    je = jda.expand_e_rows(jnp.asarray(e), jnp.asarray(n + 1, jnp.int32), W)
-    te = tda.expand_e_rows(torch.from_numpy(e), n + 1, W)
+    je = jda.expand_e_rows(jnp.asarray(e), jnp.asarray(n + 1, jnp.int32), w)
+    te = tda.expand_e_rows(torch.from_numpy(e), n + 1, w)
     if p_cnt is None:
-        with pltpu.force_tpu_interpret_mode():
-            jacc, jm, jl = (np.asarray(a) for a in jda.decode_attn_cached(
-                jnp.asarray(q), jkv, jsc, jnp.asarray(LAYER), je, jnp.asarray(length, jnp.int32)))
+        jacc, jm, jl = (np.asarray(a) for a in jda.decode_attn_cached(
+            jnp.asarray(q), jkv, jsc, jnp.asarray(LAYER), je, jnp.asarray(length, jnp.int32)))
         acc, m, l = (a.numpy() for a in tda.decode_attn_cached(
             torch.from_numpy(q), tkv, tsc, LAYER, te, length))
         np.testing.assert_allclose(m, jm, rtol=1e-5, atol=1e-5)
@@ -130,25 +131,44 @@ def test_twin_matches_pallas_kernel(quant, length, p_cnt):
         if length == 0:  # nothing cached: the fully masked triple
             assert (m == -1e30).all() and (l == 0).all() and (acc == 0).all()
             return
-        norm = lambda a, d: a.reshape(B, H, DH) / d[..., None]  # noqa: E731
+        norm = lambda a, den: a.reshape(b, h, dh) / den[..., None]  # noqa: E731
         np.testing.assert_allclose(norm(acc, l), norm(jacc, jl), rtol=0, atol=tol)
         return
-    jep = jda.expand_e_rows(jnp.asarray(e), jnp.asarray(p_cnt + 1, jnp.int32), S + 1)
-    tep = tda.expand_e_rows(torch.from_numpy(e), p_cnt + 1, S + 1)
+    jep = jda.expand_e_rows(jnp.asarray(e), jnp.asarray(p_cnt + 1, jnp.int32), s + 1)
+    tep = tda.expand_e_rows(torch.from_numpy(e), p_cnt + 1, s + 1)
     row = torch.from_numpy(x["row"]).bfloat16()
     tpend = torch.from_numpy(x["pend"]).bfloat16()
-    with pltpu.force_tpu_interpret_mode():
-        jout, jpend = jda.decode_attn_cached(
-            jnp.asarray(q), jkv, jsc, jnp.asarray(LAYER), je, jnp.asarray(length, jnp.int32),
-            jnp.asarray(x["pend"]).astype(jnp.bfloat16), jep, jnp.asarray(p_cnt, jnp.int32),
-            jnp.asarray(x["row"]).astype(jnp.bfloat16))
+    jout, jpend = jda.decode_attn_cached(
+        jnp.asarray(q), jkv, jsc, jnp.asarray(LAYER), je, jnp.asarray(length, jnp.int32),
+        jnp.asarray(x["pend"]).astype(jnp.bfloat16), jep, jnp.asarray(p_cnt, jnp.int32),
+        jnp.asarray(x["row"]).astype(jnp.bfloat16))
     out, pend = tda.decode_attn_cached(torch.from_numpy(q), tkv, tsc, LAYER, te, length,
                                        tpend, tep, p_cnt, row)
     assert out.dtype == torch.bfloat16 and pend is tpend  # the stage is written in place
     np.testing.assert_allclose(out.float().numpy(), _np(jout), rtol=0, atol=tol)
     np.testing.assert_array_equal(pend.float().numpy(), _np(jpend))
-    np.testing.assert_array_equal(pend[min(p_cnt, S - 1), LAYER].float().numpy(),
+    np.testing.assert_array_equal(pend[min(p_cnt, s - 1), LAYER].float().numpy(),
                                   row.float().numpy())
+
+
+@pytest.mark.parametrize("p_cnt", [None, 0, S - 1, S])  # None: unstaged; S: the clamp
+@pytest.mark.parametrize("length", [0, 100, 129])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_twin_matches_pallas_kernel(quant, length, p_cnt):
+    _twin_vs_pallas(_inputs(), (B, W, H, DH, S), quant, length, p_cnt)
+
+
+@pytest.mark.parametrize("heads,dh", [(2, 96), (2, 128), (10, 128)],
+                         ids=["dh96", "dh128", "D1280"])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_twin_matches_pallas_kernel_wide_heads(quant, heads, dh):
+    """The head shapes past the flagship's (d_head 96 and 128, and a width
+    of 1280 that the kernel runs as head groups) at one length, unstaged and
+    staged, with test_twin_matches_pallas_kernel's tolerances."""
+    dims = (2, 128, heads, dh, 4)
+    x = _inputs(dh + heads, dims)
+    for p_cnt in (None, 2):
+        _twin_vs_pallas(x, dims, quant, 100, p_cnt)
 
 
 def test_wrapper_refuses_other_devices_and_bad_stage():
@@ -348,21 +368,19 @@ def test_kernel_order_matches_pallas_kernel(shape, length, p_cnt, cluster, quant
     te = tda.expand_e_rows(torch.from_numpy(x["e"]), n + 1, W)
     q = torch.from_numpy(x["q"])
     if p_cnt is None:
-        with pltpu.force_tpu_interpret_mode():
-            want = [np.asarray(a) for a in jda.decode_attn_cached(
-                jnp.asarray(x["q"]), x["jkv"], x["jsc"], jnp.asarray(1), je,
-                jnp.asarray(length, jnp.int32))]
+        want = [np.asarray(a) for a in jda.decode_attn_cached(
+            jnp.asarray(x["q"]), x["jkv"], x["jsc"], jnp.asarray(1), je,
+            jnp.asarray(length, jnp.int32))]
         got = [a.numpy() for a in _kernel_order(q, x["tkv"], x["tsc"], 1, te, length,
                                                 want=cluster)]
         _close(got, want, quant, x["vmax"], False)
         return
     jep = jda.expand_e_rows(jnp.asarray(x["e"]), jnp.asarray(p_cnt + 1, jnp.int32), 9)
     tep = tda.expand_e_rows(torch.from_numpy(x["e"]), p_cnt + 1, 9)
-    with pltpu.force_tpu_interpret_mode():
-        jout, jpend = jda.decode_attn_cached(
-            jnp.asarray(x["q"]), x["jkv"], x["jsc"], jnp.asarray(1), je,
-            jnp.asarray(length, jnp.int32), jnp.asarray(x["pend"]).astype(jnp.bfloat16), jep,
-            jnp.asarray(p_cnt, jnp.int32), jnp.asarray(x["row"]).astype(jnp.bfloat16))
+    jout, jpend = jda.decode_attn_cached(
+        jnp.asarray(x["q"]), x["jkv"], x["jsc"], jnp.asarray(1), je,
+        jnp.asarray(length, jnp.int32), jnp.asarray(x["pend"]).astype(jnp.bfloat16), jep,
+        jnp.asarray(p_cnt, jnp.int32), jnp.asarray(x["row"]).astype(jnp.bfloat16))
     out, pend = _kernel_order(q, x["tkv"], x["tsc"], 1, te, length,
                               torch.from_numpy(x["pend"]).bfloat16(), tep, p_cnt,
                               torch.from_numpy(x["row"]).bfloat16(), want=cluster)

@@ -1,8 +1,9 @@
 """Torch port, the alternative flash backward decompositions
 (``MIDI_EMOTION_BWD=split|fused``, ``MIDI_EMOTION_DQDE=column|dist``):
 the port's twins on the CPU against the JAX package's Pallas backward in
-interpret mode (``pltpu.force_tpu_interpret_mode``, as its own tests run
-it), with ``pallas_attention.BWD_IMPL``/``DQDE_IMPL`` set as
+the generic interpreter (``pallas_call(interpret=True)``; the threaded TPU
+interpreter, ``pltpu.force_tpu_interpret_mode``, has hung multi-worker
+runs), with ``pallas_attention.BWD_IMPL``/``DQDE_IMPL`` set as
 ``tests/test_pallas_attention.py`` sets them.
 
 Each interpret-mode backward takes 13-21 s here, so the JAX forward runs
@@ -27,13 +28,14 @@ import conftest  # noqa: F401 -- pins JAX to the CPU
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from midi_emotion_tpu.ops import pallas_attention
 from midi_emotion_tpu_torch.models.config import ModelConfig
 from midi_emotion_tpu_torch.models.model import MusicTransformer
 from midi_emotion_tpu_torch.ops import flash_attention as fa
 from midi_emotion_tpu_torch.training.train_step import make_optimizer, make_train_step
+
+from torch_parity import generic_interpret
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = {  # T, dh, causal, pad tail (no pad at key 0: ROADMAP queue 3)
@@ -79,7 +81,7 @@ def _jax_run(case, impl):
     q, k, v, e, g, pk = _inputs(case)
     if case not in _VJPS:
         jpk = jnp.asarray(pk) if pad_tail else None
-        with pltpu.force_tpu_interpret_mode():
+        with generic_interpret():
             _, _VJPS[case] = jax.vjp(
                 lambda *a: pallas_attention.flash_relative_attention(*a, causal, jpk),
                 *(jnp.asarray(x) for x in (q, k, v, e)))
@@ -99,7 +101,7 @@ def _jax_run(case, impl):
         mp.setattr(pallas_attention, "DQDE_IMPL", dqde)
         for name, _, _ in KERNELS.values():
             mp.setattr(pallas_attention, name, recorder(name, getattr(pallas_attention, name)))
-        with pltpu.force_tpu_interpret_mode():
+        with generic_interpret():
             grads = [np.asarray(x) for x in _VJPS[case](jnp.asarray(g))]
     finally:
         mp.undo()

@@ -44,7 +44,7 @@ def _pad(B, T, device):
     return pad
 
 
-@pytest.mark.parametrize("dh", [16, 32, 48, 64])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128])
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_twin_f32(cuda, dh, T, causal):
@@ -56,16 +56,33 @@ def test_flash_kernel_matches_twin_f32(cuda, dh, T, causal):
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("T,causal", [(1216, True), (300, False)])
-def test_flash_kernel_matches_twin_bf16(cuda, T, causal):
-    q, k, v, e = _qkve(2, 4, T, 48, 2048, torch.bfloat16, seed=1)
-    o, lse = flash_rel_attention(q, k, v, e, causal, None)
-    ro, rlse = flash_rel_attention_plain(q, k, v, e, causal, None)
+def _assert_fwd_bf16(q, k, v, e, causal, pad):
+    """The bf16 forward kernel against its twin: both compute in f32 from
+    the same bf16 inputs; O differs by at most one bf16 ulp of its
+    rounding, lse (kept f32) by summation order."""
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    ro, rlse = flash_rel_attention_plain(q, k, v, e, causal, pad)
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    # both compute in f32 from the same bf16 inputs; O differs by at most
-    # one bf16 ulp of its rounding, lse (kept f32) by summation order
     torch.testing.assert_close(o.float(), ro.float(), rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-3)
+    return o, lse
+
+
+@pytest.mark.parametrize("T,causal", [(1216, True), (300, False)])
+def test_flash_kernel_matches_twin_bf16(cuda, T, causal):
+    _assert_fwd_bf16(*_qkve(2, 4, T, 48, 2048, torch.bfloat16, seed=1), causal, None)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("T", [1, 65, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_twin_bf16_head_shapes(cuda, dh, T, causal):
+    """The tensor-core forward at every other d_head, ragged T and a pad
+    mask (with its fully masked row): the bf16_matches_twin tolerances."""
+    o, lse = _assert_fwd_bf16(*_qkve(2, 3, T, dh, 256, torch.bfloat16, seed=5), causal,
+                              _pad(2, T, cuda))
+    if causal:  # O = 0 and lse = 1e30 where no key is visible
+        assert o[1, :, 0].eq(0).all() and lse[1, :, 0].eq(1e30).all()
 
 
 def _bwd_pair(q, k, v, e, causal, pad, seed=2):
@@ -81,7 +98,7 @@ def _bwd_pair(q, k, v, e, causal, pad, seed=2):
     return got, want
 
 
-@pytest.mark.parametrize("dh", [16, 32, 48, 64])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128])
 @pytest.mark.parametrize("T", [1, 65, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_kernel_matches_twin_f32(cuda, dh, T, causal):
@@ -95,15 +112,45 @@ def test_flash_bwd_kernel_matches_twin_f32(cuda, dh, T, causal):
         assert got[0][1, :, 0].eq(0).all()
 
 
-def test_flash_bwd_kernel_matches_twin_bf16(cuda):
-    q, k, v, e = _qkve(2, 4, 1216, 48, 2048, torch.bfloat16, seed=3)
-    got, want = _bwd_pair(q, k, v, e, True, _pad(2, 1216, cuda))
-    # f32 sums in both from the same bf16 inputs, rounded once to bf16:
-    # within a few bf16 ulps of each gradient's scale
-    for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
+def _assert_grads_bf16(names, got, want):
+    """f32 sums in both from the same bf16 inputs, rounded once to bf16:
+    within a few bf16 ulps (2e-2) of each gradient's scale."""
+    for name, a, b in zip(names, got, want):
         assert a.dtype == torch.bfloat16, name
         bound = 2e-2 * (1 + b.float().abs().max().item())
         assert (a.float() - b.float()).abs().max().item() <= bound, name
+
+
+def test_flash_bwd_kernel_matches_twin_bf16(cuda):
+    q, k, v, e = _qkve(2, 4, 1216, 48, 2048, torch.bfloat16, seed=3)
+    _assert_grads_bf16(("dq", "dk", "dv", "de"), *_bwd_pair(q, k, v, e, True, _pad(2, 1216, cuda)))
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("T", [1, 65, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_matches_twin_bf16_head_shapes(cuda, dh, T, causal):
+    """The tensor-core merged backward at every other d_head, ragged T (one
+    key tile, so the second block of a (b, h) has none; two; four) and a pad
+    mask: within 2e-2 of each gradient's scale, dQ 0 on the fully masked
+    row."""
+    q, k, v, e = _qkve(2, 3, T, dh, 256, torch.bfloat16, seed=6)
+    got, want = _bwd_pair(q, k, v, e, causal, _pad(2, T, cuda))
+    _assert_grads_bf16(("dq", "dk", "dv", "de"), got, want)
+    if causal:
+        assert got[0][1, :, 0].eq(0).all()
+
+
+@pytest.mark.parametrize("dh", [16, 48, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dsum_kernel_matches_torch(cuda, dtype, dh):
+    """The backward's rowsum(dO * O) kernel against torch's, both f32 sums
+    of the same products in other orders."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    o, do = (torch.randn((2, 3, 77, dh), generator=g, device="cuda").to(dtype) for _ in range(2))
+    got = fa._dsum(o, do)
+    assert got.shape == (2, 3, 77) and got.dtype == torch.float32
+    torch.testing.assert_close(got, (do.float() * o.float()).sum(-1), rtol=1e-5, atol=1e-5)
 
 
 def test_flash_wrapper_guards_and_counter(cuda):
@@ -151,7 +198,7 @@ def _bwd_kernel_pair(kernel, q, k, v, e, causal, pad, seed=2):
 
 
 @pytest.mark.parametrize("kernel", list(BWD_KERNELS))
-@pytest.mark.parametrize("dh", [16, 32, 48, 64])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128])
 @pytest.mark.parametrize("T", [1, 65, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_decomposition_kernel_matches_twin_f32(cuda, kernel, dh, T, causal):
@@ -168,12 +215,16 @@ def test_flash_bwd_decomposition_kernel_matches_twin_f32(cuda, kernel, dh, T, ca
 @pytest.mark.parametrize("kernel", list(BWD_KERNELS))
 def test_flash_bwd_decomposition_kernel_matches_twin_bf16(cuda, kernel):
     q, k, v, e = _qkve(2, 4, 1216, 48, 2048, torch.bfloat16, seed=3)
-    got, want = _bwd_kernel_pair(kernel, q, k, v, e, True, _pad(2, 1216, cuda))
-    # f32 sums in both from the same bf16 inputs, rounded once to bf16
-    for name, a, b in zip(BWD_KERNELS[kernel], got, want):
-        assert a.dtype == torch.bfloat16, name
-        bound = 2e-2 * (1 + b.float().abs().max().item())
-        assert (a.float() - b.float()).abs().max().item() <= bound, name
+    _assert_grads_bf16(BWD_KERNELS[kernel],
+                       *_bwd_kernel_pair(kernel, q, k, v, e, True, _pad(2, 1216, cuda)))
+
+
+@pytest.mark.parametrize("kernel", list(BWD_KERNELS))
+@pytest.mark.parametrize("dh", [96, 128])
+def test_flash_bwd_decomposition_kernel_matches_twin_bf16_wide_heads(cuda, kernel, dh):
+    q, k, v, e = _qkve(2, 3, 200, dh, 256, torch.bfloat16, seed=7)
+    _assert_grads_bf16(BWD_KERNELS[kernel],
+                       *_bwd_kernel_pair(kernel, q, k, v, e, True, _pad(2, 200, cuda)))
 
 
 @pytest.mark.parametrize("impl,dqde", [("split", "column"), ("fused", "column"),
@@ -373,8 +424,9 @@ def _decode_inputs(B, W, H, dh, L, S, quant, seed=0):
     return kv, sc, q, e, pend, row, rows[..., D:].abs().max().item()
 
 
-@pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2)],
-                         ids=["flagship", "odd", "w200-dh16"])
+@pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2),
+                                   (4, 256, 8, 96, 2), (4, 256, 8, 128, 2), (4, 256, 10, 128, 2)],
+                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280"])
 @pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 def test_decode_kernel_matches_twin_unstaged(cuda, shape, quant):
     """acc/l within one P re-quantization unit (int8: max|V|/127, flipped
@@ -399,8 +451,9 @@ def test_decode_kernel_matches_twin_unstaged(cuda, shape, quant):
         assert err <= tol, (length, err, tol)
 
 
-@pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2)],
-                         ids=["flagship", "odd", "w200-dh16"])
+@pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2),
+                                   (4, 256, 8, 96, 2), (4, 256, 8, 128, 2), (4, 256, 10, 128, 2)],
+                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280"])
 @pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 def test_decode_kernel_matches_twin_staged(cuda, shape, quant):
     """Staged (S 8): the normalized bf16 output within one P unit (int8)

@@ -9,7 +9,6 @@ import torch
 import conftest  # noqa: F401 -- pins JAX to the CPU
 
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from midi_emotion_tpu.ops import attention as jattn
 from midi_emotion_tpu.ops import pallas_attention
@@ -18,7 +17,8 @@ from midi_emotion_tpu_torch.ops import attention as tattn
 from midi_emotion_tpu_torch.ops.flash_attention import flash_rel_attention
 from midi_emotion_tpu_torch.ops.layernorm import LayerNorm, layernorm_ref
 
-from torch_parity import assert_close
+from torch_parity import assert_close, generic_interpret
+
 
 TOL = 2e-5
 
@@ -85,23 +85,18 @@ def test_decode_rel_attention_matches_jax():
     assert_close(got, want, TOL)
 
 
-def test_flash_twin_matches_pallas_kernel():
+def _flash_twin_vs_pallas(seed, T, dh, max_seq):
     """(O, lse) of the flash wrapper's CPU path against the Pallas kernel in
-    interpret mode, with a padded key tail and a fully masked query row (key
-    0 is pad, so row 0 sees no key).
-
-    The fully masked row is held to the documented contract, O = 0 and
-    lse = +1e30, and not to the Pallas kernel: its mask value is a finite
-    -1e30, so such a row's softmax is uniform over the masked keys of its
-    first block and its l > 0 guard never fires."""
-    rng = np.random.default_rng(4)
-    B, H, T, dh, max_seq = 1, 2, 200, 16, 256
+    the generic interpreter at B 1, H 2, with key 0 and a tail of keys
+    padded; row 0, which sees no key, held to O = 0 and lse = +1e30."""
+    rng = np.random.default_rng(seed)
+    B, H = 1, 2
     q, k, v = (_rand(rng, B, H, T, dh) for _ in range(3))
     e = _rand(rng, max_seq, dh)
     pk = np.zeros((B, T), bool)
     pk[:, 0] = True
     pk[:, -T // 4:] = True
-    with pltpu.force_tpu_interpret_mode():
+    with generic_interpret():
         want_o, want_lse = pallas_attention._flash_fwd_impl(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(e), True,
             jnp.asarray(pk), return_lse=True,
@@ -112,3 +107,22 @@ def test_flash_twin_matches_pallas_kernel():
     assert_close(got_lse[:, :, 1:], np.asarray(want_lse)[:, :, 0, 1:T], TOL)
     assert np.all(got_o.numpy()[:, :, 0] == 0)
     assert np.all(got_lse.numpy()[:, :, 0] == np.float32(1e30))
+
+
+def test_flash_twin_matches_pallas_kernel():
+    """(O, lse) of the flash wrapper's CPU path against the Pallas kernel in
+    the generic interpreter, with a padded key tail and a fully masked query row (key
+    0 is pad, so row 0 sees no key).
+
+    The fully masked row is held to the documented contract, O = 0 and
+    lse = +1e30, and not to the Pallas kernel: its mask value is a finite
+    -1e30, so such a row's softmax is uniform over the masked keys of its
+    first block and its l > 0 guard never fires."""
+    _flash_twin_vs_pallas(4, T=200, dh=16, max_seq=256)
+
+
+@pytest.mark.parametrize("dh", [96, 128])
+def test_flash_twin_matches_pallas_kernel_wide_heads(dh):
+    """The d_head 96 and 128 that the port's kernels take, as
+    test_flash_twin_matches_pallas_kernel, at a short T."""
+    _flash_twin_vs_pallas(dh, T=40, dh=dh, max_seq=64)

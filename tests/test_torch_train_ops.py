@@ -1,11 +1,15 @@
 """Torch port, the training ops: each backward and dropout path held to
 its JAX counterpart on the same numpy inputs, in f32 on the CPU, where the
 port's wrappers run their plain twins and the Pallas kernels run in
-interpret mode (``pltpu.force_tpu_interpret_mode``, as the JAX package's
-own tests run them). The interpreter draws zero bits, which the JAX
-dropout kernels read as keep-everything, so those comparisons use an
-all-keep mask; a random mask is injected into the twins and held to
-``jax.grad`` of the composed closed form."""
+interpret mode: LayerNorm through its own CPU path (``interpret=True``,
+which it picks on the CPU backend), the flash backward through the generic
+interpreter (``generic_interpret``). The dropout kernels draw with the
+TPU's ``prng_seed``, which only the TPU interpreter
+(``pltpu.force_tpu_interpret_mode``, as the JAX package's own tests run
+them) lowers on the CPU; it draws zero bits, which they read as
+keep-everything, so those comparisons use an all-keep mask; a random mask
+is injected into the twins and held to ``jax.grad`` of the composed closed
+form."""
 
 import numpy as np
 import pytest
@@ -25,7 +29,8 @@ from midi_emotion_tpu_torch.ops import fused_dropout as fd
 from midi_emotion_tpu_torch.ops.flash_attention import flash_rel_attention
 from midi_emotion_tpu_torch.ops.layernorm import layernorm
 
-from torch_parity import assert_close
+from torch_parity import assert_close, generic_interpret
+
 
 RATE = 0.25
 
@@ -54,9 +59,8 @@ def test_layernorm_backward_matches_pallas_kernel():
     """Kernel 3's twin: dx to 1e-5, dgamma/dbeta (sums over 26 rows) to
     1e-4, against jax.vjp of fused_layernorm."""
     x, dy, _, w, b = _ln_inputs(0)
-    with pltpu.force_tpu_interpret_mode():
-        y, vjp = jax.vjp(fused_layernorm, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
-        want = vjp(jnp.asarray(dy))
+    y, vjp = jax.vjp(fused_layernorm, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    want = vjp(jnp.asarray(dy))
     got_y, got = _grads(layernorm, x, w, b, dy)
     assert_close(got_y, y, 2e-5)
     for g, r, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
@@ -140,6 +144,8 @@ def test_dropout_wrappers_replay_their_mask_on_the_cpu():
 @pytest.mark.parametrize("T,dh,causal,pad_tail", [
     (40, 48, True, True),
     (32, 16, False, False),
+    (24, 96, True, True),  # the wide heads the port's kernels take
+    (24, 128, False, False),
 ])
 def test_flash_backward_matches_pallas_kernel(T, dh, causal, pad_tail):
     """Autograd through the port's flash wrapper (its plain backward twin
@@ -159,7 +165,7 @@ def test_flash_backward_matches_pallas_kernel(T, dh, causal, pad_tail):
     def loss(q_, k_, v_, e_):
         return jnp.sum(pallas_attention.flash_relative_attention(q_, k_, v_, e_, causal, jpk) * g)
 
-    with pltpu.force_tpu_interpret_mode():
+    with generic_interpret():
         want = jax.grad(loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (q, k, v, e)))
     tpk = torch.from_numpy(pk) if pad_tail else None
     _, got = _grads(lambda a, b_, c, d: flash_rel_attention(a, b_, c, d, causal, tpk)[0],

@@ -2,12 +2,14 @@
 in both packages from one dict, with the same weights (JAX ``init_params``
 carried across by ``state_dict_from_jax_params``)."""
 
+import contextlib
 import dataclasses
 import functools
 
 import jax
 import numpy as np
 import torch
+from jax.experimental import pallas as pl
 
 from midi_emotion_tpu.models.config import ModelConfig as JaxModelConfig
 from midi_emotion_tpu.models.model import MusicTransformer as JaxMusicTransformer
@@ -45,3 +47,17 @@ def model_pair(cfg: JaxModelConfig, attn_impl: str = "plain"):
 
 def assert_close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol, atol=tol)
+
+
+@contextlib.contextmanager
+def generic_interpret():
+    """The flash Pallas kernels through the generic interpreter
+    (``pallas_call(interpret=True)``, the path the JAX package's decode and
+    LayerNorm kernels pick on the CPU), not the threaded TPU interpreter
+    (``pltpu.force_tpu_interpret_mode``), which has hung multi-worker runs."""
+    call = pl.pallas_call
+    pl.pallas_call = functools.partial(call, interpret=True)
+    try:
+        yield
+    finally:
+        pl.pallas_call = call
