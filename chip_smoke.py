@@ -17,9 +17,11 @@ Phases, each fatal on failure:
      W 1408), and time both and, where one PyTorch call computes the same
      function, that call; every attention kernel also at the head shapes
      past the flagship's, at small sizes (d_head 96 and 128 in f32 and
-     bf16, the tensor-core kernels 1 and 4 at every d_head, and the decode
-     kernel at D 1280, two head groups; kernels 1 and 4 timed at d_head
-     128 beside 64); hold each backward decomposition (split,
+     bf16, the flash kernels in bf16 at every d_head and at 40, which
+     their wrappers pad to 48, and the decode kernel at D 1280, two head
+     groups; kernels 1 and 4 timed at d_head 128 beside 64); count the
+     tensor-core instructions of kernels 1, 4, 5 and 6 in their SASS
+     (cuobjdump); hold each backward decomposition (split,
      fused/column, fused/dist) against the merged kernel; then one small f32
      train step through the kernels against the same step on the CPU
      (twins);
@@ -62,6 +64,7 @@ import csv
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1009,7 +1012,8 @@ def _kernel_label(mangled):
     if m:
         kern, t, dh, mode = m.groups()
         modes = {"flash_rel_attn_bwd_kv_kernel": ("dK/dV", "dK/dV/dQ_qk"),
-                 "flash_rel_attn_bwd_q_kernel": ("column", "dist", "rel")}
+                 "flash_rel_attn_bwd_q_kernel": ("column", "dist", "rel"),
+                 "flash_bwd_q_tc_kernel": ("column", "dist")}
         extra = f", {modes[kern][int(mode)]}" if mode and kern in modes else ""
         # the tensor-core kernels take bf16 alone, the CUDA-core flash
         # kernels of kernels 1 and 4 f32 alone; the others name their type
@@ -1030,6 +1034,29 @@ def print_ptxas(lib_path, label):
     spills = re.findall(r"(\d+) bytes spill stores", text)
     for kern, r, sp in zip(kinds, regs, spills):
         print(f"ptxas: {label} {_kernel_label(kern)}: {r} registers, {sp} bytes spilled")
+
+
+def print_sass_mma(lib_path, label):
+    """Count each kernel's tensor-core instructions (HMMA for mma.sync,
+    HGMMA for wgmma) in the library's SASS, by cuobjdump, and print them.
+    Returns {kernel label: count}."""
+    cuda_bin = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_bin, "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {lib_path} failed: {out.stderr.strip()[-2000:]}")
+    counts, kern = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kern = _kernel_label(m.group(1))
+            counts[kern] = 0
+        elif kern is not None and re.search(r"\bHG?MMA\.", line):
+            counts[kern] += 1
+    for kern, n in counts.items():
+        print(f"sass: {label} {kern}: {n} tensor-core (HMMA/HGMMA) instructions")
+    return counts
 
 
 def main():
@@ -1068,6 +1095,12 @@ def main():
     print(f"built {', '.join(CUDA_SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for name in CUDA_SOURCES:
         print_ptxas(library_path(name), name)
+    for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "flash_rel_attn_bwd_q"):
+        # the tensor-core kernels (kernels 1, 4, 5 and 6 in bf16) run mma instructions
+        idle = [k for k, n in print_sass_mma(library_path(name), name).items()
+                if "_tc_" in k and n == 0]
+        if idle:
+            fail(f"{name}: tensor-core kernels without an mma instruction: {idle}")
 
     # phase 3 -----------------------------------------------------------
     # Tolerances: f32 pins the algorithm (kernel and twin both sum in f32,
@@ -1082,7 +1115,8 @@ def main():
     check_flash(torch, 2, 16, 1216, 48, torch.bfloat16, True, 2e-2, 1e-3)
     check_flash(torch, 2, 16, 200, 48, torch.float32, False, 1e-4, 1e-4)
     check_flash(torch, 2, 16, 200, 48, torch.bfloat16, False, 2e-2, 1e-3)
-    for dh in (16, 32, 64, 96, 128):  # the other d_head instantiations, one each
+    # the other d_head instantiations, one each, and 40 through the padding
+    for dh in (16, 32, 40, 64, 96, 128):
         check_flash(torch, 2, 4, 333, dh, torch.float32, True, 1e-4, 1e-4)
         check_flash(torch, 2, 4, 333, dh, torch.bfloat16, True, 2e-2, 1e-3)
     # the CLI run's two prefill shapes: the one-token primer, then a refresh
@@ -1092,9 +1126,10 @@ def main():
     check_flash_bwd(torch, 2, 4, 333, 64, torch.float32, False, 1e-4)
     check_flash_bwd(torch, 2, 4, 333, 64, torch.bfloat16, False, 2e-2)
     check_flash_bwd(torch, 2, 4, 100, 16, torch.float32, True, 1e-4)
-    for dh in (16, 32, 96, 128):  # bf16 at each other d_head, f32 at the new ones
+    # bf16 at each other d_head, f32 at the wide ones and at 40 (padded)
+    for dh in (16, 32, 40, 96, 128):
         check_flash_bwd(torch, 2, 4, 200, dh, torch.bfloat16, True, 2e-2)
-        if dh > 64:
+        if dh > 64 or dh == 40:
             check_flash_bwd(torch, 2, 4, 200, dh, torch.float32, True, 1e-4)
     flash_bwd = check_flash_bwd(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16, True, 2e-2,
                                 timed=True)
@@ -1110,8 +1145,10 @@ def main():
         check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48, torch.float32, True, 1e-4)
         check_bwd_kernel(torch, kernel, 2, 4, 333, 64, torch.float32, False, 1e-4)
         check_bwd_kernel(torch, kernel, 2, 4, 100, 16, torch.float32, True, 1e-4)
-        for dh in (96, 128):
+        for dh in (40, 96, 128):  # 40 through the padding
             check_bwd_kernel(torch, kernel, 2, 4, 200, dh, torch.float32, True, 1e-4)
+            check_bwd_kernel(torch, kernel, 2, 4, 200, dh, torch.bfloat16, True, 2e-2)
+        for dh in (16, 32, 64):  # bf16 at the other instantiations
             check_bwd_kernel(torch, kernel, 2, 4, 200, dh, torch.bfloat16, True, 2e-2)
         bwd_kernels[kernel] = check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48,
                                                torch.bfloat16, True, 2e-2, timed=True)

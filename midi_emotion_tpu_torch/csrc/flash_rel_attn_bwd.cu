@@ -837,8 +837,7 @@ template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    const void* dout, const void* lse, const void* dsum, void* dq, void* dk,
                    void* dv, void* de, void* dq_acc, void* de_part, int B, int H, int T_len,
-                   int max_seq, int causal, cudaStream_t stream) {
-  const float scale = 1.f / sqrtf((float)DH);
+                   int max_seq, int causal, float scale, cudaStream_t stream) {
   cudaError_t err;
   if constexpr (std::is_same<T, float>::value) {
     auto kernel = flash_rel_attn_bwd_kernel<DH>;
@@ -885,11 +884,11 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
                         const void* pad, const void* dout, const void* lse, const void* dsum,
                         void* dq, void* dk, void* dv, void* de, void* dq_acc, void* de_part,
                         int B, int H, int T_len, int dh, int max_seq, int causal,
-                        cudaStream_t s) {
+                        float scale, cudaStream_t s) {
 #define FLASH_BWD_CASE(D)                                                                    \
   case D:                                                                                    \
     return launch<T, D>(q, k, v, e, pad, dout, lse, dsum, dq, dk, dv, de, dq_acc, de_part, B, \
-                        H, T_len, max_seq, causal, s);
+                        H, T_len, max_seq, causal, scale, s);
   switch (dh) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)
@@ -911,20 +910,22 @@ extern "C" {
 // f32 [B, H, T]; pad may be null. dq_acc is f32 scratch [2, B, H, T, dh] and
 // de_part f32 scratch [2*B*H, T, dh] (the f32 path uses their first halves,
 // the bf16 path one half per block of a (b, h)); the kernels fill both.
+// scale is c = 1/sqrt(d_head) of the caller's heads, which may have fewer
+// columns than dh (zero columns padded up to an instantiated dh add nothing).
 // Launches on `stream` and does not synchronise.
 int flash_rel_attn_bwd(const void* q, const void* k, const void* v, const void* e,
                        const void* pad, const void* dout, const void* lse, const void* dsum,
                        void* dq, void* dk, void* dv, void* de, void* dq_acc, void* de_part,
                        int B, int H, int T_len, int dh, int max_seq, int causal, int dtype,
-                       void* stream) {
+                       float scale, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || T_len > max_seq) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_dh<float>(q, k, v, e, pad, dout, lse, dsum, dq, dk, dv, de, dq_acc, de_part,
-                              B, H, T_len, dh, max_seq, causal, s);
+                              B, H, T_len, dh, max_seq, causal, scale, s);
   if (dtype == 1)
     return dispatch_dh<__nv_bfloat16>(q, k, v, e, pad, dout, lse, dsum, dq, dk, dv, de, dq_acc,
-                                      de_part, B, H, T_len, dh, max_seq, causal, s);
+                                      de_part, B, H, T_len, dh, max_seq, causal, scale, s);
   return cudaErrorInvalidValue;
 }
 

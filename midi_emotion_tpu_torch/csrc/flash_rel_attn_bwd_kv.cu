@@ -276,7 +276,7 @@ template <typename T, int DH, bool WITH_DQ>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    const void* dout, const void* lse, const void* dsum, void* dk, void* dv,
                    void* dq, void* dq_acc, int B, int H, int T_len, int max_seq, int causal,
-                   cudaStream_t stream) {
+                   float scale, cudaStream_t stream) {
   auto kernel = flash_rel_attn_bwd_kv_kernel<T, DH, WITH_DQ>;
   const size_t smem = smem_bytes<DH>();
   cudaError_t err =
@@ -288,7 +288,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
       static_cast<const T*>(e), static_cast<const uint8_t*>(pad), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<T*>(dk),
       static_cast<T*>(dv), static_cast<T*>(dq), static_cast<float*>(dq_acc), H, T_len, max_seq,
-      causal, 1.f / sqrtf((float)DH));
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -296,13 +296,13 @@ template <bool WITH_DQ>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* e,
                      const void* pad, const void* dout, const void* lse, const void* dsum,
                      void* dk, void* dv, void* dq, void* dq_acc, int B, int H, int T_len, int dh,
-                     int max_seq, int causal, int dtype, void* stream) {
+                     int max_seq, int causal, int dtype, float scale, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || T_len > max_seq) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define KV_CASE(TYPE, D)                                                                     \
   if (dh == D)                                                                               \
     return launch<TYPE, D, WITH_DQ>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq, dq_acc, B, \
-                                    H, T_len, max_seq, causal, s);
+                                    H, T_len, max_seq, causal, scale, s);
   if (dtype == 0) {
     KV_CASE(float, 16) KV_CASE(float, 32) KV_CASE(float, 48) KV_CASE(float, 64)
     KV_CASE(float, 96) KV_CASE(float, 128)
@@ -321,16 +321,18 @@ extern "C" {
 
 // Each returns a cudaError_t: 0 when the launch was accepted. dtype: 0 =
 // float32, 1 = bfloat16 (q, k, v, e, dout and the outputs); lse and dsum are
-// f32 [B, H, T]; pad may be null. Launches on `stream` and does not
-// synchronise.
+// f32 [B, H, T]; pad may be null. scale is c = 1/sqrt(d_head) of the caller's
+// heads, which may have fewer columns than dh (zero columns padded up to an
+// instantiated dh add nothing). Launches on `stream` and does not synchronise.
 
 // dK, dV (the TPU's _bwd_dkdv_kernel).
 int flash_rel_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* e,
                             const void* pad, const void* dout, const void* lse,
                             const void* dsum, void* dk, void* dv, int B, int H, int T_len,
-                            int dh, int max_seq, int causal, int dtype, void* stream) {
+                            int dh, int max_seq, int causal, int dtype, float scale,
+                            void* stream) {
   return dispatch<false>(q, k, v, e, pad, dout, lse, dsum, dk, dv, nullptr, nullptr, B, H,
-                         T_len, dh, max_seq, causal, dtype, stream);
+                         T_len, dh, max_seq, causal, dtype, scale, stream);
 }
 
 // dK, dV and dQ_qk (the TPU's _bwd_dkdv_dq_kernel); dq_acc is f32 scratch
@@ -339,9 +341,9 @@ int flash_rel_attn_bwd_dkdv_dq(const void* q, const void* k, const void* v, cons
                                const void* pad, const void* dout, const void* lse,
                                const void* dsum, void* dk, void* dv, void* dq, void* dq_acc,
                                int B, int H, int T_len, int dh, int max_seq, int causal,
-                               int dtype, void* stream) {
+                               int dtype, float scale, void* stream) {
   return dispatch<true>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq, dq_acc, B, H, T_len, dh,
-                        max_seq, causal, dtype, stream);
+                        max_seq, causal, dtype, scale, stream);
 }
 
 const char* flash_rel_attn_bwd_kv_error_string(int err) {

@@ -11,8 +11,8 @@
 //     distance domain;
 //   * REL, _bwd_de_dqrel_kernel (BWD_IMPL="split", launched by
 //     _bwd_de_dqrel_call): the distance domain alone, dQ_rel and dE.
-// With c = 1/sqrt(dh), the forward's saved lse, dsum_i = dO_i . O_i, and the
-// distance d = i - j (the notation of flash_rel_attn_bwd.cu):
+// With c = 1/sqrt(d_head) (the caller's scale), the forward's saved lse,
+// dsum_i = dO_i . O_i, and the distance d = i - j (the notation of flash_rel_attn_bwd.cu):
 //
 //     dS'[i,j]  = c P[i,j] (dO_i . V_j - dsum_i)
 //     dQ_qk_i   = sum_j dS'[i,j] k_j                         (COLUMN, DIST)
@@ -28,9 +28,43 @@
 // because Mosaic could not lower the reversed shear; here the kernel reads
 // key i - d directly.
 //
-// Design (simple and correct first; see PERF.md for its time):
-//   * tiles of 64 rows (32 at d_head 128, so the f32 staging fits a block's
-//     shared memory) and 4 threads a row;
+// bf16, COLUMN and DIST (the `fused` training path): tensor cores. Bound on
+// the H100: operations. Per visible tile pair the products are S = Q K^T,
+// dP = dO V^T, the band Q E_band^T, dQ += dS' K, dQ += dsd E_band and
+// dE += dsd^T Q, every one an mma.sync m16n8k16 with bf16 operands and f32
+// sums (wgmma not tried; see flash_rel_attn_bwd.cu, whose phase A and
+// products this path shares). 8 warps a block, per tile pair:
+//   phase A, warp (query rows 16 (w % 4), keys 32 (w / 4)): S, dP and the
+//     band over the 48 distances its rows and keys reach; the band skewed
+//     into Srel through a per-warp f32 scratch; P = exp(s - lse) and dS' =
+//     c P (dP - dsum) by key column, dS' rounded to bf16 as the TPU kernel
+//     rounds ds, into a shared tile. Then the distance-domain tile dsd
+//     (row i, column u = i - j + BK - 1, 0 where i - j < 0):
+//       COLUMN scatters the rounded key-column dS' into it (the unskew);
+//       DIST forms it by distance, as _bwd_dq_de_dist_kernel does: the
+//       bias by distance is the band product itself, q.E[ms-1-d] with no
+//       skew; q.k and dO.v at j = i - d are read from the warp's f32 S and
+//       dP fragments skewed through the scratch; p_d and dsd = c p_d (dp_d
+//       - dsum) in f32, dsd rounded to bf16;
+//   phase B, warp (16-row block w / 2, channel half w % 2): dQ += dS' K +
+//     dsd E_band, in f32 registers across the query tile's key tiles and
+//     written once; dE += dsd^T Q for two 16-distance blocks into this
+//     block's f32 partial by distance. Key tiles ascend, so the band moves
+//     64 distances down a pair and a warp's lower dE block is the next
+//     pair's upper one: it stays in registers, and each partial row is
+//     read and written once a query tile.
+// Two blocks share a (b, h), on alternate query tiles (at B 8, H 16, 256
+// blocks, two an SM at d_head <= 48), each with its own dE partial
+// [SPLIT*B*H, T, dh]; de_reduce_kernel sums them in block order, so two
+// calls give bitwise-equal dE. K, V, Q, dO, lse, dsum and an E ring of
+// 64-row chunks (a pair copies one) come by cp.async, into two ring stages
+// where two blocks an SM still fit, the next pair's copies under this
+// pair's products; rows are padded by 16 bytes for ldmatrix.
+//
+// f32 (the checks' path, held to 1e-4; TF32 keeps about three digits) and
+// REL in both types: the CUDA cores, simple and correct first:
+//   * tiles of 64 rows (32 at d_head 128, so the f32 staging fits a
+//     block's shared memory) and 4 threads a row;
 //   * one block per (b, h) sweeps its query tiles and,
 //     inside, the key tiles they see. A query tile owns its dQ, kept in
 //     registers and written once. dE crosses every tile, so it accumulates
@@ -51,16 +85,20 @@
 //       D, thread = (distance, dh/4 columns): dE partial += band^T Q;
 //   * causal: key tiles above a query tile are never visited; the band
 //     phases run only for tiles at or below the diagonal.
+// CUDA-core f32 FMAs fed from shared memory bound it, and the 8 warps a
+// block gives each SM (B * H blocks: one wave at B 8, H 16).
 //
-// What bounds it on the H100: CUDA-core f32 FMAs fed from shared memory (no
-// tensor cores), and the 8 warps a block gives each SM (B * H blocks: one
-// wave at B 8, H 16). No source file is shared with the other kernels, so
-// the build hash of this file covers everything it compiles.
+// The device functions of the bf16 path that kernel 4 has too are copied
+// from flash_rel_attn_bwd.cu (namespace tc there), so that this file
+// includes no header of the repository and its build hash covers
+// everything it compiles.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -355,26 +393,522 @@ __global__ void de_reduce_kernel(const float* __restrict__ de_part, T* __restric
   de[x] = from_f32<T>(acc);
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 path of COLUMN and DIST: tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // keys per tile
+constexpr int NWARP = 8;
+constexpr int NTH = 32 * NWARP;
+constexpr int SPLIT = 2;      // blocks a (b, h): block s takes query tiles s, s + SPLIT, ...
+constexpr int PS = BK + 8;    // bf16 row stride of the dS' tile
+constexpr int DS = BQ + BK + 8;  // bf16 row stride of the distance-domain tile dsd
+constexpr int WB = 48;        // band rows a warp multiplies in phase A: its 47 distances
+constexpr int SMEM_SM = 233472;  // shared memory of an SM, 1 KB a block reserved
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH, int MODE>
+struct Layout {
+  static constexpr int RS = DH + 8;   // bf16 row stride: an odd number of 16-byte units
+  static constexpr int CPR = DH / 8;  // 16-byte chunks a row
+  // a warp's f32 scratch row: the band (48 columns), and in DIST also S and
+  // dP by key (columns 0.. and DP_AT..)
+  static constexpr int DP_AT = 36;
+  static constexpr int WBS = MODE == DIST ? 72 : WB + 8;
+  static constexpr int KV_BYTES = 2 * BK * RS * 2 + BK * 4;    // K, V, key flags
+  static constexpr int Q_BYTES = 2 * BQ * RS * 2 + 2 * BQ * 4;  // Q, dO, lse, dsum
+  static constexpr int bytes(int stages) {
+    return stages * (KV_BYTES + Q_BYTES + 2 * 64 * RS * 2) + BQ * PS * 2 + BQ * DS * 2 +
+           NWARP * 16 * WBS * 4;
+  }
+  // two ring stages (the next pair's copies under this pair's products)
+  // where two blocks an SM still fit
+  static constexpr int STAGES = 2 * (bytes(2) + 1024) <= SMEM_SM ? 2 : 1;
+  static constexpr int NSLOT = 2 * STAGES;  // E chunks of 64 rows: two a pair in work
+  static constexpr int Q_AT = STAGES * KV_BYTES;
+  static constexpr int E_AT = Q_AT + STAGES * Q_BYTES;
+  static constexpr int DSS_AT = E_AT + NSLOT * 64 * RS * 2;
+  static constexpr int DSD_AT = DSS_AT + BQ * PS * 2;
+  static constexpr int SCR_AT = DSD_AT + BQ * DS * 2;
+  static constexpr int TOTAL = SCR_AT + NWARP * 16 * WBS * 4;
+  static_assert(TOTAL == bytes(STAGES), "layout");
+  // two blocks an SM at d_head <= 48 (128 registers a thread), as kernel 4
+  static constexpr int MIN_BLOCKS = DH <= 48 && 2 * (TOTAL + 1024) <= SMEM_SM ? 2 : 1;
+};
+
+// From flash_rel_attn_bwd.cu (namespace tc), unchanged: shared-memory
+// addresses, cp.async copies, ldmatrix, mma.sync and mma_kn.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 (or 4) bytes global -> shared, zeros where !ok (no byte is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc[n] += A (16 x 16, fragments a) times the 16 x (8 NH) slab of a
+// row-major [k][n] shared tile at `b` (row stride rs, first k row and
+// column already applied), read transposed by ldmatrix: lane rows
+// (lane & 7) + 8 ((lane >> 3) & 1), 8-column groups by lane >> 4
+template <int NH>
+__device__ __forceinline__ void mma_kn(float (*acc)[4], const uint32_t* a,
+                                       const __nv_bfloat16* b, int rs, int lane) {
+  const __nv_bfloat16* row = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * rs;
+#pragma unroll
+  for (int n = 0; n + 1 < NH; n += 2) {
+    uint32_t bf[4];
+    ldsm_x4_t(bf, row + 8 * n + (lane >> 4) * 8);
+    mma(acc[n], a, bf[0], bf[1]);
+    mma(acc[n + 1], a, bf[2], bf[3]);
+  }
+  if constexpr (NH % 2 == 1) {
+    uint32_t bf[2];
+    ldsm_x2_t(bf, row + 8 * (NH - 1));
+    mma(acc[NH - 1], a, bf[0], bf[1]);
+  }
+}
+
+// Block s of the SPLIT a (b, h) sweeps query tiles s, s + SPLIT, ... and,
+// inside, the key tiles each sees, ascending (see the note at the top).
+template <int DH, int MODE>
+__global__ void __launch_bounds__(NTH, Layout<DH, MODE>::MIN_BLOCKS)
+flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ e,
+                      const uint8_t* __restrict__ pad, const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ dsum,
+                      __nv_bfloat16* __restrict__ dq, float* __restrict__ de_part, int H,
+                      int T_len, int max_seq, int causal, float scale, float scale_log2) {
+  static_assert(MODE == COLUMN || MODE == DIST, "REL keeps the CUDA-core kernel");
+  static_assert(BQ == 64 && BK == 64, "the band moves one 64-row chunk a key tile");
+  using L = Layout<DH, MODE>;
+  constexpr int RS = L::RS, CPR = L::CPR, KS = DH / 16, NH = DH / 16;  // NH: n-tiles a half
+  constexpr int WBS = L::WBS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / SPLIT, sp = blockIdx.x % SPLIT, b = bh / H;
+  const size_t base = (size_t)bh * T_len * DH, rbase = (size_t)bh * T_len;
+  // this block's dE partial [T][DH], row = distance
+  float* dep = de_part + ((size_t)sp * (gridDim.x / SPLIT) + bh) * T_len * DH;
+  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(smem + L::DSS_AT);  // dS' [BQ][PS]
+  __nv_bfloat16* dsd = reinterpret_cast<__nv_bfloat16*>(smem + L::DSD_AT);  // [BQ][DS]
+  float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
+  auto kv_buf = [&](int s) { return reinterpret_cast<__nv_bfloat16*>(smem + s * L::KV_BYTES); };
+  auto q_buf = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + L::Q_AT + s * L::Q_BYTES);
+  };
+
+  const int n_tiles = (T_len + BQ - 1) / BQ;
+  auto kt_last = [&](int qt) { return causal ? qt : n_tiles - 1; };
+  // The last query tile of this block reaches every distance below its
+  // q0 + BQ and writes each; rows above stay zero in the partial.
+  const int last_qt = sp < n_tiles ? sp + (n_tiles - 1 - sp) / SPLIT * SPLIT : -1;
+  const int reach = min(T_len, (last_qt + 1) * BQ);
+  for (int x = reach * DH + tid; x < T_len * DH; x += NTH) dep[x] = 0.f;
+  for (int x = tid; x < BQ * DS; x += NTH) dsd[x] = __float2bfloat16(0.f);
+  if (sp >= n_tiles) return;
+
+  // The E band of a pair (row u at distance q0 - k0 - (BK - 1) + u, zero
+  // where negative) is two chunks of 64 rows in a ring of NSLOT. The next
+  // key tile's band starts 64 distances lower, so its upper chunk is this
+  // pair's lower one and only its lower chunk is copied (both at a query
+  // tile's first pair). Chunk c sits in slot c % NSLOT.
+  __nv_bfloat16* e_ring = reinterpret_cast<__nv_bfloat16*>(smem + L::E_AT);
+  auto e_slot = [&](int c) { return e_ring + (c % L::NSLOT) * 64 * RS; };
+  int n_chunks = 0;  // chunks copied so far
+  auto load_chunk = [&](int c, int dist_first) {
+    __nv_bfloat16* dst = e_slot(c);
+    for (int x = tid; x < 64 * CPR; x += NTH) {
+      const int u = x / CPR, cc = x - u * CPR;
+      const int dist = dist_first + u;
+      const bool ok = dist >= 0 && dist < max_seq;
+      cp_async16(dst + u * RS + cc * 8, e + (size_t)(ok ? max_seq - 1 - dist : 0) * DH + cc * 8,
+                 ok);
+    }
+  };
+  // pair (qt, kt) into ring stage s: at a query tile's first pair its Q,
+  // dO, lse and dsum; always K, V and the key flags; where the pair has a
+  // distance >= 0 (kt <= qt), the band's new chunks. (lo, hi) come back as
+  // the band's chunks, given the last pair's lower one in lo.
+  auto load = [&](int qt, int kt, int s, int& lo, int& hi) {
+    const int k0 = kt * BK, q0 = qt * BQ;
+    const int dist0 = q0 - k0 - (BK - 1);
+    if (kt <= qt) {
+      if (kt == 0) {
+        hi = n_chunks++;
+        load_chunk(hi, dist0 + 64);
+      } else {
+        hi = lo;
+      }
+      lo = n_chunks++;
+      load_chunk(lo, dist0);
+    }
+    if (kt == 0) {
+      __nv_bfloat16* qs = q_buf(qt / SPLIT % L::STAGES);
+      __nv_bfloat16* dos = qs + BQ * RS;
+      float* lse_s = reinterpret_cast<float*>(dos + BQ * RS);
+      for (int x = tid; x < BQ * CPR; x += NTH) {
+        const int r = x / CPR, c = x - r * CPR;
+        const bool ok = q0 + r < T_len;
+        const size_t at = base + (size_t)(ok ? q0 + r : 0) * DH + c * 8;
+        cp_async16(qs + r * RS + c * 8, q + at, ok);
+        cp_async16(dos + r * RS + c * 8, dout + at, ok);
+      }
+      for (int r = tid; r < BQ; r += NTH) {
+        const bool ok = q0 + r < T_len;
+        const size_t at = rbase + (ok ? q0 + r : 0);
+        cp_async4(lse_s + r, lse + at, ok);
+        cp_async4(lse_s + BQ + r, dsum + at, ok);
+      }
+    }
+    __nv_bfloat16* ks = kv_buf(s);
+    __nv_bfloat16* vs = ks + BK * RS;
+    float* live = reinterpret_cast<float*>(vs + BK * RS);
+    for (int x = tid; x < BK * CPR; x += NTH) {
+      const int j = x / CPR, c = x - j * CPR;
+      const bool ok = k0 + j < T_len;
+      const size_t at = base + (size_t)(ok ? k0 + j : 0) * DH + c * 8;
+      cp_async16(ks + j * RS + c * 8, k + at, ok);
+      cp_async16(vs + j * RS + c * 8, v + at, ok);
+    }
+    for (int j = tid; j < BK; j += NTH)
+      live[j] =
+          (k0 + j < T_len && !(pad != nullptr && pad[(size_t)b * T_len + k0 + j])) ? 1.f : 0.f;
+    cp_commit();
+  };
+
+  float qacc[NH][4];    // dQ of rows 16 (w / 2).., channel half w % 2, over the query tile
+  float ecarry[NH][4];  // dE of the lower distance block, for the next pair
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) qacc[n][x] = ecarry[n][x] = 0.f;
+  const int ra = 16 * (warp & 3), ka = 32 * (warp >> 2), ub = ra - ka + 32;  // phase A
+  const int mq = warp >> 1, c0 = (warp & 1) * (DH / 2);                        // phase B
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;  // A row-major
+  const int brow = (lane & 7) + (lane >> 4) * 8, bcol = ((lane >> 3) & 1) * 8;  // B, A^T
+
+  int qt = sp, kt = 0, nq = qt, nk = kt;
+  auto next = [&](int& a, int& c) {
+    if (++c > kt_last(a)) {
+      a += SPLIT;
+      c = 0;
+    }
+  };
+  next(nq, nk);
+  int lo = 0, hi = 0, nlo = 0, nhi = 0;  // this pair's band chunks, and the next pair's
+  load(qt, kt, 0, lo, hi);
+  for (int pair = 0;; ++pair) {
+    const int s = pair % L::STAGES;
+    const bool more = nq < n_tiles;
+    cp_wait<0>();
+    __syncthreads();  // this pair's tiles have landed; every warp is done with the last pair
+    // the next pair into the other stage, whose last reader was the last pair
+    nlo = lo;
+    nhi = hi;
+    if (L::STAGES > 1 && more) load(nq, nk, (pair + 1) % L::STAGES, nlo, nhi);
+    const int k0 = kt * BK, q0 = qt * BQ, dist0 = q0 - k0 - (BK - 1);
+    const bool band = kt <= qt;  // some distance of the pair is >= 0
+    const __nv_bfloat16* ks = kv_buf(s);
+    const __nv_bfloat16* vs = ks + BK * RS;
+    const float* live = reinterpret_cast<const float*>(vs + BK * RS);
+    const __nv_bfloat16* qs = q_buf(qt / SPLIT % L::STAGES);
+    const __nv_bfloat16* dos = qs + BQ * RS;
+    const float* lse_s = reinterpret_cast<const float*>(dos + BQ * RS);
+    const float* dsum_s = lse_s + BQ;
+    const __nv_bfloat16* elo = e_slot(lo);
+    const __nv_bfloat16* ehi = e_slot(hi);
+    // band row r (a 16-row group never straddles the chunks)
+    auto erow = [&](int r) { return (r < 64 ? elo : ehi) + (r & 63) * RS; };
+
+    // ---- phase A
+    {
+      float sacc[4][4], bacc[WB / 8][4], dpacc[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) sacc[n][x] = dpacc[n][x] = 0.f;
+#pragma unroll
+      for (int n = 0; n < WB / 8; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) bacc[n][x] = 0.f;
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+        uint32_t qa[4], da[4];
+        ldsm_x4(qa, qs + (ra + lrow) * RS + st * 16 + lcol);
+        ldsm_x4(da, dos + (ra + lrow) * RS + st * 16 + lcol);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bf[4];
+          ldsm_x4(bf, ks + (ka + np * 16 + brow) * RS + st * 16 + bcol);
+          mma(sacc[2 * np], qa, bf[0], bf[1]);
+          mma(sacc[2 * np + 1], qa, bf[2], bf[3]);
+          ldsm_x4(bf, vs + (ka + np * 16 + brow) * RS + st * 16 + bcol);
+          mma(dpacc[2 * np], da, bf[0], bf[1]);
+          mma(dpacc[2 * np + 1], da, bf[2], bf[3]);
+        }
+        if (band) {
+#pragma unroll
+          for (int np = 0; np < WB / 16; ++np) {
+            uint32_t bf[4];
+            ldsm_x4(bf, erow(ub + np * 16 + brow) + st * 16 + bcol);
+            mma(bacc[2 * np], qa, bf[0], bf[1]);
+            mma(bacc[2 * np + 1], qa, bf[2], bf[3]);
+          }
+        }
+      }
+      if (band) {
+#pragma unroll
+        for (int n = 0; n < WB / 8; ++n) {
+          *reinterpret_cast<float2*>(scr + g * WBS + 8 * n + 2 * t) =
+              make_float2(bacc[n][0], bacc[n][1]);
+          *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * n + 2 * t) =
+              make_float2(bacc[n][2], bacc[n][3]);
+        }
+      }
+      __syncwarp();
+      // P and dS' by key column
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = g + 8 * h, il = ra + r, i = q0 + il, c = 8 * n + 2 * t, jj = ka + c;
+          float ds[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            // the skew: Srel of (row r, key c + x) is band column r - (c + x) + 31
+            const float sc = sacc[n][2 * h + x] + (band ? scr[r * WBS + r - c - x + 31] : 0.f);
+            const bool ok = i < T_len && live[jj + x] != 0.f && !(causal && k0 + jj + x > i);
+            const float p = ok ? exp2f(sc * scale_log2 - lse_s[il] * LOG2E) : 0.f;
+            ds[x] = p * (dpacc[n][2 * h + x] - dsum_s[il]) * scale;
+          }
+          const uint32_t dsb = pack_bf16(ds[0], ds[1]);
+          *reinterpret_cast<uint32_t*>(dss + il * PS + jj) = dsb;
+          if constexpr (MODE == COLUMN) {
+            if (band) {  // the unskew: key jj + x sits at u - x
+              const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
+              const __nv_bfloat16 zero = __float2bfloat16(0.f);
+              const int u = il - jj + BK - 1;
+              dsd[il * DS + u] = dist0 + u >= 0 ? d2.x : zero;
+              dsd[il * DS + u - 1] = dist0 + u - 1 >= 0 ? d2.y : zero;
+            }
+          }
+        }
+      if constexpr (MODE == DIST) {
+        if (band) {
+          // dS by distance: S and dP by key into the scratch, read back at
+          // key j = i - d beside the bias by distance, the band product
+          __syncwarp();  // every lane has read its band values
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float* row = scr + (g + 8 * h) * WBS + 8 * n + 2 * t;
+              *reinterpret_cast<float2*>(row) = make_float2(sacc[n][2 * h], sacc[n][2 * h + 1]);
+              *reinterpret_cast<float2*>(row + L::DP_AT) =
+                  make_float2(dpacc[n][2 * h], dpacc[n][2 * h + 1]);
+            }
+          __syncwarp();
+#pragma unroll
+          for (int n = 0; n < WB / 8; ++n)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int x = 0; x < 2; ++x) {
+                // band column ul of row r is key jl = r + 31 - ul of this warp's 32
+                const int r = g + 8 * h, ul = 8 * n + 2 * t + x, jl = r + 31 - ul;
+                if (jl < 0 || jl > 31) continue;
+                const int il = ra + r, i = q0 + il, u = ub + ul;
+                const bool ok = i < T_len && live[ka + jl] != 0.f && dist0 + u >= 0;
+                const float sd = scr[r * WBS + jl] + bacc[n][2 * h + x];
+                const float p = ok ? exp2f(sd * scale_log2 - lse_s[il] * LOG2E) : 0.f;
+                dsd[il * DS + u] =
+                    __float2bfloat16(p * (scr[r * WBS + L::DP_AT + jl] - dsum_s[il]) * scale);
+              }
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- phase B: dQ += dS' K (+ dsd E_band), rows 16 mq.., in registers
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, dss + (16 * mq + lrow) * PS + 16 * kk + lcol);
+      mma_kn<NH>(qacc, a, ks + 16 * kk * RS + c0, RS, lane);
+    }
+    if (band) {
+      // The dE partial rows this warp adds to are loaded first, so their
+      // latency passes under the products. The upper block (distances
+      // 16 (mq + 4)..) is complete after this pair and goes to the
+      // partial; the lower one is the next pair's upper block, carried in
+      // registers (ecarry) and written at the query tile's last band pair.
+      // Rows below `fresh` hold this block's earlier query tiles' sums.
+      const bool last = kt == qt;
+      const int fresh = qt >= SPLIT ? min(T_len, (qt - SPLIT + 1) * BQ) : 0;
+      float2 eold[2][2][NH];
+#pragma unroll
+      for (int hb = 0; hb < 2; ++hb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int dist = dist0 + 16 * (mq + 4 * hb) + g + 8 * h;
+#pragma unroll
+          for (int n = 0; n < NH; ++n)
+            eold[hb][h][n] =
+                (hb == 1 || last) && dist >= 0 && dist < fresh
+                    ? *reinterpret_cast<const float2*>(dep + (size_t)dist * DH + c0 + 8 * n + 2 * t)
+                    : make_float2(0.f, 0.f);
+        }
+      // dsd row i is nonzero at u in [i, i + BK - 1]
+#pragma unroll
+      for (int ku = mq; ku <= mq + BK / 16; ++ku) {
+        uint32_t a[4];
+        ldsm_x4(a, dsd + (16 * mq + lrow) * DS + 16 * ku + lcol);
+        mma_kn<NH>(qacc, a, erow(16 * ku) + c0, RS, lane);
+      }
+#pragma unroll
+      for (int hb = 1; hb >= 0; --hb) {  // dE += dsd^T Q, distances 16 ublk.. (upper first)
+        const int ublk = mq + 4 * hb;
+        float eacc[NH][4];
+#pragma unroll
+        for (int n = 0; n < NH; ++n)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) eacc[n][x] = hb == 1 ? ecarry[n][x] : 0.f;
+        // rows i reach u in [i, i + BK - 1]: query steps ublk - 4 .. ublk
+        for (int kq = max(0, ublk - BK / 16); kq <= min(BQ / 16 - 1, ublk); ++kq) {
+          uint32_t a[4];
+          ldsm_x4_t(a, dsd + (16 * kq + brow) * DS + 16 * ublk + bcol);
+          mma_kn<NH>(eacc, a, qs + 16 * kq * RS + c0, RS, lane);
+        }
+        if (hb == 0) {
+#pragma unroll
+          for (int n = 0; n < NH; ++n)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) ecarry[n][x] = last ? 0.f : eacc[n][x];
+          if (!last) continue;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int dist = dist0 + 16 * ublk + g + 8 * h;
+          if (dist < 0 || dist >= T_len) continue;
+#pragma unroll
+          for (int n = 0; n < NH; ++n)
+            *reinterpret_cast<float2*>(dep + (size_t)dist * DH + c0 + 8 * n + 2 * t) =
+                make_float2(eold[hb][h][n].x + eacc[n][2 * h],
+                            eold[hb][h][n].y + eacc[n][2 * h + 1]);
+        }
+      }
+    }
+
+    if (kt == kt_last(qt)) {  // the query tile's last pair: its dQ, cast once
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = q0 + 16 * mq + g + 8 * h;
+#pragma unroll
+        for (int n = 0; n < NH; ++n) {
+          if (i < T_len)
+            *reinterpret_cast<uint32_t*>(dq + base + (size_t)i * DH + c0 + 8 * n + 2 * t) =
+                pack_bf16(qacc[n][2 * h], qacc[n][2 * h + 1]);
+          qacc[n][2 * h] = qacc[n][2 * h + 1] = 0.f;
+        }
+      }
+    }
+    if (!more) break;
+    qt = nq;
+    kt = nk;
+    next(nq, nk);
+    if (L::STAGES == 1) {
+      __syncthreads();  // every warp is done with the one stage
+      load(qt, kt, 0, lo, hi);
+    } else {
+      lo = nlo;
+      hi = nhi;
+    }
+  }
+}
+
+}  // namespace tc
+
+
 template <typename T, int DH, int MODE>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    const void* dout, const void* lse, const void* dsum, void* dq, void* de,
-                   void* de_part, int B, int H, int T_len, int max_seq, int causal,
+                   void* de_part, int B, int H, int T_len, int max_seq, int causal, float scale,
                    cudaStream_t stream) {
-  auto kernel = flash_rel_attn_bwd_q_kernel<T, DH, MODE>;
-  const size_t smem = smem_bytes<DH>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<B * H, Tile<DH>::NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(e), static_cast<const uint8_t*>(pad), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<T*>(dq),
-      static_cast<float*>(de_part), H, T_len, max_seq, causal, 1.f / sqrtf((float)DH));
+  cudaError_t err;
+  int parts = B * H;  // dE partials, one a block
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && MODE != REL) {
+    using B16 = __nv_bfloat16;
+    auto kernel = tc::flash_bwd_q_tc_kernel<DH, MODE>;
+    const int smem = tc::Layout<DH, MODE>::TOTAL;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    parts = B * H * tc::SPLIT;
+    kernel<<<parts, tc::NTH, smem, stream>>>(
+        static_cast<const B16*>(q), static_cast<const B16*>(k), static_cast<const B16*>(v),
+        static_cast<const B16*>(e), static_cast<const uint8_t*>(pad), static_cast<const B16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<B16*>(dq),
+        static_cast<float*>(de_part), H, T_len, max_seq, causal, scale, scale * tc::LOG2E);
+  } else {
+    auto kernel = flash_rel_attn_bwd_q_kernel<T, DH, MODE>;
+    const size_t smem = smem_bytes<DH>();
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<B * H, Tile<DH>::NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(e), static_cast<const uint8_t*>(pad), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<T*>(dq),
+        static_cast<float*>(de_part), H, T_len, max_seq, causal, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = max_seq * DH, threads = 256;
   de_reduce_kernel<T><<<(n + threads - 1) / threads, threads, 0, stream>>>(
-      static_cast<const float*>(de_part), static_cast<T*>(de), B * H, T_len, max_seq, DH);
+      static_cast<const float*>(de_part), static_cast<T*>(de), parts, T_len, max_seq, DH);
   return cudaGetLastError();
 }
 
@@ -382,13 +916,13 @@ template <int MODE>
 int dispatch(const void* q, const void* k, const void* v, const void* e, const void* pad,
              const void* dout, const void* lse, const void* dsum, void* dq, void* de,
              void* de_part, int B, int H, int T_len, int dh, int max_seq, int causal, int dtype,
-             void* stream) {
+             float scale, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || T_len > max_seq) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define Q_CASE(TYPE, D)                                                                       \
   if (dh == D)                                                                                \
     return launch<TYPE, D, MODE>(q, k, v, e, pad, dout, lse, dsum, dq, de, de_part, B, H,     \
-                                 T_len, max_seq, causal, s);
+                                 T_len, max_seq, causal, scale, s);
   if (dtype == 0) {
     Q_CASE(float, 16) Q_CASE(float, 32) Q_CASE(float, 48) Q_CASE(float, 64)
     Q_CASE(float, 96) Q_CASE(float, 128)
@@ -407,17 +941,21 @@ extern "C" {
 
 // Each returns a cudaError_t: 0 when both launches were accepted. dtype: 0 =
 // float32, 1 = bfloat16 (q, k, v, e, dout, dq, de); lse and dsum are f32
-// [B, H, T]; pad may be null. de_part is f32 scratch [B*H, T, dh], zeroed by
-// the kernel. Launches on `stream` and does not synchronise.
+// [B, H, T]; pad may be null. de_part is f32 scratch [2*B*H, T, dh], filled
+// by the kernel (the bf16 COLUMN and DIST paths use all of it, one partial
+// a block; the others the first B*H). scale is c = 1/sqrt(d_head) of the
+// caller's heads, which may have fewer columns than dh (zero columns padded
+// up to an instantiated dh add nothing). Launches on `stream` and does not
+// synchronise.
 
 // dQ and dE, by key column (the TPU's _bwd_dq_de_kernel).
 int flash_rel_attn_bwd_dq_de(const void* q, const void* k, const void* v, const void* e,
                              const void* pad, const void* dout, const void* lse,
                              const void* dsum, void* dq, void* de, void* de_part, int B, int H,
-                             int T_len, int dh, int max_seq, int causal, int dtype,
+                             int T_len, int dh, int max_seq, int causal, int dtype, float scale,
                              void* stream) {
   return dispatch<COLUMN>(q, k, v, e, pad, dout, lse, dsum, dq, de, de_part, B, H, T_len, dh,
-                          max_seq, causal, dtype, stream);
+                          max_seq, causal, dtype, scale, stream);
 }
 
 // dQ and dE, the relative terms by distance (the TPU's _bwd_dq_de_dist_kernel).
@@ -425,9 +963,9 @@ int flash_rel_attn_bwd_dq_de_dist(const void* q, const void* k, const void* v, c
                                   const void* pad, const void* dout, const void* lse,
                                   const void* dsum, void* dq, void* de, void* de_part, int B,
                                   int H, int T_len, int dh, int max_seq, int causal, int dtype,
-                                  void* stream) {
+                                  float scale, void* stream) {
   return dispatch<DIST>(q, k, v, e, pad, dout, lse, dsum, dq, de, de_part, B, H, T_len, dh,
-                        max_seq, causal, dtype, stream);
+                        max_seq, causal, dtype, scale, stream);
 }
 
 // dQ_rel (into dq) and dE, by distance (the TPU's _bwd_de_dqrel_kernel).
@@ -435,9 +973,9 @@ int flash_rel_attn_bwd_de_dqrel(const void* q, const void* k, const void* v, con
                                 const void* pad, const void* dout, const void* lse,
                                 const void* dsum, void* dq, void* de, void* de_part, int B,
                                 int H, int T_len, int dh, int max_seq, int causal, int dtype,
-                                void* stream) {
+                                float scale, void* stream) {
   return dispatch<REL>(q, k, v, e, pad, dout, lse, dsum, dq, de, de_part, B, H, T_len, dh,
-                       max_seq, causal, dtype, stream);
+                       max_seq, causal, dtype, scale, stream);
 }
 
 const char* flash_rel_attn_bwd_q_error_string(int err) {

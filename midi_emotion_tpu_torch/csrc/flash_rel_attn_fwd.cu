@@ -210,7 +210,7 @@ flash_rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e,
                    const void* pad, void* o, void* lse, int B, int H, int T_len,
-                   int max_seq, int causal, cudaStream_t stream) {
+                   int max_seq, int causal, float scale, cudaStream_t stream) {
   auto kernel = flash_rel_attn_fwd_kernel<DH>;
   const size_t smem = smem_bytes<DH>();
   cudaError_t err =
@@ -220,20 +220,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e,
   kernel<<<grid, BQ, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(e), static_cast<const uint8_t*>(pad), static_cast<float*>(o),
-      static_cast<float*>(lse), H, T_len, max_seq, causal, 1.f / sqrtf((float)DH));
+      static_cast<float*>(lse), H, T_len, max_seq, causal, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void* e,
                         const void* pad, void* o, void* lse, int B, int H, int T_len,
-                        int dh, int max_seq, int causal, cudaStream_t stream) {
+                        int dh, int max_seq, int causal, float scale, cudaStream_t stream) {
   switch (dh) {
-    case 16: return launch<16>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, stream);
-    case 32: return launch<32>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, stream);
-    case 48: return launch<48>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, stream);
-    case 64: return launch<64>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, stream);
-    case 96: return launch<96>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, stream);
-    case 128: return launch<128>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, stream);
+    case 16:
+      return launch<16>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
+    case 32:
+      return launch<32>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
+    case 48:
+      return launch<48>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
+    case 64:
+      return launch<64>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
+    case 96:
+      return launch<96>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -548,7 +554,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    void* o, void* lse, int B, int H, int T_len, int max_seq, int causal,
-                   cudaStream_t stream) {
+                   float scale, cudaStream_t stream) {
   auto kernel = flash_fwd_tc_kernel<DH>;
   const int smem = Layout<DH>::TOTAL;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -558,20 +564,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(e),
       static_cast<const uint8_t*>(pad), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      H, T_len, max_seq, causal, LOG2E / sqrtf((float)DH));
+      H, T_len, max_seq, causal, LOG2E * scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void* e,
                         const void* pad, void* o, void* lse, int B, int H, int T_len, int dh,
-                        int max_seq, int causal, cudaStream_t s) {
+                        int max_seq, int causal, float scale, cudaStream_t s) {
   switch (dh) {
-    case 16: return launch<16>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, s);
-    case 32: return launch<32>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, s);
-    case 48: return launch<48>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, s);
-    case 64: return launch<64>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, s);
-    case 96: return launch<96>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, s);
-    case 128: return launch<128>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, s);
+    case 16: return launch<16>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
+    case 32: return launch<32>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
+    case 48: return launch<48>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
+    case 64: return launch<64>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
+    case 96: return launch<96>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
+    case 128: return launch<128>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -583,16 +589,20 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
 extern "C" {
 
 // Returns a cudaError_t: 0 when the launch was accepted. dtype: 0 = float32,
-// 1 = bfloat16. pad may be null. Launches on `stream` and does not synchronise.
+// 1 = bfloat16. pad may be null. scale multiplies q.(k + E) in the logits:
+// 1/sqrt(d_head) of the caller's heads, which may have fewer columns than dh
+// (zero columns padded up to an instantiated dh add nothing). Launches on
+// `stream` and does not synchronise.
 int flash_rel_attn_fwd(const void* q, const void* k, const void* v, const void* e,
                        const void* pad, void* o, void* lse, int B, int H, int T_len,
-                       int dh, int max_seq, int causal, int dtype, void* stream) {
+                       int dh, int max_seq, int causal, int dtype, float scale, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || T_len > max_seq) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_dh(q, k, v, e, pad, o, lse, B, H, T_len, dh, max_seq, causal, s);
+    return dispatch_dh(q, k, v, e, pad, o, lse, B, H, T_len, dh, max_seq, causal, scale, s);
   if (dtype == 1)
-    return tc::dispatch_dh(q, k, v, e, pad, o, lse, B, H, T_len, dh, max_seq, causal, s);
+    return tc::dispatch_dh(q, k, v, e, pad, o, lse, B, H, T_len, dh, max_seq, causal, scale,
+                              s);
   return cudaErrorInvalidValue;
 }
 

@@ -36,10 +36,14 @@ package (``pallas_attention.py:1733-1735``), is a small kernel of
 ``csrc/flash_rel_attn_bwd.cu`` on a CUDA tensor, so every decomposition's
 backward runs only the port's own kernels.
 
-Head shapes: every kernel here takes d_head in ``KERNEL_DHS`` (16, 32, 48,
-64, 96, 128), in f32 and bf16, any T <= max_seq; another d_head raises a
-ValueError that names it. bf16 operands must be 16-byte aligned (the
-kernels copy 16-byte units); fresh and contiguous tensors are.
+Head shapes: every kernel here is built for d_head in ``KERNEL_DHS`` (16,
+32, 48, 64, 96, 128), in f32 and bf16, any T <= max_seq. The wrappers take
+any d_head up to 128: another one is padded with zero columns up to the
+next entry (``pad_heads``; 40 -> 48, 80 -> 96), which add nothing to any
+product, the kernel is given c = 1/sqrt(true d_head), and the outputs are
+cut back. A d_head above 128 raises a ValueError that names it (the f32
+tiles would not fit shared memory). bf16 operands must be 16-byte aligned
+(the kernels copy 16-byte units); fresh and contiguous tensors are.
 
 Source note for the forward kernel (``csrc/flash_rel_attn_fwd.cu``):
   * replaces ``pallas_attention.py::_flash_kernel`` (launched by
@@ -80,8 +84,9 @@ Source note for the merged backward kernel (``csrc/flash_rel_attn_bwd.cu``):
   * f32, the checks' path: CUDA-core f32 FMAs fed from shared memory.
 
 Source note for the other decompositions' kernels (details in their
-sources), both dtypes on the CUDA cores, bound by f32 FMAs fed from shared
-memory:
+sources), on the CUDA cores and bound by f32 FMAs fed from shared memory,
+except the bf16 paths of ``bwd_dq_de`` and ``bwd_dq_de_dist``, which run
+on the tensor cores (below):
   * ``csrc/flash_rel_attn_bwd_kv.cu``, the key-major sweeps: replaces
     ``_bwd_dkdv_kernel`` (``bwd_dkdv``: one block per (b, h, key tile),
     which owns its dK and dV) and ``_bwd_dkdv_dq_kernel`` (``bwd_dkdv_dq``:
@@ -95,6 +100,15 @@ memory:
     were Mosaic's need: the kernel reads key i - d directly.
   * their tiles are 64 rows, 32 at d_head 128, so the f32 staging fits a
     block's shared memory.
+  * bf16 ``bwd_dq_de`` and ``bwd_dq_de_dist`` (the ``fused`` training
+    path): bound by operations; kernel 4's phase A (S, dP and the band by
+    ``mma.sync``, the band skewed through shared memory) and products,
+    query-major: dQ in f32 registers across a query tile's key tiles, dS'
+    rounded to bf16 and put into the distance domain (``column``: the
+    unskew of the key-column dS'; ``dist``: dS recomputed by distance from
+    the bias by distance and the S and dP fragments skewed through shared
+    memory), where dQ_rel and dE are plain products; two blocks a (b, h)
+    on alternate query tiles, each with its own dE partial.
 """
 
 from __future__ import annotations
@@ -145,6 +159,32 @@ def _masked(T: int, causal: bool, pad_keys: Optional[torch.Tensor], device) -> t
     return masked
 
 
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    """c: ``scale`` where given (heads padded past their d_head), else
+    1/sqrt(d_head)."""
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def padded_dh(dh: int) -> int:
+    """The d_head a kernel runs heads of ``dh`` columns at: the least entry
+    of ``KERNEL_DHS`` that is >= dh. Raises a ValueError naming d_head
+    above 128."""
+    for dh_k in KERNEL_DHS:
+        if dh_k >= dh:
+            return dh_k
+    raise ValueError(f"flash kernel takes d_head <= {KERNEL_DHS[-1]}, got {dh}")
+
+
+def pad_heads(dh_to: int, *tensors: Optional[torch.Tensor]):
+    """Each tensor with zero columns appended on its last axis up to
+    ``dh_to`` (None and tensors already that wide pass as they are). Zero
+    columns add nothing to q.k, q.E, dO.v or dO.O, so a kernel run at the
+    padded width, given c = 1/sqrt(true d_head), computes the unpadded
+    function in the first columns of its outputs. Any device."""
+    return [t if t is None or t.shape[-1] == dh_to
+            else torch.nn.functional.pad(t, (0, dh_to - t.shape[-1])) for t in tensors]
+
+
 def flash_rel_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -152,16 +192,16 @@ def flash_rel_attention_plain(
     e: torch.Tensor,
     causal: bool = True,
     pad_keys: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's math in plain torch, in f32 whatever the input type.
 
     q, k, v: [B, H, T, dh]; e: [max_seq, dh]; pad_keys: [B, T] bool (True
-    = pad key) or None. Returns (O [B, H, T, dh] in q's dtype, lse
-    [B, H, T] f32)."""
-    dh = q.shape[-1]
+    = pad key) or None; scale: c, 1/sqrt(dh) when None. Returns (O
+    [B, H, T, dh] in q's dtype, lse [B, H, T] f32)."""
     T = q.shape[2]
     qf, kf, vf = q.float(), k.float(), v.float()
-    s = (qf @ kf.transpose(-1, -2) + rel_position_bias(qf, e.float())) / math.sqrt(dh)
+    s = (qf @ kf.transpose(-1, -2) + rel_position_bias(qf, e.float())) * _scale(q, scale)
     s = s.masked_fill(_masked(T, causal, pad_keys, q.device), float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)  # all-masked rows
@@ -174,14 +214,15 @@ def flash_rel_attention_plain(
 
 
 # ---------------------------------------------------------------------------
-# the backward twins: f32 math, outputs in the inputs' dtypes
+# the backward twins: f32 math, outputs in the inputs' dtypes; each takes
+# c as ``scale`` (1/sqrt(dh) when None)
 # ---------------------------------------------------------------------------
 
 
-def _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do):
+def _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do, scale=None):
     """f32 (q, k, dO, P, dS') by key column: P recomputed from the saved
     lse, dS' = c P (dO V^T - dsum), c folded in once."""
-    c = 1.0 / math.sqrt(q.shape[-1])
+    c = _scale(q, scale)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = (qf @ kf.transpose(-1, -2) + rel_position_bias(qf, e.float())) * c
     p = torch.exp(s - lse[..., None]).masked_fill(_masked(q.shape[2], causal, pad_keys, q.device), 0)
@@ -199,7 +240,7 @@ def _rel_adjoint_column(qf, e, ds):
     return torch.autograd.grad(srel, (q_leaf, e_leaf), ds)
 
 
-def _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do):
+def _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do, scale=None):
     """(dQ_rel, dE) f32 by distance, derived apart from the column form as
     ``_bwd_dq_de_dist_kernel`` derives it (``pallas_attention.py:880-903``):
     index the scores by d = i - j >= 0 (the relative bias is 0 above the
@@ -209,7 +250,7 @@ def _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do):
     dE[ms-1-d] = sum_i dS_d[i, d] q_i."""
     B, H, T, dh = q.shape
     max_seq = e.shape[0]
-    c = 1.0 / math.sqrt(dh)
+    c = _scale(q, scale)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     e_rev = e.float()[max_seq - T:].flip(0)  # row d holds E[ms-1-d]
     ar = torch.arange(T, device=q.device)
@@ -237,13 +278,14 @@ def flash_rel_attention_bwd_plain(
     o: torch.Tensor,
     lse: torch.Tensor,
     do: torch.Tensor,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The merged backward kernel's math in plain torch, in f32: P
     recomputed from the saved lse, explicit formulas for dV, dK and dQ's
     key term, and autograd through ``rel_position_bias`` for the relative
     term's dQ and dE. Returns (dq, dk, dv, de) in the inputs' dtypes."""
     dsum = (do.float() * o.float()).sum(-1)
-    qf, kf, dof, p, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    qf, kf, dof, p, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do, scale)
     dq_rel, de = _rel_adjoint_column(qf, e, ds)
     dq = ds @ kf + dq_rel
     dk = ds.transpose(-1, -2) @ qf
@@ -251,39 +293,39 @@ def flash_rel_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), de.to(e.dtype)
 
 
-def bwd_dkdv_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+def bwd_dkdv_plain(q, k, v, e, causal, pad_keys, lse, dsum, do, scale=None):
     """Twin of ``_bwd_dkdv_kernel`` -> (dk, dv)."""
-    qf, _, dof, p, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    qf, _, dof, p, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do, scale)
     return (ds.transpose(-1, -2) @ qf).to(k.dtype), (p.transpose(-1, -2) @ dof).to(v.dtype)
 
 
-def bwd_dkdv_dq_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+def bwd_dkdv_dq_plain(q, k, v, e, causal, pad_keys, lse, dsum, do, scale=None):
     """Twin of ``_bwd_dkdv_dq_kernel`` -> (dk, dv, dq_qk = dS' K)."""
-    qf, kf, dof, p, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    qf, kf, dof, p, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do, scale)
     return ((ds.transpose(-1, -2) @ qf).to(k.dtype), (p.transpose(-1, -2) @ dof).to(v.dtype),
             (ds @ kf).to(q.dtype))
 
 
-def bwd_dq_de_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+def bwd_dq_de_plain(q, k, v, e, causal, pad_keys, lse, dsum, do, scale=None):
     """Twin of ``_bwd_dq_de_kernel`` -> (dq, de), the relative term by key
     column."""
-    qf, kf, _, _, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    qf, kf, _, _, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do, scale)
     dq_rel, de = _rel_adjoint_column(qf, e, ds)
     return (ds @ kf + dq_rel).to(q.dtype), de.to(e.dtype)
 
 
-def bwd_dq_de_dist_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+def bwd_dq_de_dist_plain(q, k, v, e, causal, pad_keys, lse, dsum, do, scale=None):
     """Twin of ``_bwd_dq_de_dist_kernel`` -> (dq, de): dQ's key term by key
     column, the relative terms by distance."""
-    _, kf, _, _, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do)
-    dq_rel, de = _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do)
+    _, kf, _, _, ds = _bwd_p_ds(q, k, v, e, causal, pad_keys, lse, dsum, do, scale)
+    dq_rel, de = _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do, scale)
     return (ds @ kf + dq_rel).to(q.dtype), de.to(e.dtype)
 
 
-def bwd_de_dqrel_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
+def bwd_de_dqrel_plain(q, k, v, e, causal, pad_keys, lse, dsum, do, scale=None):
     """Twin of ``_bwd_de_dqrel_kernel`` -> (dq_rel, de), by distance. The
     causal flag does not enter: only d = i - j >= 0 is visited."""
-    dq_rel, de = _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do)
+    dq_rel, de = _rel_adjoint_dist(q, k, v, e, pad_keys, lse, dsum, do, scale)
     return dq_rel.to(q.dtype), de.to(e.dtype)
 
 
@@ -291,12 +333,11 @@ def bwd_de_dqrel_plain(q, k, v, e, causal, pad_keys, lse, dsum, do):
 # the CUDA libraries
 # ---------------------------------------------------------------------------
 
-# C function -> (library csrc/<name>.cu, pointer arguments[, int arguments,
-# 7 when not given]); then the ints and a stream
+# C function -> (library csrc/<name>.cu, pointer arguments); then 7 ints
+# (B, H, T, dh, max_seq, causal, dtype), the float scale c and a stream
 _C_FUNCTIONS = {
     "flash_rel_attn_fwd": ("flash_rel_attn_fwd", 7),
     "flash_rel_attn_bwd": ("flash_rel_attn_bwd", 14),
-    "flash_rel_attn_dsum": ("flash_rel_attn_bwd", 3, 3),
     "flash_rel_attn_bwd_dkdv": ("flash_rel_attn_bwd_kv", 10),
     "flash_rel_attn_bwd_dkdv_dq": ("flash_rel_attn_bwd_kv", 12),
     "flash_rel_attn_bwd_dq_de": ("flash_rel_attn_bwd_q", 11),
@@ -308,13 +349,18 @@ _C_FUNCTIONS = {
 @functools.lru_cache(maxsize=None)
 def _function(name: str):
     """(the C function, its library's error-string function), built and
-    loaded at first use."""
+    loaded at first use. ``flash_rel_attn_dsum`` takes 3 pointers, 3 ints
+    and a stream."""
     from ..kernels.build import cuda_library
 
-    lib_name, n_pointers, n_ints = (*_C_FUNCTIONS[name], 7)[:3]
+    if name == "flash_rel_attn_dsum":
+        lib_name, args = "flash_rel_attn_bwd", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    else:
+        lib_name, n_pointers = _C_FUNCTIONS[name]
+        args = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7 + [ctypes.c_float]
     lib = cuda_library(lib_name)
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = args + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{lib_name}_error_string")
     err.argtypes = [ctypes.c_int]
@@ -332,8 +378,7 @@ def _check(q, k, v, e, pad_keys):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be [B, H, T, dh] alike: {q.shape}, {k.shape}, {v.shape}")
     B, H, T, dh = q.shape
-    if dh not in KERNEL_DHS:
-        raise ValueError(f"flash kernel takes d_head in {KERNEL_DHS}, got {dh}")
+    padded_dh(dh)  # d_head <= 128, or a ValueError
     if e.dim() != 2 or e.shape[1] != dh or T > e.shape[0]:
         raise ValueError(f"e must be [max_seq >= T, dh]: e {tuple(e.shape)}, T {T}")
     if pad_keys is not None:
@@ -377,41 +422,52 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _cut(dh, *tensors):
+    """The first ``dh`` columns of each tensor, contiguous (no copy when it
+    has no more)."""
+    return [t if t.shape[-1] == dh else t[..., :dh].contiguous() for t in tensors]
+
+
 def _fwd(q, k, v, e, causal, pad_keys):
     if q.device.type == "cpu":
         return flash_rel_attention_plain(q, k, v, e, causal, pad_keys)
     _check(q, k, v, e, pad_keys)
     B, H, T, dh = q.shape
+    dh_k = padded_dh(dh)
+    q, k, v, e = pad_heads(dh_k, q, k, v, e)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _launch("flash_rel_attn_fwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
             o.data_ptr(), lse.data_ptr(),
-            B, H, T, dh, e.shape[0], int(causal), _DTYPE_CODES[q.dtype],
+            B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_rel_attention.launches += 1
-    return o, lse
+    return _cut(dh, o)[0], lse
 
 
 def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch):
     """Check, allocate and launch one backward kernel of the other
-    decompositions: outputs shaped like the inputs named in ``like``, then
-    the f32 scratch ``scratch`` names: a dQ accumulator [B, H, T, dh]
-    ("dq"), per-(b, h) dE partials [B*H, T, dh] ("de") or none."""
+    decompositions, at the padded d_head: outputs shaped like the inputs
+    named in ``like``, then the f32 scratch ``scratch`` names: a dQ
+    accumulator [B, H, T, dh] ("dq"), dE partials [2*B*H, T, dh], up to two
+    a (b, h) ("de"), or none. The outputs come back cut to d_head."""
     _check(q, k, v, e, pad_keys)
     _check_saved(q, {"do": do}, {"lse": lse, "dsum": dsum})
     B, H, T, dh = q.shape
+    dh_k = padded_dh(dh)
+    q, k, v, e, do = pad_heads(dh_k, q, k, v, e, do)
     inputs = {"q": q, "k": k, "v": v, "e": e}
     outs = [torch.empty_like(inputs[n]) for n in like]
-    shapes = {"dq": (B, H, T, dh), "de": (B * H, T, dh)}
+    shapes = {"dq": (B, H, T, dh_k), "de": (2 * B * H, T, dh_k)}
     extra = [] if scratch is None else [
         torch.empty(shapes[scratch], dtype=torch.float32, device=q.device)]
     _launch(name,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), *(t.data_ptr() for t in outs + extra),
-            B, H, T, dh, e.shape[0], int(causal), _DTYPE_CODES[q.dtype],
+            B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream)
-    return outs
+    return _cut(dh, *outs)
 
 
 def _dsum(o, do):
@@ -530,19 +586,21 @@ def flash_rel_attention_bwd(
         dk, dv = bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do)
         return dq, dk, dv, de
     B, H, T, dh = q.shape
+    dh_k = padded_dh(dh)
+    q, k, v, e, do = pad_heads(dh_k, q, k, v, e, do)
     dq, dk, dv, de = (torch.empty_like(t) for t in (q, k, v, e))
     # f32 scratch: a dQ and a dE partial for each of the (up to) two blocks
     # that share a (b, h), summed in a fixed order by the kernel's reductions
-    dq_acc = torch.empty((2, B, H, T, dh), dtype=torch.float32, device=q.device)
-    de_part = torch.empty((2 * B * H, T, dh), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((2, B, H, T, dh_k), dtype=torch.float32, device=q.device)
+    de_part = torch.empty((2 * B * H, T, dh_k), dtype=torch.float32, device=q.device)
     _launch("flash_rel_attn_bwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), de.data_ptr(), dq_acc.data_ptr(), de_part.data_ptr(),
-            B, H, T, dh, e.shape[0], int(causal), _DTYPE_CODES[q.dtype],
+            B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_rel_attention_bwd.launches += 1
-    return dq, dk, dv, de
+    return tuple(_cut(dh, dq, dk, dv, de))
 
 
 flash_rel_attention_bwd.launches = 0  # merged kernel launches since the last reset

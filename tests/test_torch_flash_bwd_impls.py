@@ -42,6 +42,13 @@ CASES = {  # T, dh, causal, pad tail (no pad at key 0: ROADMAP queue 3)
     "causal-pad": (40, 48, True, True),
     "noncausal-dh16": (32, 16, False, False),
 }
+# d_head outside KERNEL_DHS, which the wrappers pad on the card: held for
+# the fused decomposition's dQ/dE kernels alone
+PADDED_CASES = {
+    "causal-pad-dh40": (24, 40, True, True),
+    "noncausal-dh80": (24, 80, False, False),
+}
+ALL_CASES = {**CASES, **PADDED_CASES}
 IMPLS = {"split": ("split", "column"), "fused-column": ("fused", "column"),
          "fused-dist": ("fused", "dist")}
 # twin -> (the Pallas launcher it is held to, the decomposition that runs
@@ -58,7 +65,7 @@ B, H, MAX_SEQ = 2, 2, 128
 
 
 def _inputs(case):
-    T, dh, _, pad_tail = CASES[case]
+    T, dh, _, pad_tail = ALL_CASES[case]
     rng = np.random.default_rng(T + dh)
     q, k, v, g = (rng.standard_normal((B, H, T, dh)).astype(np.float32) for _ in range(4))
     e = rng.standard_normal((MAX_SEQ, dh)).astype(np.float32)
@@ -77,7 +84,7 @@ def _jax_run(case, impl):
     forward once per case, each backward once."""
     if (case, impl) in _RUNS:
         return _RUNS[case, impl]
-    _, _, causal, pad_tail = CASES[case]
+    _, _, causal, pad_tail = ALL_CASES[case]
     q, k, v, e, g, pk = _inputs(case)
     if case not in _VJPS:
         jpk = jnp.asarray(pk) if pad_tail else None
@@ -111,7 +118,7 @@ def _jax_run(case, impl):
 
 def _torch(case):
     q, k, v, e, g, pk = _inputs(case)
-    pad = torch.from_numpy(pk) if CASES[case][3] else None
+    pad = torch.from_numpy(pk) if ALL_CASES[case][3] else None
     return [torch.from_numpy(x) for x in (q, k, v, e, g)] + [pad]
 
 
@@ -133,16 +140,11 @@ def test_decomposition_matches_pallas_backward(monkeypatch, case, impl):
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("twin", list(KERNELS))
-@pytest.mark.parametrize("case", list(CASES))
-def test_twin_matches_its_pallas_kernel(case, twin):
-    """Each twin's own outputs (the two dQ halves of ``split`` included)
-    against its Pallas kernel's, recorded inside the JAX backward and
-    carried to the port's convention: 1e-4."""
+def _twin_vs_pallas(case, twin):
     launcher, impl, names = KERNELS[twin]
     _, recorded = _jax_run(case, impl)
     q, k, v, e, g, pad = _torch(case)
-    T, dh, causal, _ = CASES[case]
+    T, dh, causal, _ = ALL_CASES[case]
     o, lse = fa.flash_rel_attention_plain(q, k, v, e, causal, pad)
     dsum = (g * o).sum(-1)
     got = getattr(fa, twin)(q, k, v, e, causal, pad, lse, dsum, g)
@@ -158,6 +160,49 @@ def test_twin_matches_its_pallas_kernel(case, twin):
                 b = b / math.sqrt(dh)
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("twin", list(KERNELS))
+@pytest.mark.parametrize("case", list(CASES))
+def test_twin_matches_its_pallas_kernel(case, twin):
+    """Each twin's own outputs (the two dQ halves of ``split`` included)
+    against its Pallas kernel's, recorded inside the JAX backward and
+    carried to the port's convention: 1e-4."""
+    _twin_vs_pallas(case, twin)
+
+
+@pytest.mark.parametrize("twin", ["bwd_dq_de_plain", "bwd_dq_de_dist_plain"])
+@pytest.mark.parametrize("case", list(PADDED_CASES))
+def test_dq_de_twins_match_pallas_kernels_padded_heads(case, twin):
+    """Kernels 5 and 6's twins at a d_head the kernels are not built for
+    (40, 80), against their Pallas kernels as above: 1e-4."""
+    _twin_vs_pallas(case, twin)
+
+
+@pytest.mark.parametrize("twin", list(KERNELS))
+@pytest.mark.parametrize("dh", [40, 80])
+def test_padded_heads_match_unpadded_decomposition_twins(dh, twin):
+    """The card's route for such a d_head through each decomposition's
+    twin: q, k, v, e and dO padded with zero columns (``pad_heads``), c =
+    1/sqrt(true d_head) as the scale, the outputs cut back; against the
+    twin at the true d_head to 1e-6, with a fully masked row and a pad
+    tail."""
+    gen = torch.Generator().manual_seed(dh)
+    Bs, Hs, T, max_seq = 2, 2, 45, 64
+    q, k, v, do = (torch.randn((Bs, Hs, T, dh), generator=gen) for _ in range(4))
+    e = torch.randn((max_seq, dh), generator=gen)
+    pad = torch.zeros((Bs, T), dtype=torch.bool)
+    pad[1, 0] = True
+    pad[1, -T // 3:] = True
+    o, lse = fa.flash_rel_attention_plain(q, k, v, e, True, pad)
+    dsum = (do * o).sum(-1)
+    want = getattr(fa, twin)(q, k, v, e, True, pad, lse, dsum, do)
+    dh_k = fa.padded_dh(dh)
+    got = getattr(fa, twin)(*fa.pad_heads(dh_k, q, k, v, e), True, pad, lse, dsum,
+                            *fa.pad_heads(dh_k, do), scale=1.0 / math.sqrt(dh))
+    for name, a, b in zip(KERNELS[twin][2], got, want):
+        assert a.shape[-1] == dh_k, name
+        torch.testing.assert_close(a[..., :dh], b, rtol=1e-6, atol=1e-6, msg=name)
 
 
 @pytest.mark.parametrize("impl", list(IMPLS))

@@ -162,8 +162,8 @@ def test_flash_wrapper_guards_and_counter(cuda):
         flash_rel_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, e)
     with pytest.raises(TypeError):
         flash_rel_attention(q, k.double(), v, e)
-    with pytest.raises(ValueError, match="d_head"):
-        flash_rel_attention(*_qkve(1, 2, 64, 40, 128, torch.float32))
+    with pytest.raises(ValueError, match="d_head"):  # past 128, which padding cannot reach
+        flash_rel_attention(*_qkve(1, 2, 64, 144, 128, torch.float32))
     with pytest.raises(ValueError, match="max_seq"):
         flash_rel_attention(q, k, v, e[:32])
     assert flash_rel_attention.launches == before + 1
@@ -265,11 +265,90 @@ def test_flash_bwd_decomposition_wrapper_guards(cuda):
         with pytest.raises(ValueError, match="f32"):
             wrapper(q, k, v, e, True, None, lse.bfloat16(), dsum, q)
         with pytest.raises(ValueError, match="d_head"):
-            wrapper(*_qkve(1, 2, 64, 40, 128, torch.float32), True, None, lse, dsum,
-                    q[..., :40].contiguous())
+            wrapper(*_qkve(1, 2, 64, 144, 128, torch.float32), True, None, lse, dsum,
+                    torch.zeros((1, 2, 64, 144), device=cuda))
         with pytest.raises(TypeError):
             wrapper(q, k.double(), v, e, True, None, lse, dsum, q)
         assert wrapper.launches == before, kernel
+
+
+# d_head the kernels are not built for: the wrappers pad them with zero
+# columns (40 -> 48, 80 -> 96) and pass c = 1/sqrt(true d_head)
+PADDED_DHS = [40, 80]
+
+
+@pytest.mark.parametrize("dh", PADDED_DHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_padded_heads_match_twins(cuda, dtype, dh):
+    """Kernels 1 and 4 at a d_head they are not built for, through the
+    padding: O, lse and dQ, dK, dV, dE at the true width, against the twins
+    at that width (f32 1e-4; bf16 as the bf16 tests)."""
+    q, k, v, e = _qkve(2, 3, 200, dh, 256, dtype, seed=9)
+    pad = _pad(2, 200, cuda)
+    if dtype == torch.bfloat16:
+        o, lse = _assert_fwd_bf16(q, k, v, e, True, pad)
+    else:
+        o, lse = flash_rel_attention(q, k, v, e, True, pad)
+        ro, rlse = flash_rel_attention_plain(q, k, v, e, True, pad)
+        torch.testing.assert_close(o, ro, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    assert o.shape == q.shape and o.is_contiguous()
+    got, want = _bwd_pair(q, k, v, e, True, pad)
+    assert all(a.shape == b.shape and a.is_contiguous() for a, b in zip(got, want))
+    if dtype == torch.bfloat16:
+        _assert_grads_bf16(("dq", "dk", "dv", "de"), got, want)
+    else:
+        for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("kernel", list(BWD_KERNELS))
+@pytest.mark.parametrize("dh", PADDED_DHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_bwd_decomposition_kernel_padded_heads(cuda, kernel, dh, dtype):
+    """Kernels 5-9 through the padding, against their twins at the true
+    d_head (f32 1e-4; bf16 2e-2 of each output's scale)."""
+    q, k, v, e = _qkve(2, 3, 133, dh, 256, dtype, seed=10)
+    got, want = _bwd_kernel_pair(kernel, q, k, v, e, True, _pad(2, 133, cuda))
+    assert all(a.shape == b.shape and a.is_contiguous() for a, b in zip(got, want))
+    if dtype == torch.bfloat16:
+        _assert_grads_bf16(BWD_KERNELS[kernel], got, want)
+    else:
+        for name, a, b in zip(BWD_KERNELS[kernel], got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("kernel", ["bwd_dq_de", "bwd_dq_de_dist"])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128] + PADDED_DHS)
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 333])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_dq_de_kernel_bf16_matches_twin(cuda, kernel, dh, T, causal):
+    """Kernels 5 and 6 in bf16, on the tensor cores: every d_head (40 and 80
+    through the padding), T within one key tile, at its edge, past it, and
+    ragged over six; a pad tail and, causal, a fully masked row, whose dQ
+    is 0. Within 2e-2 of each output's scale."""
+    q, k, v, e = _qkve(2, 3, T, dh, 512, torch.bfloat16, seed=11)
+    pad = _pad(2, T, cuda)
+    got, want = _bwd_kernel_pair(kernel, q, k, v, e, causal, pad)
+    _assert_grads_bf16(BWD_KERNELS[kernel], got, want)
+    if causal:
+        assert got[0][1, :, 0].eq(0).all()
+
+
+@pytest.mark.parametrize("kernel", ["bwd_dq_de", "bwd_dq_de_dist"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_dq_de_kernel_deterministic(cuda, kernel, dtype):
+    """Two calls on the same inputs give bitwise-equal dQ and dE: the dE
+    partials are summed in a fixed order, with no atomics."""
+    q, k, v, e = _qkve(4, 4, 700, 48, 1024, dtype, seed=12)
+    pad = _pad(4, 700, cuda)
+    o, lse = flash_rel_attention(q, k, v, e, True, pad)
+    do = torch.randn(o.shape, device=cuda).to(dtype) * (~pad)[:, None, :, None]
+    dsum = (do.float() * o.float()).sum(-1)
+    first = getattr(fa, kernel)(q, k, v, e, True, pad, lse, dsum, do)
+    second = getattr(fa, kernel)(q, k, v, e, True, pad, lse, dsum, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("rows,D", [(1, 768), (7, 768), (4864, 768), (5, 100), (3, 4096)])

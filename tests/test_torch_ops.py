@@ -2,18 +2,22 @@
 numpy inputs, in f32 at rtol/atol 2e-5 (the bound tests/test_pallas_attention.py
 holds the JAX flash kernel to)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 import conftest  # noqa: F401 -- pins JAX to the CPU
 
+import jax
 import jax.numpy as jnp
 
 from midi_emotion_tpu.ops import attention as jattn
 from midi_emotion_tpu.ops import pallas_attention
 from midi_emotion_tpu.ops.layernorm import layernorm_ref as jax_layernorm_ref
 from midi_emotion_tpu_torch.ops import attention as tattn
+from midi_emotion_tpu_torch.ops import flash_attention as fa
 from midi_emotion_tpu_torch.ops.flash_attention import flash_rel_attention
 from midi_emotion_tpu_torch.ops.layernorm import LayerNorm, layernorm_ref
 
@@ -126,3 +130,82 @@ def test_flash_twin_matches_pallas_kernel_wide_heads(dh):
     """The d_head 96 and 128 that the port's kernels take, as
     test_flash_twin_matches_pallas_kernel, at a short T."""
     _flash_twin_vs_pallas(dh, T=40, dh=dh, max_seq=64)
+
+
+# d_head outside KERNEL_DHS: the wrappers pad them with zero columns on the
+# card (40 -> 48, 80 -> 96)
+PADDED_DHS = [40, 80]
+
+
+@pytest.mark.parametrize("dh", PADDED_DHS)
+def test_flash_twin_matches_pallas_kernel_padded_heads(dh):
+    """A d_head the kernels are not built for, as
+    test_flash_twin_matches_pallas_kernel, at a short T."""
+    _flash_twin_vs_pallas(dh + 1, T=24, dh=dh, max_seq=64)
+
+
+@pytest.mark.parametrize("dh", PADDED_DHS)
+def test_flash_backward_twin_matches_pallas_kernel_padded_heads(dh):
+    """Autograd through the flash wrapper (its merged backward twin on the
+    CPU) against jax.grad of the Pallas flash attention in the generic
+    interpreter (the merged Pallas backward) at a d_head the kernels are
+    not built for: dQ, dK, dV and dE to 1e-4, causal with a pad tail."""
+    rng = np.random.default_rng(dh)
+    B, H, T, max_seq = 2, 2, 24, 64
+    q, k, v, g = (_rand(rng, B, H, T, dh) for _ in range(4))
+    e = _rand(rng, max_seq, dh)
+    pk = np.zeros((B, T), bool)
+    pk[:, -T // 4:] = True
+
+    def loss(q_, k_, v_, e_):
+        o = pallas_attention.flash_relative_attention(q_, k_, v_, e_, True, jnp.asarray(pk))
+        return jnp.sum(o * g)
+
+    with generic_interpret():
+        want = jax.grad(loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (q, k, v, e)))
+    xs = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, e)]
+    o, _ = flash_rel_attention(*xs, True, torch.from_numpy(pk))
+    got = torch.autograd.grad(o, xs, torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", PADDED_DHS)
+def test_padded_heads_match_unpadded_twins(dh, causal):
+    """The card's route for such a d_head, run through the twins: q, k, v,
+    e and dO padded with zero columns by ``pad_heads`` to ``padded_dh``,
+    c = 1/sqrt(true d_head) passed as the scale, the outputs cut back;
+    against the twins at the true d_head: O, lse and the merged backward's
+    dQ, dK, dV, dE to 1e-6."""
+    gen = torch.Generator().manual_seed(dh)
+    B, H, T, max_seq = 2, 3, 37, 64
+    q, k, v, do = (torch.randn((B, H, T, dh), generator=gen) for _ in range(4))
+    e = torch.randn((max_seq, dh), generator=gen)
+    pad = torch.zeros((B, T), dtype=torch.bool)
+    pad[1, 0] = True
+    pad[1, -T // 4:] = True
+    dh_k = fa.padded_dh(dh)
+    assert dh_k == {40: 48, 80: 96}[dh]
+    qp, kp, vp, ep, dop = fa.pad_heads(dh_k, q, k, v, e, do)
+    assert qp.shape[-1] == ep.shape[-1] == dh_k and qp[..., dh:].eq(0).all()
+    scale = 1.0 / math.sqrt(dh)
+    o, lse = fa.flash_rel_attention_plain(q, k, v, e, causal, pad)
+    op, lsep = fa.flash_rel_attention_plain(qp, kp, vp, ep, causal, pad, scale=scale)
+    torch.testing.assert_close(op[..., :dh], o, rtol=1e-6, atol=1e-6)
+    assert op[..., dh:].eq(0).all()
+    torch.testing.assert_close(lsep, lse, rtol=1e-6, atol=1e-6)
+    want = fa.flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do)
+    got = fa.flash_rel_attention_bwd_plain(qp, kp, vp, ep, causal, pad,
+                                           *fa.pad_heads(dh_k, o), lse, dop, scale=scale)
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
+        torch.testing.assert_close(a[..., :dh], b, rtol=1e-6, atol=1e-6, msg=name)
+
+
+def test_padded_dh_bounds():
+    """Every d_head up to 128 maps to the least kernel width that holds it;
+    above 128 raises a ValueError naming d_head."""
+    assert [fa.padded_dh(d) for d in (1, 16, 17, 40, 48, 80, 97, 128)] == \
+        [16, 16, 32, 48, 48, 96, 128, 128]
+    with pytest.raises(ValueError, match="d_head"):
+        fa.padded_dh(129)
