@@ -19,12 +19,13 @@ Phases, each fatal on failure:
      past the flagship's, at small sizes (d_head 96 and 128 in f32 and
      bf16, the flash kernels in bf16 at every d_head and at 40, which
      their wrappers pad to 48, and the decode kernel at D 1280, two head
-     groups; kernels 1 and 4 timed at d_head 128 beside 64); count the
-     tensor-core instructions of kernels 1, 4, 5 and 6 in their SASS
-     (cuobjdump); hold each backward decomposition (split,
-     fused/column, fused/dist) against the merged kernel; then one small f32
-     train step through the kernels against the same step on the CPU
-     (twins);
+     groups, and at d_head 40, laid out at 48; kernels 1 and 4 timed at
+     d_head 128 beside 64); count the tensor-core instructions of kernels
+     1 and 4-8 in their SASS (cuobjdump), failing on one without any or on
+     a missing kernel 7 or 8; hold each backward decomposition (split,
+     fused/column, fused/dist) against the merged kernel, and time the
+     whole split call beside SDPA's backward; then one small f32 train
+     step through the kernels against the same step on the CPU (twins);
   4. write a random-init flagship model (continuous_concat, 20 layers,
      d_model 768, 16 heads of 48, seeded torch.Generator) as a
      reference-format work dir and check its forward pass on the card
@@ -38,8 +39,11 @@ Phases, each fatal on failure:
      whose first loss must equal the merged run's; time train tokens/sec
      over 5 steps after 2 warm-up steps under each decomposition in turn
      (merged first: the headline) and profile two;
-  6. serve the trained work dir: the stacked int8 and bf16 decode steps
-     against the native ones (logits within the JAX package's bounds); then
+  6. serve a 2-layer d_head-40 model (d_model 640, random weights): its
+     stacked int8 and bf16 decode steps against its native ones, then
+     Sampler.generate through each stacked cache; serve the trained work
+     dir: the stacked int8 and bf16 decode steps against the native ones
+     (logits within the JAX package's bounds); then
      the port's generation CLI (bf16, batch 4, 1400 tokens, window 1216, so
      the window refreshes at T = 1216) with the native cache and with
      --kv_dtype int8, checking the MIDI files and the sampled ids; a short
@@ -50,7 +54,8 @@ Phases, each fatal on failure:
      and bf16 caches in turn, and profile 8 decode steps at B 64 (native
      and int8): device-busy share and the top kernels per step.
 Each path (the dropout-0.1 training run with its resume, the dropout-0
-run, the three decomposition runs, each generation run) runs with every
+run, the three decomposition runs, the d_head-40 model's generation, each
+generation run) runs with every
 kernel launch counter set to 0 just before it and read just after; the
 script fails if a kernel of that path was never launched, or if a
 decomposition run launched the merged backward kernel.
@@ -114,14 +119,23 @@ def device_ms(torch, fn, iters=20, warmup=3, only=None):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and (only is None or only in e.key))
-    return total_us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (only is None or only in e.key)]
+        # the card's profiler can drop kernel records under back-to-back
+        # launches; every call launches at least one kernel, so a window
+        # with fewer records than calls lost some: profile it again
+        if sum(e.count for e in events) >= iters:
+            break
+    else:
+        print(f"device_ms: the profiler kept {sum(e.count for e in events)} kernel records "
+              f"of {iters} calls in each of 3 windows; the time below undercounts")
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
 def bound(n_bytes, n_flops, flops_type):
@@ -545,35 +559,40 @@ DECODE = dict(L=20, B=64, W=1408, H=16, dh=48, S=8)
 
 
 # the head shapes past the flagship's, at a small cache: d_head 96 and 128,
-# and a width above 1024 (two head groups of 5)
+# a width above 1024 (two head groups of 5), and d_head 40, which the cache
+# lays out at 48 columns a head
 DECODE_SHAPES = (dict(L=2, B=4, W=256, H=8, dh=96, S=8), dict(L=2, B=4, W=256, H=8, dh=128, S=8),
-                 dict(L=2, B=4, W=256, H=10, dh=128, S=8))
+                 dict(L=2, B=4, W=256, H=10, dh=128, S=8), dict(L=2, B=4, W=256, H=16, dh=40, S=8))
 
 
 def _decode_cache(torch, quant, seed, shape=DECODE):
     """A stacked cache of random rows at ``shape`` (quantized per layer for
-    int8), q, E, a stage and the current row, on the card; and max |V|
-    before quantization."""
+    int8), q, E, a stage and the current row, on the card, laid out as the
+    model lays them out (each head at cache_dh(dh) columns, zero past dh);
+    and max |V| before quantization."""
     from midi_emotion_tpu_torch.ops import decode_attention as da
 
     L, B, W, H, dh, S = (shape[k] for k in ("L", "B", "W", "H", "dh", "S"))
-    D = H * dh
+    D, dh_k = H * dh, da.cache_dh(dh)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    kv = torch.empty((L, B, W, 2 * D), dtype=torch.int8 if quant else torch.bfloat16,
+    kv = torch.empty((L, B, W, 2 * H * dh_k), dtype=torch.int8 if quant else torch.bfloat16,
                      device="cuda")
     sc = torch.empty((L, B, 2 * H, W), dtype=torch.bfloat16, device="cuda") if quant else None
     vmax = 0.0
     for i in range(L):
         rows = torch.randn((B, W, 2 * D), generator=g, device="cuda")
         vmax = max(vmax, rows[..., D:].abs().max().item())
+        rows = da.pad_groups(rows, 2 * H, dh_k)
         if quant:
             kv[i], sc[i] = da.quantize_rows(rows, 2 * H)
         else:
             kv[i] = rows
     q = torch.randn((B, H, dh), generator=g, device="cuda")
     e = torch.randn((FLAGSHIP["max_seq"], dh), generator=g, device="cuda")
-    pend = torch.randn((S, L, B, 2 * D), generator=g, device="cuda").bfloat16()
-    row = torch.randn((B, 2 * D), generator=g, device="cuda").bfloat16()
+    pend = da.pad_groups(torch.randn((S, L, B, 2 * D), generator=g, device="cuda"), 2 * H,
+                         dh_k).bfloat16()
+    row = da.pad_groups(torch.randn((B, 2 * D), generator=g, device="cuda"), 2 * H,
+                        dh_k).bfloat16()
     return kv, sc, q, e, pend, row, vmax
 
 
@@ -591,14 +610,14 @@ def check_decode(torch, quant, timed=False, shape=DECODE,
     from midi_emotion_tpu_torch.ops import decode_attention as da
 
     L, B, W, H, dh, S = (shape[k] for k in ("L", "B", "W", "H", "dh", "S"))
-    D = H * dh
+    D, dh_k = H * dh, da.cache_dh(dh)  # the cache's head width (dh_k = dh when built)
     layer = min(13, L - 1)  # a nonzero layer
     mode = "int8" if quant else "bf16"
     kv, sc, q, e, pend, row, vmax = _decode_cache(torch, quant, SEED + 5, shape)
     p_tol = vmax / 127 if quant else 0.0
     worst = {"unstaged": 0.0, "staged": 0.0, "m/l": 0.0}
     for length in lengths:
-        e_rows = da.expand_e_rows(e, length + 1, W)
+        e_rows = da.expand_e_rows(e, length + 1, W, dh_to=dh_k)
         acc, m, l = da.decode_attn_cached(q, kv, sc, layer, e_rows, length)
         torch.cuda.synchronize()
         racc, rm, rl = da.decode_attn_cached_plain(q, kv, sc, layer, e_rows, length)
@@ -617,8 +636,8 @@ def check_decode(torch, quant, timed=False, shape=DECODE,
                 fail(f"decode {mode} unstaged length {length}: err {err:.3e} (tol {tol:.3e}), "
                      f"m/l {err_ml:.3e} (tol 1e-5)")
         for p_cnt in (0, 3, 7, 8):
-            e_rows = da.expand_e_rows(e, length + p_cnt + 1, W)
-            e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1)
+            e_rows = da.expand_e_rows(e, length + p_cnt + 1, W, dh_to=dh_k)
+            e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1, dh_to=dh_k)
             got_pend, want_pend = pend.clone(), pend.clone()
             out, _ = da.decode_attn_cached(q, kv, sc, layer, e_rows, length, got_pend, e_pend,
                                            p_cnt, row)
@@ -798,7 +817,10 @@ def timed_training(torch, runner, n_warmup=2, n_timed=5):
 # launch counters
 # ---------------------------------------------------------------------------
 
-KERNELS = (  # name, route, source, the TPU kernel it replaces
+# name, route, source, the TPU kernel it replaces. In bf16 kernels 1 and
+# 4-8 run on the tensor cores (mma.sync); kernel 9 and every f32 path on
+# the CUDA cores
+KERNELS = (
     ("flash_rel_attn_fwd", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_fwd.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:369"),
     ("ln_fwd", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
@@ -811,8 +833,10 @@ KERNELS = (  # name, route, source, the TPU kernel it replaces
      "midi_emotion_tpu/ops/pallas_attention.py:808"),
     ("flash_rel_attn_bwd_dq_de_dist", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:874"),
+    # kernel 7, bf16 on the tensor cores (tc::flash_bwd_kv_tc_kernel)
     ("flash_rel_attn_bwd_dkdv_dq", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_kv.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:1065"),
+    # kernel 8, bf16 on the tensor cores (tc::flash_bwd_q_tc_kernel<REL>)
     ("flash_rel_attn_bwd_de_dqrel", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:1127"),
     ("flash_rel_attn_bwd_dkdv", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_kv.cu",
@@ -891,12 +915,13 @@ def timed_generation(torch, model, vocab, B, gen_len, max_input_len, kv_dtype="n
     return B * (gen_len - 1) / secs, secs
 
 
-def check_stacked_steps(torch, model):
-    """The trained flagship (bf16) on the card: prefill a 100-token prompt
-    at window 1408, then 10 teacher-forced steps through the staged stacked
-    cache (S 8, so one flush) against the native cache's decode steps. The
-    bounds are the JAX package's (tests/test_decode_attention.py): int8
-    within 5% of the native logits' scale, bf16 within 2%."""
+def check_stacked_steps(torch, model, label="flagship bf16"):
+    """A bf16 model on the card (the trained flagship, or the d_head-40
+    model): prefill a 100-token prompt at window 1408, then 10
+    teacher-forced steps through the staged stacked cache (S 8, so one
+    flush) against the native cache's decode steps. The bounds are the JAX
+    package's (tests/test_decode_attention.py): int8 within 5% of the
+    native logits' scale, bf16 within 2%."""
     from midi_emotion_tpu_torch.ops.decode_attention import flush_pend
 
     B, T, W, S, n = 4, 100, DECODE["W"], DECODE["S"], 10
@@ -915,7 +940,7 @@ def check_stacked_steps(torch, model):
         for quant, limit in ((True, 0.05), (False, 0.02)):
             _, cache = model.prefill_q(tokens[:, :T], cond, W, quant)
             kv, sc = cache["kv"], cache.get("sc")
-            pend = torch.zeros((S, cfg.n_layer, B, 2 * cfg.d_model), dtype=torch.bfloat16,
+            pend = torch.zeros((S, cfg.n_layer, B, kv.shape[-1]), dtype=torch.bfloat16,
                                device="cuda")
             f_len, p, worst = T, 0, 0.0
             for i in range(n):
@@ -931,13 +956,57 @@ def check_stacked_steps(torch, model):
                     fail("stacked decode: non-finite logits")
                 worst = max(worst, err)
             mode = "int8" if quant else "bf16"
-            print(f"stacked {mode} decode steps vs native (flagship bf16, B={B}, prompt {T}, "
+            print(f"stacked {mode} decode steps vs native ({label}, B={B}, prompt {T}, "
                   f"{n} steps, one flush): worst error {worst:.3e} of the logits' scale "
                   f"(limit {limit})")
             if worst > limit:
                 fail(f"stacked {mode} decode steps disagree with the native cache")
             del cache, kv, sc, pend
     torch.cuda.empty_cache()
+
+
+# a d_head the decode kernel is not built for (d_model 640, 16 heads of 40,
+# as a model of that width has): its stacked cache holds each head at 48
+# columns. Two layers, random weights from the seed.
+PADDED_HEADS = dict(FLAGSHIP, n_layer=2, d_model=640, d_inner=2560, d_condition=160, dropout=0.0)
+
+
+def serve_padded_heads(torch, vocab):
+    """The d_head-40 model (bf16) on the card: its stacked int8 and bf16
+    decode steps against its native ones (check_stacked_steps), then
+    Sampler.generate through each stacked cache (B 4, 300 tokens, window
+    256, so it crosses flushes and refreshes): valid ids of the right shape.
+    Returns the launch counts of the two generation runs (one path)."""
+    from midi_emotion_tpu_torch.generation.sampler import Sampler
+    from midi_emotion_tpu_torch.models.config import ModelConfig
+    from midi_emotion_tpu_torch.models.model import MusicTransformer
+    from midi_emotion_tpu_torch.ops.sampling import SamplingParams
+
+    cfg = ModelConfig(**PADDED_HEADS)
+    model = MusicTransformer(cfg, dtype=torch.bfloat16, device="cuda").init_weights(
+        torch.Generator().manual_seed(SEED + 8))
+    model.eval()
+    check_stacked_steps(torch, model, f"d_model {cfg.d_model}, {cfg.n_head} heads of "
+                                      f"{cfg.d_model // cfg.n_head}, bf16")
+    B, gen_len = 4, 300
+    sp = SamplingParams(gen_len=gen_len, max_input_len=256, top_p=0.7, seed=2)
+    cond = np.tile(np.array([[0.8, -0.5]], np.float32), (B, 1))
+    primer = np.full((B, 1), vocab.start_id, np.int32)
+
+    def run():
+        for kv_dtype in ("int8", "bf16"):
+            song = Sampler(model, vocab, sp, kv_dtype=kv_dtype).generate(
+                primer, continuous_conditions=cond)
+            torch.cuda.synchronize()
+            if song.shape != (B, gen_len) or vocab.special_mask()[song[:, 1:]].any():
+                fail(f"d_head 40 model, {kv_dtype} cache: bad sampled ids {song.shape}")
+            print(f"d_head 40 model, {kv_dtype} cache: sampled {B} x {gen_len} valid ids")
+
+    counts, _ = run_path("generation (d_head 40 model, --kv_dtype int8 then bf16)",
+                         ("flash_rel_attn_fwd", "ln_fwd", "decode_attn_stacked"), run)
+    del model
+    torch.cuda.empty_cache()
+    return counts
 
 
 def check_midis(vocab, out, n, gen_len):
@@ -1013,7 +1082,8 @@ def _kernel_label(mangled):
         kern, t, dh, mode = m.groups()
         modes = {"flash_rel_attn_bwd_kv_kernel": ("dK/dV", "dK/dV/dQ_qk"),
                  "flash_rel_attn_bwd_q_kernel": ("column", "dist", "rel"),
-                 "flash_bwd_q_tc_kernel": ("column", "dist")}
+                 "flash_bwd_q_tc_kernel": ("column", "dist", "rel"),
+                 "flash_bwd_kv_tc_kernel": ("dK/dV", "dK/dV/dQ_qk")}
         extra = f", {modes[kern][int(mode)]}" if mode and kern in modes else ""
         # the tensor-core kernels take bf16 alone, the CUDA-core flash
         # kernels of kernels 1 and 4 f32 alone; the others name their type
@@ -1095,12 +1165,20 @@ def main():
     print(f"built {', '.join(CUDA_SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for name in CUDA_SOURCES:
         print_ptxas(library_path(name), name)
-    for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "flash_rel_attn_bwd_q"):
-        # the tensor-core kernels (kernels 1, 4, 5 and 6 in bf16) run mma instructions
-        idle = [k for k, n in print_sass_mma(library_path(name), name).items()
-                if "_tc_" in k and n == 0]
-        if idle:
-            fail(f"{name}: tensor-core kernels without an mma instruction: {idle}")
+    tc_kernels = {}
+    for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "flash_rel_attn_bwd_kv",
+                 "flash_rel_attn_bwd_q"):
+        # the tensor-core kernels (kernels 1 and 4-8 in bf16) run mma instructions
+        tc_kernels.update({k: n for k, n in print_sass_mma(library_path(name), name).items()
+                           if "_tc_" in k})
+    idle = [k for k, n in tc_kernels.items() if n == 0]
+    if idle:
+        fail(f"tensor-core kernels without an mma instruction: {idle}")
+    # kernel 7 (the key-major sweep with dQ) and kernel 8 (REL) among them
+    for want in ("flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV/dQ_qk>",
+                 "flash_bwd_q_tc_kernel <bf16, dh=48, rel>"):
+        if want not in tc_kernels:
+            fail(f"no tensor-core kernel {want} in the SASS")
 
     # phase 3 -----------------------------------------------------------
     # Tolerances: f32 pins the algorithm (kernel and twin both sum in f32,
@@ -1154,6 +1232,14 @@ def main():
                                                torch.bfloat16, True, 2e-2, timed=True)
         torch.cuda.empty_cache()
     check_bwd_decompositions(torch)
+    # the whole split backward call (dsum, kernels 7 and 8, the f32 dQ sum)
+    # beside SDPA's backward, the same yardstick as kernel 4's whole call
+    with bwd_decomposition("split", "column"):
+        split_call = check_flash_bwd(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16, True, 2e-2,
+                                     timed=True)
+    print(f"split backward, the whole call: {split_call['ms']:.4f} ms against SDPA's backward "
+          f"{split_call['library_ms']:.4f} ms and the merged kernel's {flash_bwd['ms']:.4f} ms "
+          f"(bf16 B={TRAIN_B} H=16 T={TRAIN_T} dh=48) on {card}")
     torch.cuda.empty_cache()
     rows = TRAIN_B * TRAIN_T
     check_layernorm(torch, 4864, 768, torch.float32, 1e-5)
@@ -1291,6 +1377,7 @@ def main():
         torch.cuda.empty_cache()
 
         # phase 6 -------------------------------------------------------
+        padded_counts = serve_padded_heads(torch, vocab)
         model = load_model_dir(trained, torch.bfloat16, "cuda")[1]
         check_stacked_steps(torch, model)
         B, gen_len = 4, 1400
@@ -1365,8 +1452,8 @@ def main():
     measured = {"flash_rel_attn_fwd": flash, "ln_fwd": ln, "ln_bwd": ln_bwd,
                 "flash_rel_attn_bwd": flash_bwd, **bwd_kernels, "dropout": dropout,
                 "dal_fwd": dal_fwd, "dal_bwd": dal_bwd, "decode_attn_stacked": decode_int8}
-    paths = (train_counts, drop0_counts, *decomposition_counts, serve_counts, int8_counts,
-             unstaged_counts, exact_counts)
+    paths = (train_counts, drop0_counts, *decomposition_counts, padded_counts, serve_counts,
+             int8_counts, unstaged_counts, exact_counts)
     kernels = []
     for name, route, source, replaces in KERNELS:
         m = measured[name]

@@ -5,7 +5,11 @@
 // kernel launched by _run). For the query of batch row b and head h at window
 // position length + p_cnt it computes, over the `length` flushed cache rows,
 //
-//     logit[w] = (q . k[w] + q_bf16 . e_rows[w]) / sqrt(dh),   w < length
+//     logit[w] = (q . k[w] + q_bf16 . e_rows[w]) * scale,   w < length
+//
+// where scale is 1/sqrt(d_head) of the caller's heads, which may have fewer
+// columns than the instantiated dh (the cache is then laid out at dh with
+// zero columns, which change no product),
 //
 // with a softmax across window blocks of `bw` keys, and returns the
 // unnormalised flash triple (acc [B, D] f32, m and l [B, H] f32). Staged, it
@@ -1041,11 +1045,12 @@ extern "C" {
 // Returns a cudaError_t: 0 when the launch was accepted. quant: 1 = int8
 // cache (sc required), 0 = bf16 cache. q_bf16: q is bf16, else f32. Staged
 // when pend is not null (then e_pend, row and out are required), else acc,
-// m and l are. Launches on `stream` and does not synchronise.
+// m and l are. scale multiplies the logits: 1/sqrt(d_head). Launches on
+// `stream` and does not synchronise.
 int decode_attn_stacked(const void* q, const void* kv, const void* sc, const void* e_rows,
                         void* pend, const void* e_pend, const void* row, void* acc, void* m,
                         void* l, void* out, int L, int B, int W, int H, int dh, int layer,
-                        int length, int S, int p_cnt, int bw, int quant, int q_bf16,
+                        int length, int S, int p_cnt, int bw, int quant, int q_bf16, float scale,
                         void* stream) {
   if (L <= 0 || B <= 0 || W <= 0 || H <= 0 || dh <= 0 || dh > MAX_D || layer < 0 ||
       layer >= L || length < 0 || length > W || bw <= 0 || W % bw != 0 || q == nullptr ||
@@ -1087,7 +1092,7 @@ int decode_attn_stacked(const void* q, const void* kv, const void* sc, const voi
   p.p_cnt = p_cnt;
   p.bw = bw;
   p.q_bf16 = q_bf16;
-  p.scale = (float)(1.0 / sqrt((double)dh));  // the twin's f32 constant
+  p.scale = scale;  // the caller's 1/sqrt(d_head), the twin's f32 constant
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return quant ? dispatch<true>(p, dh, s) : dispatch<false>(p, dh, s);
 }

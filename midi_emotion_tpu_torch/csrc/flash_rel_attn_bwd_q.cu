@@ -28,26 +28,34 @@
 // because Mosaic could not lower the reversed shear; here the kernel reads
 // key i - d directly.
 //
-// bf16, COLUMN and DIST (the `fused` training path): tensor cores. Bound on
-// the H100: operations. Per visible tile pair the products are S = Q K^T,
-// dP = dO V^T, the band Q E_band^T, dQ += dS' K, dQ += dsd E_band and
-// dE += dsd^T Q, every one an mma.sync m16n8k16 with bf16 operands and f32
-// sums (wgmma not tried; see flash_rel_attn_bwd.cu, whose phase A and
-// products this path shares). 8 warps a block, per tile pair:
+// bf16, every mode (COLUMN and DIST: the `fused` training path; REL: the
+// `split` one): tensor cores. Bound on the H100: operations. Per visible
+// tile pair the products are S = Q K^T, dP = dO V^T, the band Q E_band^T,
+// dQ += dS' K (not REL), dQ += dsd E_band and dE += dsd^T Q, every one an
+// mma.sync m16n8k16 with bf16 operands and f32 sums. mma.sync, as in
+// kernels 4 to 6 (flash_rel_attn_bwd.cu, whose phase A and products this
+// path shares): a warp's 16-row fragments are the unit of the skews; a
+// wgmma version (64-row warpgroup tiles, each B tile read once a
+// warpgroup) is the later step. REL is DIST without dQ's key term: no
+// key-column dS' tile and no dS' K product, and only key tiles at or below
+// the diagonal, since the relative terms vanish above it even in the
+// non-causal (regression) model; dsd stays 0 at negative distances, in
+// both models (the TPU docstring's "qe adjoint"). 8 warps a block, per
+// tile pair:
 //   phase A, warp (query rows 16 (w % 4), keys 32 (w / 4)): S, dP and the
 //     band over the 48 distances its rows and keys reach; the band skewed
 //     into Srel through a per-warp f32 scratch; P = exp(s - lse) and dS' =
 //     c P (dP - dsum) by key column, dS' rounded to bf16 as the TPU kernel
-//     rounds ds, into a shared tile. Then the distance-domain tile dsd
+//     rounds ds, into a shared tile (not REL). Then the distance-domain tile dsd
 //     (row i, column u = i - j + BK - 1, 0 where i - j < 0):
 //       COLUMN scatters the rounded key-column dS' into it (the unskew);
-//       DIST forms it by distance, as _bwd_dq_de_dist_kernel does: the
+//       DIST and REL form it by distance, as _bwd_dq_de_dist_kernel does: the
 //       bias by distance is the band product itself, q.E[ms-1-d] with no
 //       skew; q.k and dO.v at j = i - d are read from the warp's f32 S and
 //       dP fragments skewed through the scratch; p_d and dsd = c p_d (dp_d
 //       - dsum) in f32, dsd rounded to bf16;
-//   phase B, warp (16-row block w / 2, channel half w % 2): dQ += dS' K +
-//     dsd E_band, in f32 registers across the query tile's key tiles and
+//   phase B, warp (16-row block w / 2, channel half w % 2): dQ += dS' K (not
+//     REL) + dsd E_band, in f32 registers across the query tile's key tiles and
 //     written once; dE += dsd^T Q for two 16-distance blocks into this
 //     block's f32 partial by distance. Key tiles ascend, so the band moves
 //     64 distances down a pair and a warp's lower dE block is the next
@@ -61,8 +69,8 @@
 // where two blocks an SM still fit, the next pair's copies under this
 // pair's products; rows are padded by 16 bytes for ldmatrix.
 //
-// f32 (the checks' path, held to 1e-4; TF32 keeps about three digits) and
-// REL in both types: the CUDA cores, simple and correct first:
+// f32 (the checks' path, held to 1e-4; TF32 keeps about three digits), in
+// every mode: the CUDA cores, simple and correct first:
 //   * tiles of 64 rows (32 at d_head 128, so the f32 staging fits a
 //     block's shared memory) and 4 threads a row;
 //   * one block per (b, h) sweeps its query tiles and,
@@ -414,14 +422,15 @@ template <int DH, int MODE>
 struct Layout {
   static constexpr int RS = DH + 8;   // bf16 row stride: an odd number of 16-byte units
   static constexpr int CPR = DH / 8;  // 16-byte chunks a row
-  // a warp's f32 scratch row: the band (48 columns), and in DIST also S and
-  // dP by key (columns 0.. and DP_AT..)
+  // a warp's f32 scratch row: the band (48 columns, not REL), and in DIST
+  // and REL S and dP by key (columns 0.. and DP_AT..)
   static constexpr int DP_AT = 36;
-  static constexpr int WBS = MODE == DIST ? 72 : WB + 8;
+  static constexpr int WBS = MODE == COLUMN ? WB + 8 : 72;
   static constexpr int KV_BYTES = 2 * BK * RS * 2 + BK * 4;    // K, V, key flags
   static constexpr int Q_BYTES = 2 * BQ * RS * 2 + 2 * BQ * 4;  // Q, dO, lse, dsum
+  static constexpr int DSS_BYTES = MODE == REL ? 0 : BQ * PS * 2;  // REL keeps no key-column dS'
   static constexpr int bytes(int stages) {
-    return stages * (KV_BYTES + Q_BYTES + 2 * 64 * RS * 2) + BQ * PS * 2 + BQ * DS * 2 +
+    return stages * (KV_BYTES + Q_BYTES + 2 * 64 * RS * 2) + DSS_BYTES + BQ * DS * 2 +
            NWARP * 16 * WBS * 4;
   }
   // two ring stages (the next pair's copies under this pair's products)
@@ -431,7 +440,7 @@ struct Layout {
   static constexpr int Q_AT = STAGES * KV_BYTES;
   static constexpr int E_AT = Q_AT + STAGES * Q_BYTES;
   static constexpr int DSS_AT = E_AT + NSLOT * 64 * RS * 2;
-  static constexpr int DSD_AT = DSS_AT + BQ * PS * 2;
+  static constexpr int DSD_AT = DSS_AT + DSS_BYTES;
   static constexpr int SCR_AT = DSD_AT + BQ * DS * 2;
   static constexpr int TOTAL = SCR_AT + NWARP * 16 * WBS * 4;
   static_assert(TOTAL == bytes(STAGES), "layout");
@@ -522,7 +531,6 @@ flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
                       const float* __restrict__ lse, const float* __restrict__ dsum,
                       __nv_bfloat16* __restrict__ dq, float* __restrict__ de_part, int H,
                       int T_len, int max_seq, int causal, float scale, float scale_log2) {
-  static_assert(MODE == COLUMN || MODE == DIST, "REL keeps the CUDA-core kernel");
   static_assert(BQ == 64 && BK == 64, "the band moves one 64-row chunk a key tile");
   using L = Layout<DH, MODE>;
   constexpr int RS = L::RS, CPR = L::CPR, KS = DH / 16, NH = DH / 16;  // NH: n-tiles a half
@@ -543,7 +551,9 @@ flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   };
 
   const int n_tiles = (T_len + BQ - 1) / BQ;
-  auto kt_last = [&](int qt) { return causal ? qt : n_tiles - 1; };
+  // REL: only key tiles at or below the diagonal hold a distance >= 0, even
+  // in the non-causal model, whose relative terms vanish above it
+  auto kt_last = [&](int qt) { return causal || MODE == REL ? qt : n_tiles - 1; };
   // The last query tile of this block reaches every distance below its
   // q0 + BQ and writes each; rows above stay zero in the partial.
   const int last_qt = sp < n_tiles ? sp + (n_tiles - 1 - sp) / SPLIT * SPLIT : -1;
@@ -701,48 +711,50 @@ flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
           }
         }
       }
-      if (band) {
+      if constexpr (MODE != REL) {  // REL forms no key-column dS'
+        if (band) {
 #pragma unroll
-        for (int n = 0; n < WB / 8; ++n) {
-          *reinterpret_cast<float2*>(scr + g * WBS + 8 * n + 2 * t) =
-              make_float2(bacc[n][0], bacc[n][1]);
-          *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * n + 2 * t) =
-              make_float2(bacc[n][2], bacc[n][3]);
-        }
-      }
-      __syncwarp();
-      // P and dS' by key column
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = g + 8 * h, il = ra + r, i = q0 + il, c = 8 * n + 2 * t, jj = ka + c;
-          float ds[2];
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            // the skew: Srel of (row r, key c + x) is band column r - (c + x) + 31
-            const float sc = sacc[n][2 * h + x] + (band ? scr[r * WBS + r - c - x + 31] : 0.f);
-            const bool ok = i < T_len && live[jj + x] != 0.f && !(causal && k0 + jj + x > i);
-            const float p = ok ? exp2f(sc * scale_log2 - lse_s[il] * LOG2E) : 0.f;
-            ds[x] = p * (dpacc[n][2 * h + x] - dsum_s[il]) * scale;
+          for (int n = 0; n < WB / 8; ++n) {
+            *reinterpret_cast<float2*>(scr + g * WBS + 8 * n + 2 * t) =
+                make_float2(bacc[n][0], bacc[n][1]);
+            *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * n + 2 * t) =
+                make_float2(bacc[n][2], bacc[n][3]);
           }
-          const uint32_t dsb = pack_bf16(ds[0], ds[1]);
-          *reinterpret_cast<uint32_t*>(dss + il * PS + jj) = dsb;
-          if constexpr (MODE == COLUMN) {
-            if (band) {  // the unskew: key jj + x sits at u - x
-              const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
-              const __nv_bfloat16 zero = __float2bfloat16(0.f);
-              const int u = il - jj + BK - 1;
-              dsd[il * DS + u] = dist0 + u >= 0 ? d2.x : zero;
-              dsd[il * DS + u - 1] = dist0 + u - 1 >= 0 ? d2.y : zero;
+        }
+        __syncwarp();
+        // P and dS' by key column
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = g + 8 * h, il = ra + r, i = q0 + il, c = 8 * n + 2 * t, jj = ka + c;
+            float ds[2];
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              // the skew: Srel of (row r, key c + x) is band column r - (c + x) + 31
+              const float sc = sacc[n][2 * h + x] + (band ? scr[r * WBS + r - c - x + 31] : 0.f);
+              const bool ok = i < T_len && live[jj + x] != 0.f && !(causal && k0 + jj + x > i);
+              const float p = ok ? exp2f(sc * scale_log2 - lse_s[il] * LOG2E) : 0.f;
+              ds[x] = p * (dpacc[n][2 * h + x] - dsum_s[il]) * scale;
+            }
+            const uint32_t dsb = pack_bf16(ds[0], ds[1]);
+            *reinterpret_cast<uint32_t*>(dss + il * PS + jj) = dsb;
+            if constexpr (MODE == COLUMN) {
+              if (band) {  // the unskew: key jj + x sits at u - x
+                const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
+                const __nv_bfloat16 zero = __float2bfloat16(0.f);
+                const int u = il - jj + BK - 1;
+                dsd[il * DS + u] = dist0 + u >= 0 ? d2.x : zero;
+                dsd[il * DS + u - 1] = dist0 + u - 1 >= 0 ? d2.y : zero;
+              }
             }
           }
-        }
-      if constexpr (MODE == DIST) {
+      }
+      if constexpr (MODE != COLUMN) {
         if (band) {
           // dS by distance: S and dP by key into the scratch, read back at
           // key j = i - d beside the bias by distance, the band product
-          __syncwarp();  // every lane has read its band values
+          __syncwarp();  // every lane has read its band values (DIST)
 #pragma unroll
           for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -774,12 +786,14 @@ flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     }
     __syncthreads();
 
-    // ---- phase B: dQ += dS' K (+ dsd E_band), rows 16 mq.., in registers
+    // ---- phase B: dQ += dS' K (not REL) + dsd E_band, rows 16 mq.., in registers
+    if constexpr (MODE != REL) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, dss + (16 * mq + lrow) * PS + 16 * kk + lcol);
-      mma_kn<NH>(qacc, a, ks + 16 * kk * RS + c0, RS, lane);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, dss + (16 * mq + lrow) * PS + 16 * kk + lcol);
+        mma_kn<NH>(qacc, a, ks + 16 * kk * RS + c0, RS, lane);
+      }
     }
     if (band) {
       // The dE partial rows this warp adds to are loaded first, so their
@@ -881,7 +895,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
                    cudaStream_t stream) {
   cudaError_t err;
   int parts = B * H;  // dE partials, one a block
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && MODE != REL) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     using B16 = __nv_bfloat16;
     auto kernel = tc::flash_bwd_q_tc_kernel<DH, MODE>;
     const int smem = tc::Layout<DH, MODE>::TOTAL;

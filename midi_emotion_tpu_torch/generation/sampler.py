@@ -118,7 +118,8 @@ class Sampler:
         }
 
     def _to_staged(self, cache, batch: int):
-        """Give a prefill_q cache its step-major stage [S, L, B, 2d] bf16."""
+        """Give a prefill_q cache its step-major stage [S, L, B, 2D] bf16, as
+        wide as the cache's rows (each head at cache_dh(d_head) columns)."""
         if "pend" not in cache:
             L, _, _, D2 = cache["kv"].shape
             cache = {**cache, "pend": torch.zeros((self.stage_steps, L, batch, D2),

@@ -13,12 +13,14 @@ Besides ``forward`` the model has two KV caches for the sampler:
     d_model]], "v": same, "length": int}``, one time-major buffer per layer,
     head h in columns [h*dh, (h+1)*dh);
   * stacked (``ops/decode_attention.py``): ``prefill_q`` / ``decode_step_q``
-    / ``decode_step_staged`` over ``{"kv": [L, B, W, 2 * d_model] int8 or
-    bf16, "sc": [L, B, 2H, W] bf16 (int8 only), "length": int}``, K|V
-    merged. It stays int8/bf16 whatever the compute type, as in the JAX
-    package. The staged step leaves the cache alone and appends its rows
-    into a step-major stage ``[S, L, B, 2 * d_model]`` bf16 that the sampler
-    flushes every S steps (``flush_pend``).
+    / ``decode_step_staged`` over ``{"kv": [L, B, W, 2D] int8 or bf16, "sc":
+    [L, B, 2H, W] bf16 (int8 only), "length": int}``, K|V merged, with D =
+    H * cache_dh(d_head): d_model itself for a d_head the decode kernel is
+    built for, else each head zero-padded to the next built width. It stays
+    int8/bf16 whatever the compute type, as in the JAX package. The staged
+    step leaves the cache alone and appends its rows into a step-major stage
+    ``[S, L, B, 2D]`` bf16 that the sampler flushes every S steps
+    (``flush_pend``).
 
 Every decode step writes its rows into the buffers in place.
 
@@ -49,7 +51,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import decode_rel_attention, relative_attention, resolve_attn_impl
-from ..ops.decode_attention import decode_attn_cached, expand_e_rows, merge_self, quantize_rows
+from ..ops.decode_attention import (cache_dh, cache_rows, decode_attn_cached, expand_e_rows,
+                                    merge_self, quantize_rows)
 from ..ops.fused_dropout import dropout_add_layernorm, fused_dropout
 from ..ops.layernorm import LayerNorm
 from .config import ModelConfig
@@ -141,10 +144,11 @@ class RelativeGlobalAttention(nn.Module):
         defers that append to the next step, which reads the same cache."""
         q, k_t, v_t = self._qkv_row(x_t)
         e = self.E.to(x_t.dtype)
-        e_rows = expand_e_rows(e, length + 1, kv8.shape[2])
+        dh_k = kv8.shape[-1] // (2 * self.n_head)  # the cache's head width
+        e_rows = expand_e_rows(e, length + 1, kv8.shape[2], dh_to=dh_k)
         acc, m, l = decode_attn_cached(q, kv8, sc, layer_idx, e_rows, length)
         out = merge_self(acc, m, l, q, k_t, v_t, e[-1])
-        row = torch.cat([k_t, v_t], dim=-1)
+        row = cache_rows(k_t, v_t, self.n_head, dh_k)
         if sc is None:
             kv8[layer_idx, :, length] = row
         else:
@@ -163,9 +167,11 @@ class RelativeGlobalAttention(nn.Module):
         q, k_t, v_t = self._qkv_row(x_t)
         e = self.E.to(x_t.dtype)
         S = pend.shape[0]
-        e_rows = expand_e_rows(e, f_len + p_cnt + 1, kv8.shape[2])
-        e_pend = expand_e_rows(e, p_cnt + 1, S + 1)  # row p_cnt is E[max_seq - 1]
-        row = torch.cat([k_t, v_t], dim=-1).to(torch.bfloat16)
+        dh_k = kv8.shape[-1] // (2 * self.n_head)  # the cache's head width
+        e_rows = expand_e_rows(e, f_len + p_cnt + 1, kv8.shape[2], dh_to=dh_k)
+        # row p_cnt is E[max_seq - 1]
+        e_pend = expand_e_rows(e, p_cnt + 1, S + 1, dh_to=dh_k)
+        row = cache_rows(k_t, v_t, self.n_head, dh_k).to(torch.bfloat16)
         out, pend = decode_attn_cached(q, kv8, sc, layer_idx, e_rows, f_len, pend, e_pend,
                                        p_cnt, row)
         return self.fc(out.to(x_t.dtype)), pend
@@ -392,14 +398,17 @@ class MusicTransformer(nn.Module):
 
     def prefill_q(self, tokens: torch.Tensor, condition: Optional[torch.Tensor],
                   window: int, quantize: bool = True) -> Tuple[torch.Tensor, Cache]:
-        """Prefill into the stacked cache: kv [L, B, window, 2d] K|V-merged
-        rows, int8 with [L, B, 2H, window] bf16 per-(row, head) scales when
-        ``quantize``, bf16 otherwise. Returns (last-position logits, cache)."""
+        """Prefill into the stacked cache: kv [L, B, window, 2D] K|V-merged
+        rows (D = H * cache_dh(d_head), each head zero-padded to that
+        width), int8 with [L, B, 2H, window] bf16 per-(row, head) scales
+        when ``quantize``, bf16 otherwise. Returns (last-position logits,
+        cache)."""
         cfg = self.config
         x, causal, pad_keys = self._embed(tokens, condition)
         B, T, d = x.shape
         L = cfg.n_layer
-        kv = torch.zeros((L, B, window, 2 * d), device=x.device,
+        dh_k = cache_dh(d // cfg.n_head)
+        kv = torch.zeros((L, B, window, 2 * cfg.n_head * dh_k), device=x.device,
                          dtype=torch.int8 if quantize else torch.bfloat16)
         cache: Cache = {"kv": kv, "length": T}
         if quantize:
@@ -407,7 +416,7 @@ class MusicTransformer(nn.Module):
                                       device=x.device)
         for i, layer in enumerate(self.enc_layers):
             x, k, v = layer(x, pad_keys, causal, return_kv=True)
-            rows = torch.cat([k, v], dim=-1)  # [B, T, 2d]
+            rows = cache_rows(k, v, cfg.n_head, dh_k)  # [B, T, 2D]
             if quantize:
                 kv[i, :, :T], cache["sc"][i, :, :, :T] = quantize_rows(rows, 2 * cfg.n_head)
             else:

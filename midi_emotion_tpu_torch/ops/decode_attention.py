@@ -4,10 +4,16 @@ its plain twin and the cache helpers.
 Counterpart of ``midi_emotion_tpu/ops/decode_attention.py``. The cache is
 stacked over layers with K|V merged: ``kv [L, B, W, 2D]`` int8 (with
 ``sc [L, B, 2H, W]`` bf16 per-(row, head) scales) or bf16 (no scales).
-Head h of a row holds its key at columns ``[h*dh, (h+1)*dh)`` and its value
-at ``[D + h*dh, D + (h+1)*dh)``. Decoded rows may first sit in a step-major
-stage ``pend [S, L, B, 2D]`` bf16 that ``flush_pend`` lands in the cache
-every S steps.
+The cache is laid out at ``dh_k = cache_dh(dh)``, the least of the
+kernel's built widths (``flash_attention.KERNEL_DHS``: 16, 32, 48, 64, 96,
+128) that holds d_head, and ``D = H * dh_k``: head h of a row holds its
+key at columns ``[h*dh_k, h*dh_k + dh)`` and its value at ``[D + h*dh_k,
+D + h*dh_k + dh)``; the other columns are zero. For a built d_head (the flagship's 48) dh_k = dh and nothing is
+padded. Zero columns change no score, and no int8 row scale (max|x| over a
+head's group is unchanged). The rows are padded where they are built and
+written (``cache_rows``, ``expand_e_rows``), never per call. Decoded rows
+may first sit in a step-major stage ``pend [S, L, B, 2D]`` bf16 that
+``flush_pend`` lands in the cache every S steps.
 
 ``decode_attn_cached`` is the public function, with the JAX signature and
 return contract. On a CUDA tensor it launches ``csrc/decode_attn_stacked.cu``
@@ -23,7 +29,8 @@ The math, per (b, h), over the ``length`` flushed rows in window blocks of
     1e-20``, quantized from f32) with the raw int8 K exactly, then scales
     by ``sq * ks``; bf16 mode dots bf16 q with bf16 K into f32;
   * relative bias: q cast to bf16 against the given E rows;
-  * logits ``(scores + bias) / sqrt(dh)``, keys ``w >= length`` masked with
+  * logits ``(scores + bias) / sqrt(dh)`` (the true d_head, whatever the
+    cache's width), keys ``w >= length`` masked with
     -1e30; an online max and sum across blocks;
   * PV: int8 mode re-quantizes ``p * vs`` to int8 per (b, h, window block)
     with ``s_p = max/127 + 1e-20`` and dots it with the raw int8 V; bf16
@@ -71,9 +78,26 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+# The head width the stacked cache is laid out at for heads of dh columns:
+# the decode kernel is built for the flash kernels' widths, KERNEL_DHS
+from .flash_attention import padded_dh as cache_dh
+
 NEG = -1e30
-KERNEL_DHS = (16, 32, 48, 64, 96, 128)
 MAX_STAGE = 128  # the kernel folds at most this many stage rows
+
+
+def pad_groups(x: torch.Tensor, n_groups: int, dh_to: int) -> torch.Tensor:
+    """[..., G*dh] -> [..., G*dh_to]: each of the G channel groups padded
+    with zero columns up to dh_to (the tensor itself when dh == dh_to)."""
+    dh = x.shape[-1] // n_groups
+    if dh == dh_to:
+        return x
+    return F.pad(x.unflatten(-1, (n_groups, dh)), (0, dh_to - dh)).flatten(-2)
+
+
+def cache_rows(k: torch.Tensor, v: torch.Tensor, n_head: int, dh_k: int) -> torch.Tensor:
+    """K and V rows [..., H*dh] -> the merged K|V cache row [..., 2*H*dh_k]."""
+    return pad_groups(torch.cat([k, v], dim=-1), 2 * n_head, dh_k)
 
 
 def quantize_rows(t: torch.Tensor, n_groups: int):
@@ -90,15 +114,16 @@ def quantize_rows(t: torch.Tensor, n_groups: int):
     return q, s.transpose(-1, -2).to(torch.bfloat16).contiguous()
 
 
-def expand_e_rows(e: torch.Tensor, n: int, W: int, dtype=torch.bfloat16) -> torch.Tensor:
-    """Relative rows for a query at position n-1: [W, dh] with
-    out[w] = E[max_seq - n + w], zero past the table's end (those keys are
-    masked). n is clamped to max_seq, so distances saturate at the table's
-    edge, as in the JAX package."""
-    max_seq = e.shape[0]
+def expand_e_rows(e: torch.Tensor, n: int, W: int, dtype=torch.bfloat16,
+                  dh_to: Optional[int] = None) -> torch.Tensor:
+    """Relative rows for a query at position n-1: [W, dh] (or [W, dh_to],
+    zero columns appended) with out[w] = E[max_seq - n + w], zero past the
+    table's end (those keys are masked). n is clamped to max_seq, so
+    distances saturate at the table's edge, as in the JAX package."""
+    max_seq, dh = e.shape
     start = max_seq - min(int(n), max_seq)
     rows = e[start:start + W].to(dtype)
-    return F.pad(rows, (0, 0, 0, W - rows.shape[0]))
+    return F.pad(rows, (0, (dh_to or dh) - dh, 0, W - rows.shape[0]))
 
 
 def merge_self(acc, m, l, q_t, k_t, v_t, e_last) -> torch.Tensor:
@@ -160,10 +185,13 @@ def decode_attn_cached_plain(q_t, kv8, sc, layer, e_rows, length, pend=None, e_p
     same blocks, so the same P re-quantization). Same arguments and return
     contract as :func:`decode_attn_cached`; the staged form writes row_t
     into ``pend`` in place."""
-    B, H, dh = q_t.shape
+    B, H, dh_q = q_t.shape
+    c = 1.0 / math.sqrt(dh_q)
+    dh = kv8.shape[-1] // (2 * H)  # the cache's head width
+    if dh != dh_q:
+        q_t = F.pad(q_t, (0, dh - dh_q))
     D = H * dh
     W = kv8.shape[2]
-    c = 1.0 / math.sqrt(dh)
     quant = sc is not None
     qh = q_t.to(torch.bfloat16).float()  # [B, H, dh]
     if quant:
@@ -199,7 +227,7 @@ def decode_attn_cached_plain(q_t, kv8, sc, layer, e_rows, length, pend=None, e_p
             res = (p.to(torch.bfloat16).float()[:, :, None, :] @ v)[:, :, 0]
         acc = acc * alpha[..., None] + res
     if pend is None:
-        return acc.reshape(B, D), m, l
+        return acc[..., :dh_q].reshape(B, H * dh_q), m, l
 
     S = pend.shape[0]
     kp = _heads(pend[:, layer, :, :D].transpose(0, 1), H)  # [B, H, S, dh]
@@ -222,13 +250,13 @@ def decode_attn_cached_plain(q_t, kv8, sc, layer, e_rows, length, pend=None, e_p
     denom = l * a_old + a_new
     out = (acc * a_old[..., None] + v_row * a_new[..., None]) / denom[..., None]
     pend[min(p_cnt, S - 1), layer] = row_t
-    return out.reshape(B, D).to(torch.bfloat16), pend
+    return out[..., :dh_q].reshape(B, H * dh_q).to(torch.bfloat16), pend
 
 
 # ---- the CUDA kernel --------------------------------------------------------
 
 _N_POINTERS = 11  # q, kv, sc, e_rows, pend, e_pend, row, acc, m, l, out
-_N_INTS = 12      # L, B, W, H, dh, layer, length, S, p_cnt, bw, quant, q_bf16; then a stream
+_N_INTS = 12      # L, B, W, H, dh, layer, length, S, p_cnt, bw, quant, q_bf16; then scale, a stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,7 +265,8 @@ def _library() -> ctypes.CDLL:
 
     lib = cuda_library("decode_attn_stacked")
     fn = lib.decode_attn_stacked
-    fn.argtypes = [ctypes.c_void_p] * _N_POINTERS + [ctypes.c_int] * _N_INTS + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * _N_POINTERS + [ctypes.c_int] * _N_INTS
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.decode_attn_stacked_error_string.argtypes = [ctypes.c_int]
     lib.decode_attn_stacked_error_string.restype = ctypes.c_char_p
@@ -261,9 +290,11 @@ def _check(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t) -> N
     dev = q_t.device
     if q_t.dim() != 3:
         raise ValueError(f"q_t must be [B, H, dh], got {tuple(q_t.shape)}")
-    B, H, dh = q_t.shape
-    if dh not in KERNEL_DHS:
-        raise ValueError(f"decode kernel takes d_head in {KERNEL_DHS}, got {dh}")
+    B, H, dh_q = q_t.shape
+    dh = cache_dh(dh_q)  # d_head <= 128, or a ValueError
+    if kv8.dim() == 4 and kv8.shape[-1] != 2 * H * dh:
+        raise ValueError(f"a cache row of {kv8.shape[-1]} columns does not hold {H} heads of "
+                         f"d_head {dh_q}, laid out at {dh}: it must have {2 * H * dh}")
     if q_t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q_t must be float32 or bfloat16, got {q_t.dtype}")
     if kv8.dim() != 4:
@@ -287,12 +318,14 @@ def _check(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t) -> N
 
 
 def _kernel(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t):
-    B, H, dh = q_t.shape
-    D = H * dh
-    L, _, W, _ = kv8.shape
+    B, H, dh_q = q_t.shape
+    L, _, W, D2 = kv8.shape
+    D, dh = D2 // 2, D2 // (2 * H)
     dev = q_t.device
     quant = sc is not None
-    q = q_t.contiguous()  # the kernel quantizes and casts q itself
+    # the kernel quantizes and casts q itself; zero columns up to the
+    # cache's width change no score and no int8 q scale
+    q = q_t.contiguous() if dh == dh_q else F.pad(q_t, (0, dh - dh_q))
     staged = pend is not None
     f32 = dict(dtype=torch.float32, device=dev)
     if staged:
@@ -308,11 +341,14 @@ def _kernel(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t):
         q.data_ptr(), kv8.data_ptr(), ptr(sc), e_rows.data_ptr(), ptr(pend), ptr(e_pend),
         ptr(row_t), ptr(acc), ptr(m), ptr(l), ptr(out), L, B, W, H, dh, int(layer), int(length),
         S, int(p_cnt or 0), window_block(W), int(quant), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        1.0 / math.sqrt(dh_q), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.decode_attn_stacked_error_string(rc).decode()
         raise RuntimeError(f"decode_attn_stacked launch failed: CUDA error {rc} ({msg})")
     decode_attn_cached.launches += 1
+    if dh != dh_q:  # the outputs cut back to d_head
+        acc, out = (t if t is None else t.view(B, H, dh)[..., :dh_q].reshape(B, H * dh_q)
+                    for t in (acc, out))
     if not staged:
         return acc, m, l
     if p_cnt == S:
@@ -323,24 +359,27 @@ def _kernel(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t):
 
 
 def decode_attn_cached(
-    q_t: torch.Tensor,       # [B, H, dh]
-    kv8: torch.Tensor,       # [L, B, W, 2D] int8 (or bf16) stacked cache
+    q_t: torch.Tensor,       # [B, H, dh], any d_head up to 128
+    kv8: torch.Tensor,       # [L, B, W, 2D] int8 (or bf16) stacked cache, D = H * cache_dh(dh)
     sc: Optional[torch.Tensor],  # [L, B, 2H, W] bf16 scales, or None (bf16 cache)
     layer: int,
-    e_rows: torch.Tensor,    # [W, dh] bf16: expand_e_rows(e, length + 1, W)
+    e_rows: torch.Tensor,    # [W, dh_k] bf16: expand_e_rows(e, length + 1, W, dh_to=dh_k)
     length: int,             # flushed rows attended to
     pend: Optional[torch.Tensor] = None,    # [S, L, B, 2D] bf16 staged rows
-    e_pend: Optional[torch.Tensor] = None,  # [S+1, dh] bf16: expand_e_rows(e, p_cnt+1, S+1)
+    e_pend: Optional[torch.Tensor] = None,  # [S+1, dh_k] bf16: expand_e_rows(e, p_cnt+1, S+1, ...)
     p_cnt: Optional[int] = None,            # live staged rows
-    row_t: Optional[torch.Tensor] = None,   # [B, 2D] bf16: this token's K|V row
+    row_t: Optional[torch.Tensor] = None,   # [B, 2D] bf16: this token's K|V row (cache_rows)
 ):
     """Flash decode over the cached rows of one layer, plus (when staged)
     the <= S unquantized stage rows and the current token's self term.
+    The cache, the E rows, the stage and row_t are laid out at dh_k =
+    cache_dh(dh) (see the module note); q and the outputs have d_head's
+    own width, and the logits are scaled by 1/sqrt(dh).
 
-    Unstaged: returns (acc [B, D] f32, m [B, H] f32, l [B, H] f32), the
+    Unstaged: returns (acc [B, H*dh] f32, m [B, H] f32, l [B, H] f32), the
     unnormalized flash triple over the cached rows only (length 0 gives
     m = -1e30, l = 0, acc = 0); fold the current token in with merge_self.
-    Staged: returns (out [B, D] bf16, pend): out is normalized with the
+    Staged: returns (out [B, H*dh] bf16, pend): out is normalized with the
     stage tail and the self term folded in, and row_t is written into pend
     at slot (min(p_cnt, S - 1), layer) in place.
 

@@ -85,12 +85,13 @@ Source note for the merged backward kernel (``csrc/flash_rel_attn_bwd.cu``):
 
 Source note for the other decompositions' kernels (details in their
 sources), on the CUDA cores and bound by f32 FMAs fed from shared memory,
-except the bf16 paths of ``bwd_dq_de`` and ``bwd_dq_de_dist``, which run
-on the tensor cores (below):
+except the bf16 paths of ``bwd_dq_de``, ``bwd_dq_de_dist``,
+``bwd_de_dqrel`` and ``bwd_dkdv_dq``, which run on the tensor cores
+(below):
   * ``csrc/flash_rel_attn_bwd_kv.cu``, the key-major sweeps: replaces
     ``_bwd_dkdv_kernel`` (``bwd_dkdv``: one block per (b, h, key tile),
     which owns its dK and dV) and ``_bwd_dkdv_dq_kernel`` (``bwd_dkdv_dq``:
-    one block per (b, h) with an f32 dQ scratch, as kernel 4);
+    in f32 one block per (b, h) with an f32 dQ scratch, as kernel 4);
   * ``csrc/flash_rel_attn_bwd_q.cu``, the query-major sweeps: replaces
     ``_bwd_dq_de_kernel`` (``bwd_dq_de``), ``_bwd_dq_de_dist_kernel``
     (``bwd_dq_de_dist``) and ``_bwd_de_dqrel_kernel`` (``bwd_de_dqrel``):
@@ -100,15 +101,22 @@ on the tensor cores (below):
     were Mosaic's need: the kernel reads key i - d directly.
   * their tiles are 64 rows, 32 at d_head 128, so the f32 staging fits a
     block's shared memory.
-  * bf16 ``bwd_dq_de`` and ``bwd_dq_de_dist`` (the ``fused`` training
-    path): bound by operations; kernel 4's phase A (S, dP and the band by
-    ``mma.sync``, the band skewed through shared memory) and products,
-    query-major: dQ in f32 registers across a query tile's key tiles, dS'
-    rounded to bf16 and put into the distance domain (``column``: the
-    unskew of the key-column dS'; ``dist``: dS recomputed by distance from
-    the bias by distance and the S and dP fragments skewed through shared
-    memory), where dQ_rel and dE are plain products; two blocks a (b, h)
-    on alternate query tiles, each with its own dE partial.
+  * bf16 ``bwd_dq_de``, ``bwd_dq_de_dist`` (the ``fused`` training path)
+    and ``bwd_de_dqrel`` (``split``): bound by operations; kernel 4's phase
+    A (S, dP and the band by ``mma.sync``, the band skewed through shared
+    memory) and products, query-major: dQ in f32 registers across a query
+    tile's key tiles, dS' rounded to bf16 and put into the distance domain
+    (``column``: the unskew of the key-column dS'; ``dist`` and
+    ``de_dqrel``: dS recomputed by distance from the bias by distance and
+    the S and dP fragments skewed through shared memory), where dQ_rel and
+    dE are plain products; ``de_dqrel`` forms no dQ key term and visits
+    only key tiles at or below the diagonal; two blocks a (b, h) on
+    alternate query tiles, each with its own dE partial;
+  * bf16 ``bwd_dkdv_dq`` (``split``): bound by operations; kernel 4's
+    tensor-core kernel without its distance-domain half: S, the band (P
+    needs Srel), dP, dV, dK and dQ's key term by ``mma.sync``; two blocks
+    a (b, h) on alternate key tiles, each with its own f32 dQ partial,
+    summed in block order and cast once.
 """
 
 from __future__ import annotations
@@ -172,7 +180,7 @@ def padded_dh(dh: int) -> int:
     for dh_k in KERNEL_DHS:
         if dh_k >= dh:
             return dh_k
-    raise ValueError(f"flash kernel takes d_head <= {KERNEL_DHS[-1]}, got {dh}")
+    raise ValueError(f"the attention kernels take d_head <= {KERNEL_DHS[-1]}, got {dh}")
 
 
 def pad_heads(dh_to: int, *tensors: Optional[torch.Tensor]):
@@ -449,9 +457,9 @@ def _fwd(q, k, v, e, causal, pad_keys):
 def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch):
     """Check, allocate and launch one backward kernel of the other
     decompositions, at the padded d_head: outputs shaped like the inputs
-    named in ``like``, then the f32 scratch ``scratch`` names: a dQ
-    accumulator [B, H, T, dh] ("dq"), dE partials [2*B*H, T, dh], up to two
-    a (b, h) ("de"), or none. The outputs come back cut to d_head."""
+    named in ``like``, then the f32 scratch ``scratch`` names: dQ partials
+    [2, B, H, T, dh] ("dq") or dE partials [2*B*H, T, dh] ("de"), up to two
+    a (b, h), or none. The outputs come back cut to d_head."""
     _check(q, k, v, e, pad_keys)
     _check_saved(q, {"do": do}, {"lse": lse, "dsum": dsum})
     B, H, T, dh = q.shape
@@ -459,7 +467,7 @@ def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch
     q, k, v, e, do = pad_heads(dh_k, q, k, v, e, do)
     inputs = {"q": q, "k": k, "v": v, "e": e}
     outs = [torch.empty_like(inputs[n]) for n in like]
-    shapes = {"dq": (B, H, T, dh_k), "de": (2 * B * H, T, dh_k)}
+    shapes = {"dq": (2, B, H, T, dh_k), "de": (2 * B * H, T, dh_k)}
     extra = [] if scratch is None else [
         torch.empty(shapes[scratch], dtype=torch.float32, device=q.device)]
     _launch(name,

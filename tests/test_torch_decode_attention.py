@@ -106,21 +106,25 @@ def test_flush_pend_places_rows(quant):
 
 def _twin_vs_pallas(x, dims, quant, length, p_cnt):
     """Kernel 13's twin against the Pallas kernel on the inputs ``x`` of
-    ``_inputs(dims=dims)``, unstaged (``p_cnt`` None) or staged."""
+    ``_inputs(dims=dims)``, unstaged (``p_cnt`` None) or staged. The port's
+    cache, stage, row and E rows are laid out at ``cache_dh(dh)`` columns a
+    head, as the port's model lays them out; the JAX package's at dh."""
     b, w, h, dh, s = dims
     d = h * dh
+    dh_k = tda.cache_dh(dh)
+    pad = lambda t: tda.pad_groups(torch.from_numpy(t), 2 * h, dh_k)  # noqa: E731
     if quant:
         jkv, jsc = jda.quantize_rows(jnp.asarray(x["kv"]), 2 * h)
-        tkv, tsc = tda.quantize_rows(torch.from_numpy(x["kv"]), 2 * h)
+        tkv, tsc = tda.quantize_rows(pad(x["kv"]), 2 * h)
     else:
         jkv, jsc = jnp.asarray(x["kv"]).astype(jnp.bfloat16), None
-        tkv, tsc = torch.from_numpy(x["kv"]).bfloat16(), None
+        tkv, tsc = pad(x["kv"]).bfloat16(), None
     vmax = np.abs(x["kv"][..., d:]).max()
     tol = (1e-2 if quant else 4e-3) * vmax
     q, e = x["q"], x["e"]
     n = length + (p_cnt or 0)
     je = jda.expand_e_rows(jnp.asarray(e), jnp.asarray(n + 1, jnp.int32), w)
-    te = tda.expand_e_rows(torch.from_numpy(e), n + 1, w)
+    te = tda.expand_e_rows(torch.from_numpy(e), n + 1, w, dh_to=dh_k)
     if p_cnt is None:
         jacc, jm, jl = (np.asarray(a) for a in jda.decode_attn_cached(
             jnp.asarray(q), jkv, jsc, jnp.asarray(LAYER), je, jnp.asarray(length, jnp.int32)))
@@ -135,9 +139,9 @@ def _twin_vs_pallas(x, dims, quant, length, p_cnt):
         np.testing.assert_allclose(norm(acc, l), norm(jacc, jl), rtol=0, atol=tol)
         return
     jep = jda.expand_e_rows(jnp.asarray(e), jnp.asarray(p_cnt + 1, jnp.int32), s + 1)
-    tep = tda.expand_e_rows(torch.from_numpy(e), p_cnt + 1, s + 1)
-    row = torch.from_numpy(x["row"]).bfloat16()
-    tpend = torch.from_numpy(x["pend"]).bfloat16()
+    tep = tda.expand_e_rows(torch.from_numpy(e), p_cnt + 1, s + 1, dh_to=dh_k)
+    row = pad(x["row"]).bfloat16()
+    tpend = pad(x["pend"]).bfloat16()
     jout, jpend = jda.decode_attn_cached(
         jnp.asarray(q), jkv, jsc, jnp.asarray(LAYER), je, jnp.asarray(length, jnp.int32),
         jnp.asarray(x["pend"]).astype(jnp.bfloat16), jep, jnp.asarray(p_cnt, jnp.int32),
@@ -146,7 +150,8 @@ def _twin_vs_pallas(x, dims, quant, length, p_cnt):
                                        tpend, tep, p_cnt, row)
     assert out.dtype == torch.bfloat16 and pend is tpend  # the stage is written in place
     np.testing.assert_allclose(out.float().numpy(), _np(jout), rtol=0, atol=tol)
-    np.testing.assert_array_equal(pend.float().numpy(), _np(jpend))
+    unpad = lambda t: t.unflatten(-1, (2 * h, dh_k))[..., :dh].flatten(-2)  # noqa: E731
+    np.testing.assert_array_equal(unpad(pend).float().numpy(), _np(jpend))
     np.testing.assert_array_equal(pend[min(p_cnt, s - 1), LAYER].float().numpy(),
                                   row.float().numpy())
 
@@ -169,6 +174,27 @@ def test_twin_matches_pallas_kernel_wide_heads(quant, heads, dh):
     x = _inputs(dh + heads, dims)
     for p_cnt in (None, 2):
         _twin_vs_pallas(x, dims, quant, 100, p_cnt)
+
+
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_twin_matches_pallas_kernel_padded_heads(quant):
+    """d_head 40, which the decode kernel is not built for: the port's cache
+    holds each head at 48 columns, zero past 40, and the twin scales by
+    1/sqrt(40); against the Pallas kernel on the 40-column cache, unstaged
+    and staged, with test_twin_matches_pallas_kernel's tolerances."""
+    dims = (2, 128, 4, 40, 4)
+    x = _inputs(44, dims)
+    for p_cnt in (None, 2):
+        _twin_vs_pallas(x, dims, quant, 100, p_cnt)
+
+
+def test_pad_groups():
+    """pad_groups appends zero columns to each channel group and passes a
+    tensor already that wide through as itself."""
+    x = torch.arange(12.0).reshape(1, 12)
+    assert tda.pad_groups(x, 3, 4) is x
+    np.testing.assert_array_equal(tda.pad_groups(x, 3, 6).numpy(),
+                                  [[0, 1, 2, 3, 0, 0, 4, 5, 6, 7, 0, 0, 8, 9, 10, 11, 0, 0]])
 
 
 def test_wrapper_refuses_other_devices_and_bad_stage():

@@ -73,12 +73,26 @@ def test_sampler_matches_jax_under_injected_uniforms(mode):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
-@pytest.mark.parametrize("kv_dtype", ["int8", "bf16"])
-def test_stacked_step_logits_match_jax(kv_dtype):
+def _unpad_heads(x: np.ndarray, n_groups: int, dh: int) -> np.ndarray:
+    """[..., G*dh_k] stacked-cache columns -> [..., G*dh]: each group's
+    first dh columns (the port lays d_head 40 out at 48)."""
+    return x.reshape(*x.shape[:-1], n_groups, -1)[..., :dh].reshape(*x.shape[:-1], -1)
+
+
+# d_head 40 (H * dh = 80): a width the decode kernel is not built for, so the
+# port's stacked cache holds each head at 48 columns
+DH40 = dict(n_head=2, d_model=80)
+
+
+@pytest.mark.parametrize("kv_dtype,heads", [("int8", {}), ("bf16", {}), ("int8", DH40),
+                                            ("bf16", DH40)],
+                         ids=["int8", "bf16", "int8-dh40", "bf16-dh40"])
+def test_stacked_step_logits_match_jax(kv_dtype, heads):
     """prefill_q, then one decode_step_q and one decode_step_staged from the
-    prefilled cache, at the TINY config: the cache rows and the stage slot
+    prefilled cache, at the TINY config (and at d_head 40, whose cache the
+    port pads to 48 columns a head): the cache rows and the stage slot
     equal, the logits as close as the tolerances below say."""
-    cfg = JaxModelConfig(mode="continuous_concat", **TINY)
+    cfg = JaxModelConfig(mode="continuous_concat", **{**TINY, **heads})
     jmodel, params, tmodel = model_pair(cfg)
     variables = {"params": params}
     B, T, W, S = 2, 12, 128, 4
@@ -97,13 +111,25 @@ def test_stacked_step_logits_match_jax(kv_dtype):
     jl2, jpend = jmodel.apply(variables, jnp.asarray(nxt), ce, jcache["kv"],
                               jcache.get("sc"), pend, jcache["length"], 0,
                               method=JaxMusicTransformer.decode_step_staged)
+    groups, dh = 2 * cfg.n_head, cfg.d_model // cfg.n_head
     with torch.inference_mode():
         tc = torch.from_numpy(cond)
         tl0, cache = tmodel.prefill_q(torch.from_numpy(tokens).long(), tc, W, quant)
-        np.testing.assert_array_equal(cache["kv"].float().numpy(),
-                                      np.asarray(jcache["kv"].astype(jnp.float32)))
+        kv = cache["kv"].float().numpy()
+        jkv = np.asarray(jcache["kv"].astype(jnp.float32))
+        if not heads:
+            np.testing.assert_array_equal(kv, jkv)
+        else:
+            # layer 0's rows come from the same f32 embedding in both; past
+            # it the two f32 forwards round an ulp apart, which can carry a
+            # value over an int8 (or bf16) rounding boundary: one unit
+            np.testing.assert_array_equal(_unpad_heads(kv[0], groups, dh), jkv[0])
+            unit = 1.0 if quant else 2 ** -8 * np.abs(jkv).max()
+            np.testing.assert_allclose(_unpad_heads(kv, groups, dh), jkv, rtol=0, atol=unit)
+        assert kv.shape[-1] == groups * (48 if heads else dh)
+        assert not kv.reshape(*kv.shape[:-1], groups, -1)[..., dh:].any()  # zero padding
         tce = tmodel.condition_embedding(tc)
-        tpend = torch.zeros((S, cfg.n_layer, B, 2 * cfg.d_model), dtype=torch.bfloat16)
+        tpend = torch.zeros((S, cfg.n_layer, B, cache["kv"].shape[-1]), dtype=torch.bfloat16)
         # the staged step leaves the cache alone, so it runs first
         tl2, tpend = tmodel.decode_step_staged(torch.from_numpy(nxt).long(), tce, cache["kv"],
                                                cache.get("sc"), tpend, cache["length"], 0)
@@ -117,15 +143,13 @@ def test_stacked_step_logits_match_jax(kv_dtype):
         want = np.asarray(want)
         tol = 1e-2 * np.abs(want).max() if quant else 1e-4
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
-    np.testing.assert_array_equal(tpend.float().numpy(), np.asarray(jpend.astype(jnp.float32)))
+    np.testing.assert_array_equal(_unpad_heads(tpend.float().numpy(), groups, dh),
+                                  np.asarray(jpend.astype(jnp.float32)))
 
 
-def test_stacked_sampler_matches_jax_under_injected_uniforms():
-    """int8 cache, stage depth 4: three flushed super-steps in the first
-    chunk, then window refreshes every 2 tokens, token-identical to the
-    JAX stacked sampler (Pallas in interpret mode) under the same uniforms."""
+def _stacked_sampler_case(heads):
     cfg = JaxModelConfig(mode="continuous_concat", **{**TINY, "n_layer": 1, "n_head": 2,
-                                                      "max_seq": 128})
+                                                      "max_seq": 128, **heads})
     jmodel, params, tmodel = model_pair(cfg)
     B, gen_len = 2, 24
     sp = dict(gen_len=gen_len, max_input_len=12, top_p=0.9, penalty_coeff=0.5)
@@ -146,6 +170,21 @@ def test_stacked_sampler_matches_jax_under_injected_uniforms():
         sampler_module.flush_pend = real_flush
     assert flushes == [1, 5, 9]
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_stacked_sampler_matches_jax_under_injected_uniforms():
+    """int8 cache, stage depth 4: three flushed super-steps in the first
+    chunk, then window refreshes every 2 tokens, token-identical to the
+    JAX stacked sampler (Pallas in interpret mode) under the same uniforms."""
+    _stacked_sampler_case({})
+
+
+def test_stacked_sampler_matches_jax_at_padded_d_head():
+    """The same at d_head 40 (H * dh = 80), a width the decode kernel is not
+    built for: the port's cache, stage and E rows hold each head at 48
+    columns, zero past 40; token-identical to the JAX sampler, whose cache
+    is 40 wide."""
+    _stacked_sampler_case(DH40)
 
 
 @pytest.mark.parametrize("varying", [False, True])

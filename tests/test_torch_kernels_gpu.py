@@ -351,6 +351,40 @@ def test_fused_dq_de_kernel_deterministic(cuda, kernel, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kernel", ["bwd_dkdv_dq", "bwd_de_dqrel"])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128] + PADDED_DHS)
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 333])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_kernel_bf16_matches_twin(cuda, kernel, dh, T, causal):
+    """Kernels 7 and 8 (the split decomposition) in bf16, on the tensor
+    cores: every d_head (40 and 80 through the padding), T within one tile,
+    at its edge, past it, and ragged over six; a pad tail and, causal, a
+    fully masked row, whose dQ term is 0. Within 2e-2 of each output's
+    scale."""
+    q, k, v, e = _qkve(2, 3, T, dh, 512, torch.bfloat16, seed=13)
+    pad = _pad(2, T, cuda)
+    got, want = _bwd_kernel_pair(kernel, q, k, v, e, causal, pad)
+    _assert_grads_bf16(BWD_KERNELS[kernel], got, want)
+    if causal:  # dq_qk of kernel 7, dq_rel of kernel 8
+        assert got[2 if kernel == "bwd_dkdv_dq" else 0][1, :, 0].eq(0).all()
+
+
+@pytest.mark.parametrize("kernel", ["bwd_dkdv_dq", "bwd_de_dqrel"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_kernel_deterministic(cuda, kernel, dtype):
+    """Two calls on the same inputs give bitwise-equal outputs: the dQ and
+    dE partials are summed in a fixed order, with no atomics."""
+    q, k, v, e = _qkve(4, 4, 700, 48, 1024, dtype, seed=14)
+    pad = _pad(4, 700, cuda)
+    o, lse = flash_rel_attention(q, k, v, e, True, pad)
+    do = torch.randn(o.shape, device=cuda).to(dtype) * (~pad)[:, None, :, None]
+    dsum = (do.float() * o.float()).sum(-1)
+    first = getattr(fa, kernel)(q, k, v, e, True, pad, lse, dsum, do)
+    second = getattr(fa, kernel)(q, k, v, e, True, pad, lse, dsum, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("rows,D", [(1, 768), (7, 768), (4864, 768), (5, 100), (3, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layernorm_kernel_matches_twin(cuda, rows, D, dtype):
@@ -491,21 +525,27 @@ def test_train_step_kernels_match_plain_twins(cuda):
 
 def _decode_inputs(B, W, H, dh, L, S, quant, seed=0):
     """A stacked cache of random rows (quantized for int8), q, E, a stage
-    and the current row, on the card."""
+    and the current row, on the card, laid out as the model lays them out:
+    each head at cache_dh(dh) columns, zero past dh."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    D = H * dh
+    D, dh_k = H * dh, da.cache_dh(dh)
     rows = torch.randn((L, B, W, 2 * D), generator=g, device="cuda")
+    vmax = rows[..., D:].abs().max().item()
+    rows = da.pad_groups(rows, 2 * H, dh_k)
     kv, sc = da.quantize_rows(rows, 2 * H) if quant else (rows.bfloat16(), None)
     q = torch.randn((B, H, dh), generator=g, device="cuda")
     e = torch.randn((512, dh), generator=g, device="cuda")
-    pend = torch.randn((S, L, B, 2 * D), generator=g, device="cuda").bfloat16()
-    row = torch.randn((B, 2 * D), generator=g, device="cuda").bfloat16()
-    return kv, sc, q, e, pend, row, rows[..., D:].abs().max().item()
+    pend = da.pad_groups(torch.randn((S, L, B, 2 * D), generator=g, device="cuda"), 2 * H,
+                         dh_k).bfloat16()
+    row = da.pad_groups(torch.randn((B, 2 * D), generator=g, device="cuda"), 2 * H,
+                        dh_k).bfloat16()
+    return kv, sc, q, e, pend, row, vmax
 
 
 @pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2),
-                                   (4, 256, 8, 96, 2), (4, 256, 8, 128, 2), (4, 256, 10, 128, 2)],
-                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280"])
+                                   (4, 256, 8, 96, 2), (4, 256, 8, 128, 2), (4, 256, 10, 128, 2),
+                                   (4, 256, 16, 40, 2)],
+                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280", "dh40"])
 @pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 def test_decode_kernel_matches_twin_unstaged(cuda, shape, quant):
     """acc/l within one P re-quantization unit (int8: max|V|/127, flipped
@@ -514,7 +554,7 @@ def test_decode_kernel_matches_twin_unstaged(cuda, shape, quant):
     B, W, H, dh, L = shape
     kv, sc, q, e, _, _, vmax = _decode_inputs(B, W, H, dh, L, 8, quant)
     for length in sorted({0, 1, 127, 128, 129, min(700, W), W}):
-        e_rows = da.expand_e_rows(e, length + 1, W)
+        e_rows = da.expand_e_rows(e, length + 1, W, dh_to=da.cache_dh(dh))
         before = da.decode_attn_cached.launches
         acc, m, l = da.decode_attn_cached(q, kv, sc, L - 1, e_rows, length)
         assert da.decode_attn_cached.launches == before + 1
@@ -531,8 +571,9 @@ def test_decode_kernel_matches_twin_unstaged(cuda, shape, quant):
 
 
 @pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2),
-                                   (4, 256, 8, 96, 2), (4, 256, 8, 128, 2), (4, 256, 10, 128, 2)],
-                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280"])
+                                   (4, 256, 8, 96, 2), (4, 256, 8, 128, 2), (4, 256, 10, 128, 2),
+                                   (4, 256, 16, 40, 2)],
+                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280", "dh40"])
 @pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 def test_decode_kernel_matches_twin_staged(cuda, shape, quant):
     """Staged (S 8): the normalized bf16 output within one P unit (int8)
@@ -541,10 +582,11 @@ def test_decode_kernel_matches_twin_staged(cuda, shape, quant):
     B, W, H, dh, L = shape
     S = 8
     kv, sc, q, e, pend, row, vmax = _decode_inputs(B, W, H, dh, L, S, quant, seed=1)
+    dh_k = da.cache_dh(dh)
     for length in sorted({0, 1, 127, 128, 129, min(700, W - S), W - S}):
-        e_rows = da.expand_e_rows(e, length + S + 1, W)
+        e_rows = da.expand_e_rows(e, length + S + 1, W, dh_to=dh_k)
         for p_cnt in (0, 3, 7, 8):
-            e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1)
+            e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1, dh_to=dh_k)
             got_pend, want_pend = pend.clone(), pend.clone()
             out, _ = da.decode_attn_cached(q, kv, sc, L - 1, e_rows, length, got_pend, e_pend,
                                            p_cnt, row)
@@ -571,8 +613,8 @@ def test_decode_wrapper_guards(cuda):
                               e_rows, 10)
     with pytest.raises(ValueError, match="out of range"):
         da.decode_attn_cached(q, kv, sc, 2, e_rows, 10)
-    with pytest.raises(ValueError, match="d_head"):
-        da.decode_attn_cached(q[..., :40], kv, sc, 1, e_rows, 10)
+    with pytest.raises(ValueError, match="d_head"):  # 32 is built: its cache is 32 wide
+        da.decode_attn_cached(q[..., :32], kv, sc, 1, e_rows, 10)
     with pytest.raises(ValueError, match="stage"):
         da.decode_attn_cached(q, kv, sc, 1, e_rows, 10, pend, da.expand_e_rows(e, 6, 5), 5, row)
     assert da.decode_attn_cached.launches == before
