@@ -21,11 +21,14 @@ Phases, each fatal on failure:
      their wrappers pad to 48, and the decode kernel at D 1280, two head
      groups, and at d_head 40, laid out at 48; kernels 1 and 4 timed at
      d_head 128 beside 64); count the tensor-core instructions of kernels
-     1 and 4-8 in their SASS (cuobjdump), failing on one without any or on
-     a missing kernel 7 or 8; hold each backward decomposition (split,
-     fused/column, fused/dist) against the merged kernel, and time the
-     whole split call beside SDPA's backward; then one small f32 train
-     step through the kernels against the same step on the CPU (twins);
+     1 and 4-9 in their SASS (cuobjdump), failing on one without any or on
+     a missing kernel 7, 8 or 9; time kernel 9 on its two grids; hold each
+     backward decomposition (split, fused/column, fused/dist) against the
+     merged kernel, and time the whole split call beside SDPA's backward;
+     kernels 3 and 12 also at a ragged shape ([9729, 99]), and their row
+     pass timed apart from the dgamma/dbeta reduction; then one small f32
+     train step through the kernels against the same step on the CPU
+     (twins);
   4. write a random-init flagship model (continuous_concat, 20 layers,
      d_model 768, 16 heads of 48, seeded torch.Generator) as a
      reference-format work dir and check its forward pass on the card
@@ -108,12 +111,13 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters=20, warmup=3, only=None):
+def device_ms(torch, fn, iters=20, warmup=3, only=None, per_call=1):
     """Mean device time of fn() in ms: the summed durations of the CUDA
     kernels it launched (those whose name holds ``only``, when given), by
-    torch.profiler (CUPTI), over ``iters`` runs. Unlike CUDA events around
-    back-to-back launches, this leaves out the gaps in which the card waits
-    for the host to launch the next kernel."""
+    torch.profiler (CUPTI), over ``iters`` runs of at least ``per_call``
+    kernels each. Unlike CUDA events around back-to-back launches, this
+    leaves out the gaps in which the card waits for the host to launch the
+    next kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -128,13 +132,13 @@ def device_ms(torch, fn, iters=20, warmup=3, only=None):
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and (only is None or only in e.key)]
         # the card's profiler can drop kernel records under back-to-back
-        # launches; every call launches at least one kernel, so a window
-        # with fewer records than calls lost some: profile it again
-        if sum(e.count for e in events) >= iters:
+        # launches; every call launches at least per_call kernels, so a
+        # window with fewer records lost some: profile it again
+        if sum(e.count for e in events) >= iters * per_call:
             break
     else:
         print(f"device_ms: the profiler kept {sum(e.count for e in events)} kernel records "
-              f"of {iters} calls in each of 3 windows; the time below undercounts")
+              f"of {iters} calls of {per_call} in each of 3 windows; the time below undercounts")
     return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
@@ -156,20 +160,22 @@ def _rel_err(a, b):
 
 
 def _report(torch, out, timed, name, kernel_fn, plain_fn, library_fn=None, iters=20,
-            kernel_only=None):
+            kernel_only=None, per_call=1):
     """With ``timed``, time the kernel, its plain twin and, where there is
     one, the library call, into ``out``: device time (``device_ms``) for
     the JSON line, and CUDA-event time per call printed beside it. With
     ``kernel_only``, the kernel's device time counts only the kernels whose
-    name holds it (not the wrapper's small torch ops around the launch)."""
+    name holds it (not the wrapper's small torch ops around the launch);
+    ``per_call``: the kernels a call of the kernel's wrapper launches."""
     if not timed:
         return out
     fns = {"ms": kernel_fn, "plain_ms": plain_fn, "library_ms": library_fn}
     n = {"ms": iters, "plain_ms": max(2, iters // 10), "library_ms": iters}
     events = {}
     for key, fn in fns.items():
-        only = kernel_only if key == "ms" else None
-        out[key] = None if fn is None else device_ms(torch, fn, iters=n[key], only=only)
+        only, per = (kernel_only, per_call) if key == "ms" else (None, 1)
+        out[key] = None if fn is None else device_ms(torch, fn, iters=n[key], only=only,
+                                                     per_call=per)
         events[key] = None if fn is None else time_ms(torch, fn, iters=n[key])
     show = lambda key: "-" if out[key] is None else f"{out[key]:.4f} ({events[key]:.4f})"
     print(f"{name}: device ms (event ms per call): kernel {show('ms')}, plain "
@@ -470,7 +476,7 @@ def check_layernorm_bwd(torch, rows, D, dtype, tol, timed=False):
         torch.autograd.grad(F.layer_norm(xr, (D,), wr, br, 1e-6), (xr, wr, br), dy)
 
     return _report(torch, out, timed, name, lambda: layernorm_bwd(x, dy, w),
-                   lambda: layernorm_bwd_ref(x, dy, w), library, iters=50)
+                   lambda: layernorm_bwd_ref(x, dy, w), library, iters=50, per_call=2)
 
 
 def check_dropout(torch, rows, D, dtype, rate, timed=False):
@@ -549,8 +555,53 @@ def check_dal(torch, rows, D, dtype, rate, tol, timed=False):
         5 * sub.numel() * sub.element_size() + 3 * D * 4, 14 * sub.numel(), "f32")
     _report(torch, bwd, timed, name,
             lambda: fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate),
-            lambda: fd.dropout_add_layernorm_bwd_plain(sub, res, dy, w, keep, rate), iters=50)
+            lambda: fd.dropout_add_layernorm_bwd_plain(sub, res, dy, w, keep, rate), iters=50,
+            per_call=2)
     return fwd, bwd
+
+
+def time_ln_bwd_passes(torch, rows, D, card):
+    """ln_bwd's row pass apart from its dgamma/dbeta reduction (col_sum),
+    kernel 12 (with dropout) and kernel 3, bf16 [rows, D]."""
+    from midi_emotion_tpu_torch.ops import fused_dropout as fd
+    from midi_emotion_tpu_torch.ops import layernorm_triton as lt
+
+    (sub, res, dy), w, _ = _rows(torch, rows, D, torch.bfloat16, 3, seed=SEED + 4)
+    ds, dr = torch.empty_like(sub), torch.empty_like(res)
+    rate = 0.1
+    for name, args in (("kernel 12", (res, sub, dy, w, dr, ds, 1e-6, 77, fd.keep_threshold(rate),
+                                      1.0 / (1.0 - rate))),
+                       ("kernel 3", (res, None, dy, w, dr, None, 1e-6))):
+        part = lt.ln_bwd_launch(*args, reduce=False)
+        row_ms = device_ms(torch, lambda: lt.ln_bwd_launch(*args, reduce=False), iters=100)
+        sum_ms = device_ms(torch, lambda: lt.col_sum_launch(part), iters=100)
+        print(f"ln_bwd {name} bf16 [{rows}, {D}]: row pass {row_ms:.4f} ms, dgamma/dbeta "
+              f"reduction (col_sum over {part.shape[1]} partials) {sum_ms:.4f} ms on {card}")
+
+
+def time_dkdv_grids(torch, card):
+    """Kernel 9 (bf16, the flagship backward shape, causal, pad tail) on
+    its two grids: one block per (b, h, key tile), the wrapper's default,
+    and two blocks a (b, h) on alternate key tiles, kernel 7's; dK and dV
+    bitwise kernel 7's on each."""
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, e, pad = _flash_inputs(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16)
+    o, lse = fa.flash_rel_attention(q, k, v, e, True, pad)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).bfloat16()
+    args = (q, k, v, e, True, pad, lse, (do.float() * o.float()).sum(-1), do)
+    # each key tile sums the same products in the same order as kernel 7's
+    split_kernel = fa.bwd_dkdv_dq(*args)[:2]
+    for split in (None, 2):
+        if not all(torch.equal(a, b) for a, b in zip(fa.bwd_dkdv(*args, split=split),
+                                                    split_kernel)):
+            fail(f"kernel 9 (split={split}): dK, dV not bitwise kernel 7's")
+    times = {split: device_ms(torch, lambda: fa.bwd_dkdv(*args, split=split), iters=20)
+             for split in (None, 2, None, 2)}  # each twice, in turns; the second kept
+    print(f"kernel 9 grids, bf16 B={TRAIN_B} H=16 T={TRAIN_T} dh=48: one block per key tile "
+          f"{times[None]:.4f} ms, two blocks a (b, h) {times[2]:.4f} ms, dK and dV bitwise "
+          f"kernel 7's on both, on {card}")
 
 
 # the flagship's serving cache: W 1408 is w_max for window 1216 with the
@@ -810,6 +861,10 @@ def timed_training(torch, runner, n_warmup=2, n_timed=5):
         print(f"  {e.self_device_time_total / 1e3 / 2:9.3f} ms/step "
               f"{100 * e.self_device_time_total / device_us:5.1f}%  x{e.count // 2:<5d} "
               f"{e.key[:90]}")
+    ln = [e for e in events if e.key.startswith(("ln_bwd", "col_sum"))]
+    print(f"  {sum(e.self_device_time_total for e in ln) / 1e3 / 2:9.3f} ms/step in the "
+          f"LayerNorm backward (kernel 12 or 3: its row pass and col_sum, "
+          f"x{sum(e.count for e in ln) // 2})")
     return tps, secs / n_timed, per_step, losses
 
 
@@ -818,8 +873,7 @@ def timed_training(torch, runner, n_warmup=2, n_timed=5):
 # ---------------------------------------------------------------------------
 
 # name, route, source, the TPU kernel it replaces. In bf16 kernels 1 and
-# 4-8 run on the tensor cores (mma.sync); kernel 9 and every f32 path on
-# the CUDA cores
+# 4-9 run on the tensor cores (mma.sync); every f32 path on the CUDA cores
 KERNELS = (
     ("flash_rel_attn_fwd", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_fwd.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:369"),
@@ -839,6 +893,7 @@ KERNELS = (
     # kernel 8, bf16 on the tensor cores (tc::flash_bwd_q_tc_kernel<REL>)
     ("flash_rel_attn_bwd_de_dqrel", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:1127"),
+    # kernel 9, bf16 on the tensor cores (tc::flash_bwd_kv_tc_kernel without dQ)
     ("flash_rel_attn_bwd_dkdv", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_kv.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:1213"),
     ("dropout", "triton", "midi_emotion_tpu_torch/ops/layernorm_triton.py",
@@ -1168,14 +1223,16 @@ def main():
     tc_kernels = {}
     for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "flash_rel_attn_bwd_kv",
                  "flash_rel_attn_bwd_q"):
-        # the tensor-core kernels (kernels 1 and 4-8 in bf16) run mma instructions
+        # the tensor-core kernels (kernels 1 and 4-9 in bf16) run mma instructions
         tc_kernels.update({k: n for k, n in print_sass_mma(library_path(name), name).items()
                            if "_tc_" in k})
     idle = [k for k, n in tc_kernels.items() if n == 0]
     if idle:
         fail(f"tensor-core kernels without an mma instruction: {idle}")
-    # kernel 7 (the key-major sweep with dQ) and kernel 8 (REL) among them
+    # kernel 7 (the key-major sweep with dQ), kernel 9 (without) and kernel
+    # 8 (REL) among them
     for want in ("flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV/dQ_qk>",
+                 "flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV>",
                  "flash_bwd_q_tc_kernel <bf16, dh=48, rel>"):
         if want not in tc_kernels:
             fail(f"no tensor-core kernel {want} in the SASS")
@@ -1231,6 +1288,7 @@ def main():
         bwd_kernels[kernel] = check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48,
                                                torch.bfloat16, True, 2e-2, timed=True)
         torch.cuda.empty_cache()
+    time_dkdv_grids(torch, card)
     check_bwd_decompositions(torch)
     # the whole split backward call (dsum, kernels 7 and 8, the f32 dQ sum)
     # beside SDPA's backward, the same yardstick as kernel 4's whole call
@@ -1251,6 +1309,12 @@ def main():
     dropout = check_dropout(torch, rows, 768, torch.bfloat16, 0.1, timed=True)
     check_dal(torch, rows, 768, torch.float32, 0.1, 1e-5)
     dal_fwd, dal_bwd = check_dal(torch, rows, 768, torch.bfloat16, 0.1, 2 ** -7, timed=True)
+    # kernels 12 and 3 at a ragged shape: a last tile part full, rows that
+    # start inside a group of four Philox words
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        check_layernorm_bwd(torch, rows + 1, 99, dtype, tol)
+        check_dal(torch, rows + 1, 99, dtype, 0.1, tol)
+    time_ln_bwd_passes(torch, rows, 768, card)
     decode_int8 = check_decode(torch, True, timed=True)  # the JSON line's row: int8, staged
     check_decode(torch, False, timed=True)
     for shape in DECODE_SHAPES:

@@ -16,31 +16,39 @@
 // The relative term's share of dQ and dE is left to the distance-domain
 // kernel (flash_rel_attn_bwd_q.cu), as on the TPU.
 //
-// bf16 with the dQ term (the `split` training path): tensor cores. Bound on
+// bf16 (the `split` and `fused` training paths): tensor cores. Bound on
 // the H100: operations. Per visible tile pair the products are S = Q K^T,
 // the band Q E_band^T (P needs Srel), dP = dO V^T, dV += P^T dO, dK +=
-// dS'^T Q and dQ += dS' K, every one an mma.sync m16n8k16 with bf16
-// operands and f32 sums: flash_rel_attn_bwd.cu's tensor-core kernel
-// (kernel 4) without its distance-domain half (the dsd scatter, dQ_rel, dE,
-// the dE partials and their carry). mma.sync, as in kernels 4 to 6: a
-// warp's 16-row fragments are the unit of the skew; a wgmma version
-// (64-row warpgroup tiles, each B tile read once a warpgroup) is the later
-// step. Two blocks share a (b, h), on alternate key tiles (at B 8, H 16,
-// 256 blocks, two an SM at d_head <= 48), each with its own f32 dQ partial
-// [2, B, H, T, dh]; dq_reduce_kernel sums the two in block order and casts
-// once, as the TPU casts its f32 dq scratch once: no atomics, two calls
-// give bitwise-equal outputs. The kernel is shaped to run without the dQ
-// term (kernel 9's job, WITH_DQ = false), but only the dQ form is launched.
+// dS'^T Q and, with the dQ term, dQ += dS' K, every one an mma.sync
+// m16n8k16 with bf16 operands and f32 sums: flash_rel_attn_bwd.cu's
+// tensor-core kernel (kernel 4) without its distance-domain half (the dsd
+// scatter, dQ_rel, dE, the dE partials and their carry). mma.sync, as in
+// kernels 4 to 6: a warp's 16-row fragments are the unit of the skew; a
+// wgmma version (64-row warpgroup tiles, each B tile read once a
+// warpgroup) is the later step.
+//   * with dQ (kernel 7): two blocks share a (b, h), on alternate key tiles
+//     (at B 8, H 16, 256 blocks, two an SM at d_head <= 48), each with its
+//     own f32 dQ partial [2, B, H, T, dh]; dq_reduce_kernel sums the two in
+//     block order and casts once, as the TPU casts its f32 dq scratch once:
+//     no atomics, two calls give bitwise-equal outputs;
+//   * dK/dV alone (kernel 9): the same kernel without dQ (WITH_DQ = false),
+//     so a key tile carries no state across tiles and the grid is free:
+//     `split` blocks a (b, h), block s taking key tiles s, s + split, ...,
+//     numbered key-tile-major so that the longest (causal: the first) key
+//     tiles start first. The wrapper passes split = the number of key tiles
+//     (one block per (b, h, key tile), 2 432 blocks at the flagship shape)
+//     or 2 (kernel 7's grid). dK and dV are bitwise kernel 7's: each key
+//     tile sums the same products over the same query tiles in the same
+//     order.
 //
-// f32 (the checks' path, held to 1e-4; TF32 keeps about three digits), and
-// dK/dV alone in either type: the CUDA cores, simple and correct first:
+// f32 (the checks' path, held to 1e-4; TF32 keeps about three digits): the
+// CUDA cores, simple and correct first:
 //   * tiles of 64 rows (32 at d_head 128, so the f32 staging fits a block's
 //     shared memory) and 4 threads a row;
 //   * dK/dV alone: one block per (b, h, key tile). The tile owns
 //     its dK and dV, kept in registers, and sweeps the query tiles that see
-//     it (causal: those at or below the diagonal). At B 8, H 16, T 1216 that
-//     is 2 432 blocks, so every SM holds work to the end;
-//   * with dQ_qk (f32): dQ crosses key tiles, so the kernel takes kernel 4's
+//     it (causal: those at or below the diagonal);
+//   * with dQ_qk: dQ crosses key tiles, so the kernel takes kernel 4's
 //     ownership scheme: one block per (b, h) sweeps its key tiles, and dQ_qk
 //     accumulates in an f32 scratch [B, H, T, dh] that only this block
 //     touches, cast once at the end. No atomics, nothing summed in bf16, and
@@ -407,9 +415,9 @@ __device__ __forceinline__ void mma_kn(float (*acc)[4], const uint32_t* a,
   }
 }
 
-// Block s of the SPLIT a (b, h) sweeps key tiles s, s + SPLIT, ... and,
-// inside, the query tiles that see them (causal: those at or below the
-// diagonal), with 8 warps. Per tile pair:
+// Block s of the nsp a (b, h) (SPLIT with dQ, `split` without) sweeps key
+// tiles s, s + nsp, ... and, inside, the query tiles that see them (causal:
+// those at or below the diagonal), with 8 warps. Per tile pair:
 //   phase A, warp (rows 16 (w % 4), keys 32 (w / 4)): S = Q K^T, the band
 //     Q E_band^T over its 48 distances and dP = dO V^T on the tensor cores;
 //     the band skewed into Srel through a per-warp scratch (P needs it);
@@ -418,8 +426,8 @@ __device__ __forceinline__ void mma_kn(float (*acc)[4], const uint32_t* a,
 //   phase B, warp (16-row block w / 2, channel half w % 2): dV += P^T dO and
 //     dK += dS'^T Q (registers, the key tile's own) and, WITH_DQ, dQ += dS' K
 //     (this block's f32 partial, read and written once a pair).
-// WITH_DQ = false (dK and dV alone, kernel 9's job) is shaped here but not
-// instantiated: the launch below runs it on the CUDA cores.
+// Blocks are numbered (b, h)-major with dQ (kernel 7) and key-tile-major
+// without (kernel 9: block s of every (b, h) before block s + 1).
 template <int DH, bool WITH_DQ>
 __global__ void __launch_bounds__(NTH, Layout<DH>::MIN_BLOCKS)
 flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -428,17 +436,21 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
                        const float* __restrict__ lse, const float* __restrict__ dsum,
                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                        float* __restrict__ dq_acc, int H, int T_len, int max_seq, int causal,
-                       float scale, float scale_log2) {
+                       float scale, float scale_log2, int split) {
   static_assert(BQ == 64 && BK == 64, "the band moves one 64-row chunk a query tile");
   using L = Layout<DH>;
   constexpr int RS = L::RS, CPR = L::CPR, KS = DH / 16, NH = DH / 16;  // NH: n-tiles a half
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x / SPLIT, sp = blockIdx.x % SPLIT, b = bh / H;
+  const int nsp = WITH_DQ ? SPLIT : split;  // blocks a (b, h)
+  const int n_bh = gridDim.x / nsp;
+  const int bh = WITH_DQ ? blockIdx.x / SPLIT : blockIdx.x % n_bh;
+  const int sp = WITH_DQ ? blockIdx.x % SPLIT : blockIdx.x / n_bh;
+  const int b = bh / H;
   const size_t base = (size_t)bh * T_len * DH, rbase = (size_t)bh * T_len;
   // this block's dQ partial [T][DH] (of [SPLIT][B*H][T][DH])
-  float* dqa = WITH_DQ ? dq_acc + ((size_t)sp * (gridDim.x / SPLIT) + bh) * T_len * DH : nullptr;
+  float* dqa = WITH_DQ ? dq_acc + ((size_t)sp * n_bh + bh) * T_len * DH : nullptr;
   __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + L::P_AT);  // P [BQ][PS]
   __nv_bfloat16* dss = ps + BQ * PS;                                      // dS' [BQ][PS]
   float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
@@ -489,7 +501,7 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     hi = n_chunks++;
     load_chunk(hi, dist0 + 64);
     if (qt == first_q(kt)) {
-      __nv_bfloat16* ks = kv_buf(kt / SPLIT % L::STAGES);
+      __nv_bfloat16* ks = kv_buf(kt / nsp % L::STAGES);
       __nv_bfloat16* vs = ks + BK * RS;
       float* live = reinterpret_cast<float*>(vs + BK * RS);
       for (int x = tid; x < BK * CPR; x += NTH) {
@@ -534,7 +546,7 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
   int kt = sp, qt = first_q(sp), nk = kt, nq = qt;
   auto next = [&](int& a, int& c) {
-    if (++c == n_tiles) c = first_q(a += SPLIT);
+    if (++c == n_tiles) c = first_q(a += nsp);
   };
   next(nk, nq);
   int lo = 0, hi = 0, nlo = 0, nhi = 0;  // this pair's band chunks, and the next pair's
@@ -548,7 +560,7 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     nhi = hi;
     if (L::STAGES > 1 && more) load(nk, nq, (pair + 1) % L::STAGES, nlo, nhi);
     const int k0 = kt * BK, q0 = qt * BQ;
-    const __nv_bfloat16* ks = kv_buf(kt / SPLIT % L::STAGES);
+    const __nv_bfloat16* ks = kv_buf(kt / nsp % L::STAGES);
     const __nv_bfloat16* vs = ks + BK * RS;
     const float* live = reinterpret_cast<const float*>(vs + BK * RS);
     const __nv_bfloat16* qs = st_buf(s);
@@ -624,7 +636,7 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
     // ---- phase B. The dQ partial rows this warp adds to are loaded first,
     // so their latency passes under the products.
-    float2 qold[2][NH];
+    [[maybe_unused]] float2 qold[2][NH];
     if constexpr (WITH_DQ) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -714,25 +726,28 @@ template <typename T, int DH, bool WITH_DQ>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    const void* dout, const void* lse, const void* dsum, void* dk, void* dv,
                    void* dq, void* dq_acc, int B, int H, int T_len, int max_seq, int causal,
-                   float scale, cudaStream_t stream) {
+                   float scale, int split, cudaStream_t stream) {
   cudaError_t err;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && WITH_DQ) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     using B16 = __nv_bfloat16;
-    auto kernel = tc::flash_bwd_kv_tc_kernel<DH, true>;
+    auto kernel = tc::flash_bwd_kv_tc_kernel<DH, WITH_DQ>;
     const int smem = tc::Layout<DH>::TOTAL;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<B * H * tc::SPLIT, tc::NTH, smem, stream>>>(
+    const int nsp = WITH_DQ ? tc::SPLIT : split;
+    kernel<<<B * H * nsp, tc::NTH, smem, stream>>>(
         static_cast<const B16*>(q), static_cast<const B16*>(k), static_cast<const B16*>(v),
         static_cast<const B16*>(e), static_cast<const uint8_t*>(pad), static_cast<const B16*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<B16*>(dk),
         static_cast<B16*>(dv), static_cast<float*>(dq_acc), H, T_len, max_seq, causal, scale,
-        scale * tc::LOG2E);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const size_t n = (size_t)B * H * T_len * DH;
-    tc::dq_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        static_cast<const float*>(dq_acc), static_cast<B16*>(dq), n);
+        scale * tc::LOG2E, nsp);
+    if constexpr (WITH_DQ) {
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      const size_t n = (size_t)B * H * T_len * DH;
+      tc::dq_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+          static_cast<const float*>(dq_acc), static_cast<B16*>(dq), n);
+    }
   } else {
     auto kernel = flash_rel_attn_bwd_kv_kernel<T, DH, WITH_DQ>;
     const size_t smem = smem_bytes<DH>();
@@ -753,13 +768,14 @@ template <bool WITH_DQ>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* e,
                      const void* pad, const void* dout, const void* lse, const void* dsum,
                      void* dk, void* dv, void* dq, void* dq_acc, int B, int H, int T_len, int dh,
-                     int max_seq, int causal, int dtype, float scale, void* stream) {
+                     int max_seq, int causal, int dtype, float scale, int split, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || T_len > max_seq) return cudaErrorInvalidValue;
+  if (!WITH_DQ && dtype == 1 && split <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define KV_CASE(TYPE, D)                                                                     \
   if (dh == D)                                                                               \
     return launch<TYPE, D, WITH_DQ>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq, dq_acc, B, \
-                                    H, T_len, max_seq, causal, scale, s);
+                                    H, T_len, max_seq, causal, scale, split, s);
   if (dtype == 0) {
     KV_CASE(float, 16) KV_CASE(float, 32) KV_CASE(float, 48) KV_CASE(float, 64)
     KV_CASE(float, 96) KV_CASE(float, 128)
@@ -782,14 +798,16 @@ extern "C" {
 // heads, which may have fewer columns than dh (zero columns padded up to an
 // instantiated dh add nothing). Launches on `stream` and does not synchronise.
 
-// dK, dV (the TPU's _bwd_dkdv_kernel).
+// dK, dV (the TPU's _bwd_dkdv_kernel). bf16: `split` (> 0) blocks a
+// (b, h), block s taking key tiles s, s + split, ...; f32 ignores it (one
+// block per (b, h, key tile)).
 int flash_rel_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* e,
                             const void* pad, const void* dout, const void* lse,
                             const void* dsum, void* dk, void* dv, int B, int H, int T_len,
-                            int dh, int max_seq, int causal, int dtype, float scale,
+                            int dh, int max_seq, int causal, int dtype, float scale, int split,
                             void* stream) {
   return dispatch<false>(q, k, v, e, pad, dout, lse, dsum, dk, dv, nullptr, nullptr, B, H,
-                         T_len, dh, max_seq, causal, dtype, scale, stream);
+                         T_len, dh, max_seq, causal, dtype, scale, split, stream);
 }
 
 // dK, dV and dQ_qk (the TPU's _bwd_dkdv_dq_kernel); dq_acc is f32 scratch
@@ -801,7 +819,7 @@ int flash_rel_attn_bwd_dkdv_dq(const void* q, const void* k, const void* v, cons
                                int B, int H, int T_len, int dh, int max_seq, int causal,
                                int dtype, float scale, void* stream) {
   return dispatch<true>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq, dq_acc, B, H, T_len, dh,
-                        max_seq, causal, dtype, scale, stream);
+                        max_seq, causal, dtype, scale, 0, stream);
 }
 
 const char* flash_rel_attn_bwd_kv_error_string(int err) {

@@ -84,14 +84,13 @@ Source note for the merged backward kernel (``csrc/flash_rel_attn_bwd.cu``):
   * f32, the checks' path: CUDA-core f32 FMAs fed from shared memory.
 
 Source note for the other decompositions' kernels (details in their
-sources), on the CUDA cores and bound by f32 FMAs fed from shared memory,
-except the bf16 paths of ``bwd_dq_de``, ``bwd_dq_de_dist``,
-``bwd_de_dqrel`` and ``bwd_dkdv_dq``, which run on the tensor cores
-(below):
+sources): in f32 (the checks' path) on the CUDA cores and bound by f32 FMAs
+fed from shared memory; every bf16 path on the tensor cores (below):
   * ``csrc/flash_rel_attn_bwd_kv.cu``, the key-major sweeps: replaces
-    ``_bwd_dkdv_kernel`` (``bwd_dkdv``: one block per (b, h, key tile),
-    which owns its dK and dV) and ``_bwd_dkdv_dq_kernel`` (``bwd_dkdv_dq``:
-    in f32 one block per (b, h) with an f32 dQ scratch, as kernel 4);
+    ``_bwd_dkdv_kernel`` (``bwd_dkdv``: in f32 one block per (b, h, key
+    tile), which owns its dK and dV) and ``_bwd_dkdv_dq_kernel``
+    (``bwd_dkdv_dq``: in f32 one block per (b, h) with an f32 dQ scratch,
+    as kernel 4);
   * ``csrc/flash_rel_attn_bwd_q.cu``, the query-major sweeps: replaces
     ``_bwd_dq_de_kernel`` (``bwd_dq_de``), ``_bwd_dq_de_dist_kernel``
     (``bwd_dq_de_dist``) and ``_bwd_de_dqrel_kernel`` (``bwd_de_dqrel``):
@@ -116,7 +115,12 @@ except the bf16 paths of ``bwd_dq_de``, ``bwd_dq_de_dist``,
     tensor-core kernel without its distance-domain half: S, the band (P
     needs Srel), dP, dV, dK and dQ's key term by ``mma.sync``; two blocks
     a (b, h) on alternate key tiles, each with its own f32 dQ partial,
-    summed in block order and cast once.
+    summed in block order and cast once;
+  * bf16 ``bwd_dkdv`` (``fused``): bound by operations; the same kernel
+    without dQ, so a key tile carries nothing to the next and the grid is
+    free: one block per (b, h, key tile) by default, the longest key tiles
+    first (``split`` blocks a (b, h) on request); its dK and dV are
+    ``bwd_dkdv_dq``'s bit for bit.
 """
 
 from __future__ import annotations
@@ -366,6 +370,8 @@ def _function(name: str):
     else:
         lib_name, n_pointers = _C_FUNCTIONS[name]
         args = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7 + [ctypes.c_float]
+        if name == "flash_rel_attn_bwd_dkdv":
+            args.append(ctypes.c_int)  # blocks a (b, h) of the bf16 kernel
     lib = cuda_library(lib_name)
     fn = getattr(lib, name)
     fn.argtypes = args + [ctypes.c_void_p]
@@ -454,12 +460,13 @@ def _fwd(q, k, v, e, causal, pad_keys):
     return _cut(dh, o)[0], lse
 
 
-def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch):
+def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch, extra=()):
     """Check, allocate and launch one backward kernel of the other
     decompositions, at the padded d_head: outputs shaped like the inputs
     named in ``like``, then the f32 scratch ``scratch`` names: dQ partials
     [2, B, H, T, dh] ("dq") or dE partials [2*B*H, T, dh] ("de"), up to two
-    a (b, h), or none. The outputs come back cut to d_head."""
+    a (b, h), or none; ``extra`` ints follow the scale. The outputs come
+    back cut to d_head."""
     _check(q, k, v, e, pad_keys)
     _check_saved(q, {"do": do}, {"lse": lse, "dsum": dsum})
     B, H, T, dh = q.shape
@@ -468,13 +475,13 @@ def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch
     inputs = {"q": q, "k": k, "v": v, "e": e}
     outs = [torch.empty_like(inputs[n]) for n in like]
     shapes = {"dq": (2, B, H, T, dh_k), "de": (2 * B * H, T, dh_k)}
-    extra = [] if scratch is None else [
+    scr = [] if scratch is None else [
         torch.empty(shapes[scratch], dtype=torch.float32, device=q.device)]
     _launch(name,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
-            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), *(t.data_ptr() for t in outs + extra),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), *(t.data_ptr() for t in outs + scr),
             B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            *extra, torch.cuda.current_stream(q.device).cuda_stream)
     return _cut(dh, *outs)
 
 
@@ -496,13 +503,22 @@ def _dsum(o, do):
 # CPU tensor it runs its twin.
 
 
-def bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do):
+DKDV_TILE = 64  # keys a tile of the bf16 dK/dV kernel
+
+
+def bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do, split=None):
     """-> (dk, dv): ``csrc/flash_rel_attn_bwd_kv.cu`` for the TPU's
-    ``_bwd_dkdv_kernel`` (``MIDI_EMOTION_BWD=fused``)."""
+    ``_bwd_dkdv_kernel`` (``MIDI_EMOTION_BWD=fused``). In bf16 ``split``
+    blocks share a (b, h), block s taking key tiles s, s + split, ...;
+    None, one block per (b, h, key tile). The f32 kernel ignores it."""
     if q.device.type == "cpu":
         return bwd_dkdv_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
+    if split is None:
+        split = -(-q.shape[2] // DKDV_TILE)
+    if split < 1:
+        raise ValueError(f"bwd_dkdv: split must be at least 1, got {split}")
     dk, dv = _launch_bwd("flash_rel_attn_bwd_dkdv", q, k, v, e, causal, pad_keys, lse, dsum, do,
-                         ("k", "v"), None)
+                         ("k", "v"), None, (split,))
     bwd_dkdv.launches += 1
     return dk, dv
 

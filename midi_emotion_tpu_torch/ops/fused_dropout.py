@@ -37,10 +37,11 @@ Source notes for the kernels:
   * design: the TPU's hardware PRNG, seeded per 256-row block, becomes
     counter-based Philox4x32-10 keyed by (seed, flat element index i):
     element i takes word i % 4 of the call at counter i // 4, so the mask
-    is independent of how the kernel is blocked. ``dropout`` draws one call
-    per four elements (``tl.randint4x``) and interleaves its words; the row
-    kernels pick each element's word from the same call. dgamma/dbeta are
-    per-program f32 partials reduced by a second kernel.
+    is independent of how the kernel is blocked. ``dropout``, and ``ln_bwd``
+    when D % 4 == 0, draw one call per four elements (``tl.randint4x``) and
+    interleave its words; ``dal_fwd``, and ``ln_bwd`` at other D, pick each
+    element's word from its own draw of the same call. dgamma/dbeta are
+    per-program f32 partials reduced in program order by a second kernel.
 """
 
 from __future__ import annotations

@@ -20,9 +20,11 @@ Source notes for the kernels (``ops/layernorm_triton.py``):
   * backward: replaces ``layernorm.py::_bwd_kernel`` (``_fused_bwd``): dx,
     dgamma and dbeta in one pass over (x, dy), the statistics recomputed
     from x as the TPU kernel does. The TPU summed dgamma/dbeta in VMEM
-    across its sequential grid; on the GPU each program sums its rows into
-    an f32 partial [n_programs, D] and a second small kernel reduces the
-    partials, so no sum goes through bf16 or an atomic;
+    across its sequential grid; on the GPU four programs an SM each take
+    tiles of two rows round the card, loading the next tiles under this
+    one's reductions, and sum their rows into an f32 partial
+    [n_programs, D]; a second small kernel reduces the partials in program
+    order, so no sum goes through bf16 or an atomic;
   * bound on the H100: HBM bandwidth. Neither does tensor-core work; each
     [N, D] input is read once and each output written once.
 """

@@ -385,6 +385,103 @@ def test_split_kernel_deterministic(cuda, kernel, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("split", [None, 2], ids=["tile-grid", "split2-grid"])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128] + PADDED_DHS)
+@pytest.mark.parametrize("T", [63, 64, 65, 200, 1216])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_dkdv_kernel_bf16_matches_twin(cuda, split, dh, T, causal):
+    """Kernel 9 (the fused decomposition's dK/dV) in bf16, on the tensor
+    cores, on either grid (one block per key tile, or two blocks a (b, h)):
+    every d_head (40 and 80 through the padding), T inside, at and past a
+    tile edge and the flagship's; a pad tail. Within 2e-2 of each output's
+    scale, and bitwise kernel 7's dK and dV: each key tile sums the same
+    products over the same query tiles in the same order."""
+    q, k, v, e = _qkve(2, 3, T, dh, 2048, torch.bfloat16, seed=15)
+    pad = _pad(2, T, cuda)
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).bfloat16()
+    dsum = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, e, causal, pad, lse, dsum, do)
+    before = fa.bwd_dkdv.launches
+    got = fa.bwd_dkdv(*args, split=split)
+    assert fa.bwd_dkdv.launches == before + 1
+    _assert_grads_bf16(BWD_KERNELS["bwd_dkdv"], got, fa.bwd_dkdv_plain(*args))
+    for name, a, b in zip(("dk", "dv"), got, fa.bwd_dkdv_dq(*args)[:2]):
+        assert torch.equal(a, b), name
+
+
+def test_fused_dkdv_kernel_deterministic_and_guarded(cuda):
+    """Two calls give bitwise-equal dK and dV; a grid of fewer than one
+    block a (b, h) raises."""
+    q, k, v, e = _qkve(4, 4, 700, 48, 1024, torch.bfloat16, seed=17)
+    pad = _pad(4, 700, cuda)
+    o, lse = flash_rel_attention(q, k, v, e, True, pad)
+    do = torch.randn(o.shape, device=cuda).bfloat16() * (~pad)[:, None, :, None]
+    args = (q, k, v, e, True, pad, lse, (do.float() * o.float()).sum(-1), do)
+    for a, b in zip(fa.bwd_dkdv(*args), fa.bwd_dkdv(*args)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="split"):
+        fa.bwd_dkdv(*args, split=0)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 7, 9728, 9729])
+@pytest.mark.parametrize("D", [99, 100, 640, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dropout", [True, False], ids=["kernel12", "kernel3"])
+def test_ln_bwd_kernels_row_tiles(cuda, rows, D, dtype, dropout):
+    """Kernels 12 (dropout + add + LayerNorm backward) and 3 (LayerNorm
+    backward), the one ``ln_bwd`` source, over row counts that leave a
+    ragged last tile and widths whose rows start inside a group of four
+    Philox words (D 99) or not: against the twins (kernel 12 given the mask
+    recovered through kernel 10), and dgamma, dbeta bitwise equal over two
+    calls (fixed partials, summed in a fixed order)."""
+    rate, seed = 0.1, 91
+    g = torch.Generator(device="cuda").manual_seed(rows + D)
+    sub, res, dy = ((torch.randn((rows, D), generator=g, device=cuda) * 2 + 0.5).to(dtype)
+                    for _ in range(3))
+    w = torch.randn((D,), generator=g, device=cuda)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    if dropout:
+        keep = fd.fused_dropout(torch.ones_like(sub), seed, rate) != 0
+        got = fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate)
+        want = fd.dropout_add_layernorm_bwd_plain(sub, res, dy, w, keep, rate)
+        again = fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate)
+        assert not got[0][~keep].any()  # dsub is zero off the mask
+    else:
+        got = layernorm_bwd(res, dy, w)
+        want = layernorm_bwd_ref(res, dy, w)
+        again = layernorm_bwd(res, dy, w)
+    for a, r in zip(got[:-2], want[:-2]):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), r.float(), rtol=tol, atol=tol)
+    for name, a, r, b in zip(("dw", "db"), got[-2:], want[-2:], again[-2:]):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-3, msg=name)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("D", [2048, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ln_bwd_kernels_wide_rows(cuda, D, dtype):
+    """Kernels 12 and 3 at the widest rows the wrappers take (one row a
+    tile past 1024 columns, fewer pipeline stages where the tiles are
+    large), against the twins."""
+    rate, seed = 0.1, 92
+    g = torch.Generator(device="cuda").manual_seed(D)
+    sub, res, dy = ((torch.randn((37, D), generator=g, device=cuda) * 2 + 0.5).to(dtype)
+                    for _ in range(3))
+    w = torch.randn((D,), generator=g, device=cuda)
+    keep = fd.fused_dropout(torch.ones_like(sub), seed, rate) != 0
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in ((fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate),
+                       fd.dropout_add_layernorm_bwd_plain(sub, res, dy, w, keep, rate)),
+                      (layernorm_bwd(res, dy, w), layernorm_bwd_ref(res, dy, w))):
+        for a, r in zip(got[:-2], want[:-2]):
+            torch.testing.assert_close(a.float(), r.float(), rtol=tol, atol=tol)
+        for a, r in zip(got[-2:], want[-2:]):
+            torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-3)
+
+
 @pytest.mark.parametrize("rows,D", [(1, 768), (7, 768), (4864, 768), (5, 100), (3, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layernorm_kernel_matches_twin(cuda, rows, D, dtype):
