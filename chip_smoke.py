@@ -42,6 +42,21 @@ Phases, each fatal on failure:
      whose first loss must equal the merged run's; time train tokens/sec
      over 5 steps after 2 warm-up steps under each decomposition in turn
      (merged first: the headline) and profile two;
+ 5b. native work dirs: write the trained work dir in the JAX package's
+     native layout with save_native_dir (model.msgpack, optimizer.msgpack
+     through the port's Flax msgpack codec, stats.json) and read every leaf
+     back bitwise; load it and the reference dir on the card: bitwise the
+     same logits; entry()'s flagship forward (B 4, T 1216, bf16); the
+     generation CLI with --kv_dtype int8 on both dirs at one seed: the same
+     ids; train_cli --restart_dir on both: the step counter continues from
+     stats.json, the same first loss and Adam step; a 1-step 4-layer
+     continuous_token run written as a native dir, the transfer CLI from
+     the trained dir into it (the embedding slice as transfer_state_dict
+     says), torch_export of it and a load of the export; a 2-step 4-layer
+     dropout-0 run under MIDI_EMOTION_FLASH_BWD=xla (kernel 4 never
+     launched): its first loss equal to the kernels' run (phase 5's
+     dropout-0 run), its first-step attention gradients within 2e-2 of
+     (1 + scale) of kernel 4's;
   6. serve a 2-layer d_head-40 model (d_model 640, random weights): its
      stacked int8 and bf16 decode steps against its native ones, then
      Sampler.generate through each stacked cache; serve the trained work
@@ -57,11 +72,12 @@ Phases, each fatal on failure:
      and bf16 caches in turn, and profile 8 decode steps at B 64 (native
      and int8): device-busy share and the top kernels per step.
 Each path (the dropout-0.1 training run with its resume, the dropout-0
-run, the three decomposition runs, the d_head-40 model's generation, each
-generation run) runs with every
+run, the three decomposition runs, phase 5b's five, the d_head-40 model's
+generation, each generation run) runs with every
 kernel launch counter set to 0 just before it and read just after; the
 script fails if a kernel of that path was never launched, or if a
-decomposition run launched the merged backward kernel.
+decomposition run or the MIDI_EMOTION_FLASH_BWD=xla run launched the
+merged backward kernel.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -948,6 +964,276 @@ def run_path(name, required, fn, absent=()):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: native work dirs, transfer and export, MIDI_EMOTION_FLASH_BWD=xla
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def flash_bwd_xla():
+    """MIDI_EMOTION_FLASH_BWD=xla inside, restored after."""
+    old = os.environ.get("MIDI_EMOTION_FLASH_BWD")
+    os.environ["MIDI_EMOTION_FLASH_BWD"] = "xla"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MIDI_EMOTION_FLASH_BWD"]
+        else:
+            os.environ["MIDI_EMOTION_FLASH_BWD"] = old
+
+
+def new_losses(work_dir, restart_dir):
+    """The losses a restarted run logged itself: its performance.csv
+    carries the restart dir's rows first."""
+    return train_losses(work_dir)[len(train_losses(restart_dir)):]
+
+
+def check_native_dir(torch, tmp, trained):
+    """Write the trained work dir (reference layout, f32 masters and Adam
+    state) as a native dir with save_native_dir, and read every leaf of
+    both msgpack files back bitwise through the port's decoder. Returns
+    (native dir, the trained state_dict on the host, stats)."""
+    from midi_emotion_tpu_torch.convert import flax_msgpack, load_model_dir, native
+    from midi_emotion_tpu_torch.convert import state_dict_from_jax_params
+    from midi_emotion_tpu_torch.training import checkpoint as ckpt
+    from midi_emotion_tpu_torch.training.train_step import make_optimizer
+
+    cfg, model, vocab = load_model_dir(trained, torch.float32, "cuda", param_dtype=torch.float32)
+    optimizer = make_optimizer(model)
+    if not ckpt.load_opt_state(trained, optimizer, model):
+        fail(f"{trained}: its optimizer.pt does not restore")
+    stats = ckpt.load_stats(trained)
+    nat = os.path.join(tmp, "native")
+    written = ckpt.save_native_dir(nat, model, cfg, vocab, optimizer, stats, clip=1.0)
+    shutil.copy(os.path.join(trained, "performance.csv"), nat)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    files = {}
+    for name, (n_bytes, secs) in written.items():
+        t0 = time.perf_counter()
+        files[name] = flax_msgpack.read(os.path.join(nat, name))
+        read_secs = time.perf_counter() - t0
+        print(f"native dir {name}: {n_bytes} bytes, written in {secs:.3f} s, read in "
+              f"{read_secs:.3f} s")
+    back = state_dict_from_jax_params(files[native.MODEL_FILE], cfg)
+    bad = [k for k in sd if not torch.equal(back[k], sd[k])]
+    adam = files[native.OPT_FILE]["1"]
+    mu, nu = (state_dict_from_jax_params(adam[m], cfg) for m in ("mu", "nu"))
+    steps = set()
+    for k, p in model.named_parameters():
+        state = optimizer.state[p]
+        steps.add(int(state["step"]))
+        if not (torch.equal(mu[k], state["exp_avg"].cpu())
+                and torch.equal(nu[k], state["exp_avg_sq"].cpu())):
+            bad.append(f"Adam moments of {k}")
+    if bad or steps != {int(adam["count"])}:
+        fail(f"native dir: leaves that do not read back bitwise: {bad[:5]} (steps {steps}, "
+             f"count {int(adam['count'])})")
+    print(f"native dir: {len(sd)} parameters and their Adam state (step {steps.pop()}) read "
+          f"back bitwise; stats {stats}")
+    del model, optimizer, files, back, mu, nu
+    torch.cuda.empty_cache()
+    return nat, sd, stats
+
+
+def attention_grads(torch, runner, batch, xla):
+    """The first step's gradients of every attention parameter (Wq, Wk,
+    Wv, fc, E of each layer) at the run's initial weights (its seed) on
+    ``batch``, with MIDI_EMOTION_FLASH_BWD=xla or with the kernels."""
+    from midi_emotion_tpu_torch.models.model import MusicTransformer
+    from midi_emotion_tpu_torch.training.train_step import make_loss_fn
+
+    model = MusicTransformer(runner.cfg, dtype=torch.bfloat16, device="cuda",
+                             param_dtype=torch.float32).init_weights(
+        torch.Generator().manual_seed(runner.args.seed)).train()
+    with flash_bwd_xla() if xla else contextlib.nullcontext():
+        make_loss_fn(model)({k: v[0] for k, v in batch.items()}).backward()
+        torch.cuda.synchronize()
+    return {n: p.grad.float() for n, p in model.named_parameters() if ".rga." in n}
+
+
+def native_phase(torch, tmp, trained, train_args, drop0):
+    """Phase 5b, each part fatal. ``drop0``: phase 5's 4-layer dropout-0
+    runner, the baseline of the MIDI_EMOTION_FLASH_BWD=xla run. Returns
+    the counts of each path it ran."""
+    from midi_emotion_tpu_torch.cli import generate_cli, train_cli
+    from midi_emotion_tpu_torch.convert import load_model_dir, torch_export, transfer
+    from midi_emotion_tpu_torch.entry import entry
+    from midi_emotion_tpu_torch.training import checkpoint as ckpt
+    from midi_emotion_tpu_torch.training.train_step import make_optimizer
+
+    t_phase = time.perf_counter()
+    nat, trained_sd, stats = check_native_dir(torch, tmp, trained)
+    paths = []
+
+    # the same weights through both layouts: bitwise the same logits
+    def serve_logits():
+        tokens = torch.randint(2, 1007, (2, 64), generator=torch.Generator().manual_seed(SEED))
+        tokens[1, -8:] = 0
+        cond = torch.tensor([[0.8, -0.5], [0.3, -0.9]])
+        logits = {}
+        for name, d in (("native", nat), ("reference", trained)):
+            m = load_model_dir(d, torch.bfloat16, "cuda")[1]
+            with torch.inference_mode():
+                logits[name] = m(tokens.cuda(), cond.cuda()).float().cpu()
+            del m
+        fwd, args = entry()
+        out = fwd(*args)
+        torch.cuda.synchronize()
+        return logits, out
+
+    counts, (logits, ent) = run_path("native dir: logits beside the reference dir's, and entry()",
+                                     ("flash_rel_attn_fwd", "ln_fwd"), serve_logits)
+    paths.append(counts)
+    print(f"native dir logits [2, 64] bf16: bitwise equal to the reference dir's: "
+          f"{torch.equal(logits['native'], logits['reference'])}; entry(): "
+          f"{tuple(ent.shape)} {ent.dtype}")
+    if not torch.equal(logits["native"], logits["reference"]) \
+            or not torch.isfinite(logits["native"]).all():
+        fail("the native dir's logits differ from the reference dir's")
+    if tuple(ent.shape) != (4, 1216, 1007) or not torch.isfinite(ent).all():
+        fail("entry(): the flagship forward is not [4, 1216, 1007] and finite")
+    del ent
+    torch.cuda.empty_cache()
+
+    # the generation CLI on the native dir, --kv_dtype int8: the ids sampled
+    # from the reference dir at the same seed
+    def generate(d, sub):
+        generate_cli.main([
+            "--model_dir", d, "--conditioning", "continuous_concat", "--dtype", "bf16",
+            "--batch_size", "2", "--valence", "0.8", "-0.5", "--arousal", "0.8", "0.5",
+            "--gen_len", "128", "--max_input_len", "1216", "--device", "cuda",
+            "--kv_dtype", "int8", "--batch_gen_dir", sub, "--quiet", "--short_filename",
+            "--seed", "7"])
+        out = os.path.join(d, "generations", "inference", "_" + sub)
+        return {f: np.load(os.path.join(out, f)) for f in sorted(os.listdir(out))
+                if f.endswith(".npy")}
+
+    counts, ids = run_path(
+        "generation CLI (native dir, then reference dir, --kv_dtype int8)",
+        ("flash_rel_attn_fwd", "ln_fwd", "decode_attn_stacked"),
+        lambda: (generate(nat, "int8_native"), generate(trained, "int8_reference")))
+    paths.append(counts)
+    same = list(ids[0]) == list(ids[1]) and all(np.array_equal(ids[0][f], ids[1][f])
+                                                for f in ids[0])
+    print(f"generation CLI --kv_dtype int8: {len(ids[0])} songs from the native dir, ids equal "
+          f"to the reference dir's at seed 7: {same}")
+    if not ids[0] or not same:
+        fail("the native dir samples other ids than the reference dir")
+
+    # --restart_dir on the native dir against a restart from the reference
+    # dir: the same weights and Adam state, so the same first loss
+    restart_args = train_args + ["--max_step", str(stats["step"] + 2), "--log_step", "1"]
+
+    def restarts():
+        runs = {}
+        for name, d in (("native", nat), ("reference", trained)):
+            r = train_cli.main(restart_args + ["--work_dir", os.path.join(tmp, f"restart_{name}"),
+                                               "--restart_dir", d])
+            runs[name] = (r.train_step_num, {int(s["step"]) for s in r.optimizer.state.values()},
+                          new_losses(r.args.work_dir, d))
+            del r
+            torch.cuda.empty_cache()
+        return runs
+
+    counts, runs = run_path(
+        "train --restart_dir (native dir, then reference dir; flagship, dropout 0.1)",
+        ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "dropout", "dal_fwd", "dal_bwd"), restarts)
+    paths.append(counts)
+    (n_step, n_adam, n_loss), (r_step, r_adam, r_loss) = runs["native"], runs["reference"]
+    print(f"restart from the native dir: steps {stats['step']} -> {n_step}, Adam steps {n_adam}, "
+          f"losses {n_loss}; from the reference dir: {r_step}, {r_adam}, {r_loss}")
+    if n_step != stats["step"] + 2 or len(n_loss) != 2 or not all(np.isfinite(n_loss)):
+        fail("the restart from the native dir did not continue from its stats.json")
+    if n_loss[0] != r_loss[0] or n_adam != r_adam:
+        fail("the native restart's first loss or Adam step differs from the reference restart's")
+    if abs(n_loss[1] - r_loss[1]) > 1e-3 * (1 + abs(r_loss[1])):
+        fail("the native restart's second loss is off the reference restart's by more than 1e-3")
+
+    # transfer into a fresh continuous_token native dir, then export it
+    def transfer_and_export():
+        tok = train_cli.main(train_args + [
+            "--work_dir", os.path.join(tmp, "token"), "--conditioning", "continuous_token",
+            "--n_layer", "4", "--max_step", "1", "--log_step", "1"])
+        cfg, model, vocab = load_model_dir(tok.args.work_dir, torch.float32, "cuda",
+                                           param_dtype=torch.float32)
+        optimizer = make_optimizer(model)
+        ckpt.load_opt_state(tok.args.work_dir, optimizer, model)
+        token = os.path.join(tmp, "token_native")
+        ckpt.save_native_dir(token, model, cfg, vocab, optimizer,
+                             ckpt.load_stats(tok.args.work_dir))
+        fresh = {k: v.cpu() for k, v in model.state_dict().items()}
+        del tok, model, optimizer
+        transfer.main(["--from_dir", trained, "--to_dir", token, "--device", "cuda"])
+        torch_export.main(["--model_dir", token, "--out_dir", os.path.join(tmp, "token_export"),
+                           "--device", "cuda"])
+        return fresh, token
+
+    counts, (fresh, token) = run_path(
+        "train (continuous_token, 4 layers, 1 step), transfer, export",
+        ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "dropout", "dal_fwd", "dal_bwd"),
+        transfer_and_export)
+    paths.append(counts)
+    want = transfer.transfer_state_dict(trained_sd, fresh)
+
+    def host_state(d):
+        return {k: v.cpu() for k, v in load_model_dir(d, torch.float32, "cuda")[1]
+                .state_dict().items()}
+
+    got, exported = host_state(token), host_state(os.path.join(tmp, "token_export"))
+    emb, cols = got["embedding.weight"], trained_sd["embedding.weight"].shape[1]
+    slice_ok = torch.equal(emb[:, :cols], trained_sd["embedding.weight"]) \
+        and torch.equal(emb[:, cols:], fresh["embedding.weight"][:, cols:])
+    print(f"transfer: the trained continuous_concat dir -> a 4-layer continuous_token dir: "
+          f"embedding {tuple(trained_sd['embedding.weight'].shape)} -> {tuple(emb.shape)}, "
+          f"slice [:, :{cols}] landed: {slice_ok}; export loads: {exported.keys() == got.keys()}")
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want) \
+            or not slice_ok:
+        fail("the transferred native dir does not hold transfer_state_dict's weights")
+    if not all(torch.equal(exported[k], got[k]) for k in got):
+        fail("the exported reference dir does not hold the native dir's weights")
+    torch.cuda.empty_cache()
+
+    # MIDI_EMOTION_FLASH_BWD=xla: kernels 1, 2 and 3, never kernel 4
+    def xla_run():
+        with flash_bwd_xla():
+            r = train_cli.main(train_args + [
+                "--work_dir", os.path.join(tmp, "drop0_xla"), "--dropout", "0", "--n_layer", "4",
+                "--max_step", "2", "--log_step", "1"])
+        batch = r._to_device(r._microbatches(r.train_dataset.epochs(TRAIN_B)))
+        return r, batch, attention_grads(torch, r, batch, xla=True)
+
+    counts, (xla_runner, batch, xla_grads) = run_path(
+        "train (4 layers, dropout 0, MIDI_EMOTION_FLASH_BWD=xla)",
+        ("flash_rel_attn_fwd", "ln_fwd", "ln_bwd"), xla_run, absent=("flash_rel_attn_bwd",))
+    paths.append(counts)
+    base = train_losses(drop0.args.work_dir)
+    xla = train_losses(xla_runner.args.work_dir)
+    print(f"train CLI, MIDI_EMOTION_FLASH_BWD=xla: losses {xla}, the kernels' run {base}")
+    if len(xla) != 2 or xla[0] != base[0]:
+        fail("MIDI_EMOTION_FLASH_BWD=xla: step 1's loss differs from the kernels' run")
+    if abs(xla[1] - base[1]) > 1e-3 * (1 + abs(base[1])):
+        fail("MIDI_EMOTION_FLASH_BWD=xla: step 2's loss is off the kernels' run by more than 1e-3")
+    # the kernel 4 side is a comparison, outside any path's counts
+    k4_grads = attention_grads(torch, drop0, batch, xla=False)
+    worst, worst_name = 0.0, ""
+    for name, g in k4_grads.items():
+        err, scale = _rel_err(xla_grads[name], g)
+        if not torch.isfinite(xla_grads[name]).all() or err > 2e-2 * (1 + scale):
+            fail(f"MIDI_EMOTION_FLASH_BWD=xla: the gradient of {name} is off kernel 4's by "
+                 f"{err:.3e} (tol {2e-2 * (1 + scale):.3e})")
+        if err / (1 + scale) > worst:
+            worst, worst_name = err / (1 + scale), name
+    print(f"MIDI_EMOTION_FLASH_BWD=xla: first-step gradients of {len(k4_grads)} attention "
+          f"parameters against kernel 4's: worst {worst:.3e} of (1 + scale), {worst_name} "
+          f"(tol 2e-2, phase 3's bf16 tolerance for kernel 4 against its twin)")
+    del xla_runner
+    torch.cuda.empty_cache()
+    print(f"phase 5b (native dirs, transfer, export, FLASH_BWD=xla): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timed generation
 # ---------------------------------------------------------------------------
 
@@ -1432,13 +1718,17 @@ def main():
             del runner
             torch.cuda.empty_cache()
 
-        drop0_counts, _ = run_path(
+        drop0_counts, drop0 = run_path(
             "train (4 layers, dropout 0)",
             ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "ln_fwd", "ln_bwd"),
             lambda: train_cli.main(train_args + [
                 "--work_dir", os.path.join(tmp, "drop0"), "--dropout", "0", "--n_layer", "4",
-                "--max_step", "2", "--debug"]))
+                "--max_step", "2", "--log_step", "1"]))
         torch.cuda.empty_cache()
+
+        # phase 5b ------------------------------------------------------
+        native_counts = native_phase(torch, tmp, trained, train_args, drop0)
+        del drop0
 
         # phase 6 -------------------------------------------------------
         padded_counts = serve_padded_heads(torch, vocab)
@@ -1516,8 +1806,8 @@ def main():
     measured = {"flash_rel_attn_fwd": flash, "ln_fwd": ln, "ln_bwd": ln_bwd,
                 "flash_rel_attn_bwd": flash_bwd, **bwd_kernels, "dropout": dropout,
                 "dal_fwd": dal_fwd, "dal_bwd": dal_bwd, "decode_attn_stacked": decode_int8}
-    paths = (train_counts, drop0_counts, *decomposition_counts, padded_counts, serve_counts,
-             int8_counts, unstaged_counts, exact_counts)
+    paths = (train_counts, drop0_counts, *decomposition_counts, *native_counts, padded_counts,
+             serve_counts, int8_counts, unstaged_counts, exact_counts)
     kernels = []
     for name, route, source, replaces in KERNELS:
         m = measured[name]

@@ -24,9 +24,13 @@ The backward decompositions, as in the JAX package
     (``bwd_dq_de``) or, with ``MIDI_EMOTION_DQDE=dist``, with the relative
     terms in the distance domain (``bwd_dq_de_dist``); dK and dV in a
     key-major sweep (``bwd_dkdv``). ``MIDI_EMOTION_DQDE`` matters only here.
-Both variables are validated at import, so a typo fails at start, and read
-again at each backward call. The TPU tuning knobs (skew, exponent, block
-sizes, batch per block, VMEM) have no counterpart here.
+``MIDI_EMOTION_FLASH_BWD=xla`` (default ``pallas``: the kernels above)
+replaces the whole backward with autograd through the plain closed form
+(``flash_rel_attention_bwd_xla``), the JAX package's debug path
+(``pallas_attention.py:1829-1847``); the forward still runs its kernel.
+The three variables are validated at import, so a typo fails at start,
+and read again at each backward call. The TPU tuning knobs (skew,
+exponent, block sizes, batch per block, VMEM) have no counterpart here.
 
 Scale convention: neither direction pre-scales q. The backward folds
 c = 1/sqrt(dh) into dS once, so dK, dQ and dE each carry it once (the JAX
@@ -133,29 +137,32 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import rel_position_bias
+from .attention import rel_position_bias, relative_attention
 
 KERNEL_DHS = (16, 32, 48, 64, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # variable -> (default, allowed values), as pallas_attention.py:187-190
+# and :233-236
 BWD_KNOBS = {
     "MIDI_EMOTION_BWD": ("merged", ("merged", "split", "fused")),
     "MIDI_EMOTION_DQDE": ("column", ("column", "dist")),
+    "MIDI_EMOTION_FLASH_BWD": ("pallas", ("pallas", "xla")),
 }
 
 
-def bwd_knobs() -> Tuple[str, str]:
-    """(MIDI_EMOTION_BWD, MIDI_EMOTION_DQDE) as the environment sets them
-    now. A value outside its allowed set raises a ValueError that names the
-    variable: ``MIDI_EMOTION_BWD=mergd`` never runs another branch."""
+def bwd_knobs() -> Tuple[str, str, str]:
+    """(MIDI_EMOTION_BWD, MIDI_EMOTION_DQDE, MIDI_EMOTION_FLASH_BWD) as the
+    environment sets them now. A value outside its allowed set raises a
+    ValueError that names the variable: ``MIDI_EMOTION_BWD=mergd`` never
+    runs another branch."""
     values = []
     for name, (default, allowed) in BWD_KNOBS.items():
         value = os.environ.get(name, default)
         if value not in allowed:
             raise ValueError(f"{name}={value!r}: must be one of {allowed}")
         values.append(value)
-    return values[0], values[1]
+    return values[0], values[1], values[2]
 
 
 bwd_knobs()  # a typo fails at import, as in the JAX package
@@ -589,7 +596,7 @@ def flash_rel_attention_bwd(
     here) or raises; on a CPU tensor it runs
     :func:`flash_rel_attention_bwd_plain`. ``split`` and ``fused`` compose
     the wrappers above, each a kernel or its twin by the same rule."""
-    impl, dqde = bwd_knobs()
+    impl, dqde, _ = bwd_knobs()
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_rel_attention_bwd: unsupported device {q.device}")
     if impl == "merged" and q.device.type == "cpu":
@@ -630,6 +637,29 @@ def flash_rel_attention_bwd(
 flash_rel_attention_bwd.launches = 0  # merged kernel launches since the last reset
 
 
+def flash_rel_attention_bwd_xla(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    e: torch.Tensor,
+    causal: bool,
+    pad_keys: Optional[torch.Tensor],
+    do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward under ``MIDI_EMOTION_FLASH_BWD=xla``, the JAX package's
+    debug path (``pallas_attention.py:1837-1845``, ``jax.vjp`` of
+    ``_xla_reference``): the gradients of the plain closed form
+    ``ops/attention.py::relative_attention`` by autograd, in f32 from the
+    forward's inputs, cast to their dtypes. Any device; it launches no
+    kernel. As the closed form, it gives NaN for a query row whose keys
+    are all masked."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v, e)]
+        o = relative_attention(*leaves, causal=causal, pad_keys=pad_keys, impl="plain")
+    grads = torch.autograd.grad(o, leaves, do.float())
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v, e)))
+
+
 class _FlashRelAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, e, causal, pad_keys):
@@ -642,8 +672,11 @@ class _FlashRelAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, e, pad_keys, o, lse = ctx.saved_tensors
-        dq, dk, dv, de = flash_rel_attention_bwd(q, k, v, e, ctx.causal, pad_keys, o, lse,
-                                                 do.contiguous())
+        if bwd_knobs()[2] == "xla":  # read, and validated, at each backward
+            dq, dk, dv, de = flash_rel_attention_bwd_xla(q, k, v, e, ctx.causal, pad_keys, do)
+        else:
+            dq, dk, dv, de = flash_rel_attention_bwd(q, k, v, e, ctx.causal, pad_keys, o, lse,
+                                                     do.contiguous())
         return dq, dk, dv, de, None, None
 
 

@@ -3,8 +3,10 @@
 Counterpart of ``midi_emotion_tpu/training/train.py``, with the same
 cadences: generation of the four fixed V/A corners every ``gen_step``,
 logging and checkpointing every ``log_step``, evaluation every
-``eval_step`` with the optional plateau LR, ``find_lr`` and resume. The
-step is ``train_step.make_train_step`` on one device, the card unless
+``eval_step`` with the optional plateau LR, ``find_lr`` and resume from a
+work dir of either layout (``--restart_dir``: the reference's, or a native
+dir the JAX package trained, with its Adam state). The step is
+``train_step.make_train_step`` on one device, the card unless
 ``--device`` says otherwise.
 
 There is no mesh: ``--mesh_data``/``--mesh_model``/``--mesh_seq`` other
@@ -49,7 +51,7 @@ def _check_unported(args) -> None:
     if args.remat not in ("auto", "none"):
         raise NotImplementedError(
             f"--remat {args.remat}: activation recomputation is not ported (ROADMAP "
-            "queue 1, item 2 notes: the flash kernels keep attention O(T) in memory, "
+            "queue 1, item 6: the flash kernels keep attention O(T) in memory, "
             "so the flagship trains without it)")
 
 
@@ -168,7 +170,8 @@ class Runner:
         )
 
         if self.restart_dir:
-            ckpt.load_opt_state(self.restart_dir, self.optimizer)
+            if not ckpt.load_opt_state(self.restart_dir, self.optimizer, self.model):
+                self.logging(f"no optimizer state in {self.restart_dir} fits: Adam starts afresh")
             stats = ckpt.load_stats(self.restart_dir)
             self.train_step_num = stats["step"]
             self.init_hours = stats["hour"]
@@ -341,6 +344,7 @@ class Runner:
                         optimizer=self.optimizer,
                         stats={"step": step, "hour": hours, "epoch": self.epoch,
                                "sample": self.n_sequences_total},
+                        clip=args.clip,
                     )
 
             if step % args.eval_step == 0 and not args.overfit:

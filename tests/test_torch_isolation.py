@@ -1,6 +1,7 @@
 """Torch port, isolation: it imports neither JAX nor anything of the JAX
-package, its entry points default to the card, its CUDA wrappers never run
-on the CPU, and chip_smoke.py refuses to start without a card."""
+package (nor flax, msgpack or pandas; h5py only lazily), its entry points
+default to the card, its CUDA wrappers never run on the CPU, and
+chip_smoke.py refuses to start without a card."""
 
 import ast
 import os
@@ -31,13 +32,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(vocab_size=1007, n_layer=2, n_head=4, d_model=64, d_inner=128,
             d_condition=16, max_seq=128, dropout=0.0)
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "midi_emotion_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "midi_emotion_tpu")
 
 _NO_JAX_RUN = """
 import sys
 import numpy as np, torch
 import midi_emotion_tpu_torch.cli.generate_cli, midi_emotion_tpu_torch.cli.train_cli
 import midi_emotion_tpu_torch.convert, midi_emotion_tpu_torch.training.train
+import midi_emotion_tpu_torch.convert.transfer, midi_emotion_tpu_torch.convert.torch_export
+import midi_emotion_tpu_torch.data.preprocess, midi_emotion_tpu_torch.data.dataset_builder
+import midi_emotion_tpu_torch.data.msd_hdf5, midi_emotion_tpu_torch.utils
+import midi_emotion_tpu_torch.demo, midi_emotion_tpu_torch.entry
+from midi_emotion_tpu_torch.convert import flax_msgpack
 from midi_emotion_tpu_torch.generation.sampler import Sampler
 from midi_emotion_tpu_torch.models.config import ModelConfig
 from midi_emotion_tpu_torch.models.model import MusicTransformer
@@ -58,7 +64,9 @@ tokens = torch.randint(2, 1007, (1, 2, 9), generator=torch.Generator().manual_se
 batch = {"input": tokens[:, :, :-1], "target": tokens[:, :, 1:], "condition": torch.zeros(1, 2, 2)}
 m = make_train_step(model, make_optimizer(model), clip=1.0)(batch, 1e-3, torch.Generator())
 assert torch.isfinite(m["loss"]), m
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+tree = flax_msgpack.decode(flax_msgpack.encode({"w": model.fc.weight, "n": np.int32(3)}))
+assert torch.equal(torch.from_numpy(tree["w"]), model.fc.weight) and tree["n"] == 3
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in %r + ("h5py",))
 assert not leaked, leaked
 print("NO_JAX_OK")
 """ % (FORBIDDEN,)
