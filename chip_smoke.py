@@ -57,6 +57,19 @@ Phases, each fatal on failure:
      launched): its first loss equal to the kernels' run (phase 5's
      dropout-0 run), its first-step attention gradients within 2e-2 of
      (1 + scale) of kernel 4's;
+ 5c. --remat none, dots and full: 2 flagship steps each (B 8, dropout 0.1)
+     from one init and dropout generator, the same losses and grad norms,
+     kernel 1 launched 40 times a step under dots and full (the recompute
+     reruns it) against 20, kernel 4 20 times; peak memory and ms/step of
+     each; then 2 ranks of this script (``--mesh-rank``), both on cuda:0
+     under gloo, run 2 steps at --mesh_data 2, at --mesh_model 2 and at
+     --mesh_seq 2 --attn_impl ring (global B 8) against the one-process
+     run: losses, grad norms and step 1's gradients parameter by parameter
+     (the model ranks then run the same 2 steps under each of two planted
+     tensor-parallel faults, which the limits must see); then the
+     ring's per-step function driven over 4 chunks of 304 in one process
+     (B 2, H 16, T 1216) against kernel 1's output and kernel 4's
+     gradients, in f32 and bf16;
   6. serve a 2-layer d_head-40 model (d_model 640, random weights): its
      stacked int8 and bf16 decode steps against its native ones, then
      Sampler.generate through each stacked cache; serve the trained work
@@ -72,8 +85,9 @@ Phases, each fatal on failure:
      and bf16 caches in turn, and profile 8 decode steps at B 64 (native
      and int8): device-busy share and the top kernels per step.
 Each path (the dropout-0.1 training run with its resume, the dropout-0
-run, the three decomposition runs, phase 5b's five, the d_head-40 model's
-generation, each generation run) runs with every
+run, the three decomposition runs, phase 5b's five, phase 5c's three remat
+runs and each mesh rank's run, the d_head-40 model's generation, each
+generation run) runs with every
 kernel launch counter set to 0 just before it and read just after; the
 script fails if a kernel of that path was never launched, or if a
 decomposition run or the MIDI_EMOTION_FLASH_BWD=xla run launched the
@@ -574,6 +588,52 @@ def check_dal(torch, rows, D, dtype, rate, tol, timed=False):
             lambda: fd.dropout_add_layernorm_bwd_plain(sub, res, dy, w, keep, rate), iters=50,
             per_call=2)
     return fwd, bwd
+
+
+def check_dropout_places(torch, card):
+    """Kernels 10, 11 and 12 at a mesh rank's place in the flagship's global
+    [8, 1216, 768] bf16 activation: a data rank's rows 4..7 and a seq rank's
+    positions 608..1215. Each must give the global call's outputs at its
+    elements, bit for bit, and is timed beside the same slice at the
+    default place (the code path of one process)."""
+    from midi_emotion_tpu_torch.ops import fused_dropout as fd
+
+    rate, seed = 0.1, 77
+    (sub, res, dy), w, b = _rows(torch, TRAIN_B * TRAIN_T, 768, torch.bfloat16, 3,
+                                 seed=SEED + 5)
+    sub, res, dy = (t.view(TRAIN_B, TRAIN_T, 768) for t in (sub, res, dy))
+    y = fd.fused_dropout(sub, seed, rate)
+    z = fd.dropout_add_layernorm(sub, res, w, b, seed, rate)
+    ds, dr, _, _ = fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate)
+    half = TRAIN_T // 2
+    for label, at, place in (
+            ("data rank 1 of 2", (slice(4, 8), slice(None)), (4, 0, TRAIN_T)),
+            ("seq rank 1 of 2", (slice(None), slice(half, None)), (0, half, TRAIN_T))):
+        ps, pr, pdy = (t[at].contiguous() for t in (sub, res, dy))
+        calls = {
+            "dropout": lambda pl: fd.fused_dropout(ps, seed, rate, place=pl),
+            "dal_fwd": lambda pl: fd.dropout_add_layernorm(ps, pr, w, b, seed, rate, place=pl),
+            "dal_bwd": lambda pl: fd.dropout_add_layernorm_bwd(ps, pr, pdy, w, seed, rate,
+                                                                place=pl),
+        }
+        got = {k: fn(place) for k, fn in calls.items()}
+        same = (torch.equal(got["dropout"], y[at]) and torch.equal(got["dal_fwd"], z[at])
+                and torch.equal(got["dal_bwd"][0], ds[at])
+                and torch.equal(got["dal_bwd"][1], dr[at]))
+        times = {}
+        for k, fn in calls.items():
+            per_call = 2 if k == "dal_bwd" else 1  # its row pass and col_sum
+            times[k] = tuple(device_ms(torch, lambda: fn(pl), iters=100, per_call=per_call)
+                             for pl in (place, None))
+        print(f"dropout kernels at place {place} ({label}, bf16 {list(ps.shape)}): the global "
+              f"call's outputs at the slice {'bitwise' if same else 'NOT bitwise'}; ms at the "
+              f"place / at the default place: "
+              + ", ".join(f"{k} {a:.4f} / {d:.4f}" for k, (a, d) in times.items())
+              + f" on {card}")
+        if not same:
+            fail(f"dropout kernels at place {place}: the slice differs from the global call's")
+    del sub, res, dy, y, z, ds, dr
+    torch.cuda.empty_cache()
 
 
 def time_ln_bwd_passes(torch, rows, D, card):
@@ -1234,6 +1294,338 @@ def native_phase(torch, tmp, trained, train_args, drop0):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: --remat, data and tensor parallelism on the one card, the ring
+# ---------------------------------------------------------------------------
+
+# a mesh's 2 steps against one process's, relative: (first loss, step
+# 1's grad norm and step 2's loss, step 2's grad norm, step 1's
+# gradients). The mesh sums the batch (data) or each row-parallel
+# product's halves (model) in another order, in bf16 products, and the
+# seq ranks run the ring (plain f32 products of the bf16 q, k, v) where
+# one process runs kernel 1, so nothing is bitwise. First loss: 1e-5 for
+# data; 1e-4 for model, whose two halves of each row-parallel product are
+# each rounded to bf16 before their sum, and for seq. Step 1's grad norm
+# and step 2's loss: 1e-3. Step 2's grad norm: 5e-3 (1e-2 for seq), since
+# step 1's Adam update moves each weight by about lr whatever its
+# gradient's size, so the elements near 0 whose sign the rounding flips
+# move apart, and step 2's gradients with them. Step 1's gradients, the
+# worst parameter's |g - g_one| / |g_one|: E's are the noisiest (a small
+# sum of bf16 products); 0.1 for data and 0.25 for model and seq, between
+# the sound runs' readings on the H100 (1.4e-2 data, 7.2e-2 model) and a
+# planted fault's (0.75 with E's gradient left unsummed over the model
+# group, which moves the loss and grad norms by less than 1e-3).
+MESH_TOLS = {"data": (1e-5, 1e-3, 5e-3, 0.1), "model": (1e-4, 1e-3, 5e-3, 0.25),
+             "seq": (1e-4, 1e-3, 1e-2, 0.25)}
+MESH_ARGS = {"data": ("--mesh_data", "2"), "model": ("--mesh_model", "2"),
+             "seq": ("--mesh_seq", "2", "--attn_impl", "ring")}
+# kernels each mesh path must launch (the ring launches no attention kernel)
+MESH_KERNELS = {"data": ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "dropout", "dal_fwd",
+                         "dal_bwd"),
+                "model": ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "dropout", "dal_fwd",
+                          "dal_bwd"),
+                "seq": ("dropout", "dal_fwd", "dal_bwd")}
+
+
+@contextlib.contextmanager
+def planted_fault(fault):
+    """One tensor-parallel fault planted in this process (a mesh rank's)
+    inside, so that the card shows what the limits of MESH_TOLS read for a
+    broken split: "E unsummed" drops the all-reduce of E's gradient over
+    the model group (E enters each layer's attention through ``copy_to``,
+    the only 2-D tensor that does); "norm unsummed" leaves the sharded
+    gradients' squares out of the model group's sum in the global norm."""
+    from midi_emotion_tpu_torch.parallel import mesh as mesh_lib
+    from midi_emotion_tpu_torch.training import train_step
+
+    module, name = {"E unsummed": (mesh_lib, "copy_to"),
+                    "norm unsummed": (train_step, "global_norm")}[fault]
+    orig = getattr(module, name)
+    if fault == "E unsummed":
+        setattr(module, name, lambda x, group: x if x.dim() == 2 else orig(x, group))
+    else:
+        setattr(module, name, lambda grads, sharded=None, mesh=None: orig(grads))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def runner_steps(torch, runner, n=2):
+    """n train steps of the Runner's own step (its dropout generator, the
+    run's LR) on the global batches of its loader, each rank taking its
+    rows: ([(loss, grad norm)], [ms of each step, host clock to a
+    synchronize], peak bytes allocated, step 1's whole gradients)."""
+    it = runner.train_dataset.epochs(TRAIN_B)
+    batches = [runner._microbatches(it) for _ in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, ms, grads = [], [], None
+    for b in batches:
+        t0 = time.perf_counter()
+        m = runner._train_fn(runner._to_device(b), runner.args.lr, runner._generator)
+        steps.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if grads is None:
+            grads = whole_grads(runner.model)
+    return steps, ms, torch.cuda.max_memory_allocated(), grads
+
+
+def whole_grads(model):
+    """Each parameter's gradient as the step left it (reduced over the
+    mesh and clipped), whole (the model group gathers its shards), f32 on
+    the CPU."""
+    import torch
+
+    from midi_emotion_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    for name, p in model.named_parameters():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        if model.mesh is not None:
+            g = mesh_lib.gather_whole(g, model.shard_dims[name], model.mesh)
+        out[name] = g.detach().float().cpu()
+    return out
+
+
+def grad_error(grads, base):
+    """The largest over parameters of |g - g_base| / |g_base| (Frobenius
+    norms), and its parameter's name. The key projection's bias is left
+    out: softmax ignores a score added to a whole row, so its gradient is
+    0 but for rounding."""
+    return max(((grads[n] - g).norm().item() / max(g.norm().item(), 1e-30), n)
+               for n, g in base.items() if not n.endswith("Wk.bias"))
+
+
+def new_runner(train_args, work_dir, *extra):
+    """A Runner as train_cli builds it, writing nothing (--debug)."""
+    from midi_emotion_tpu_torch.cli import train_cli
+    from midi_emotion_tpu_torch.training.train import Runner
+
+    return Runner(train_cli.parse_args(train_args + ["--work_dir", work_dir, "--debug",
+                                                     *extra]))
+
+
+def mesh_rank(kind, rank, port, spec, out):
+    """One of the 2 ranks of phase 5c's mesh part, on cuda:0 under gloo:
+    2 steps of the flagship at global B 8 on a mesh of 2 along ``kind``
+    ("data", "model" or "seq", the ring), its kernel launches, and (rank 0)
+    the whole parameters after them; then, for "model", the same 2 steps
+    under each fault of ``planted_fault`` in turn, from a fresh Runner."""
+    import torch
+    import torch.distributed as dist
+
+    rank = int(rank)
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+    from midi_emotion_tpu_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed("gloo", timeout=300)
+    with open(spec) as f:
+        train_args, work_dir = json.load(f)
+    runner = new_runner(train_args, work_dir, *MESH_ARGS[kind], "--device", "cuda:0")
+    reset_counts()
+    steps, ms, peak, grads = runner_steps(torch, runner)
+    counts = read_counts()
+    whole, _ = runner._whole()  # every rank gathers
+    state = {n: p.detach().cpu() for n, p in whole.named_parameters()} if rank == 0 else None
+    del runner, whole
+    faults = {}
+    for fault in (("E unsummed", "norm unsummed") if kind == "model" else ()):
+        torch.cuda.empty_cache()
+        with planted_fault(fault):
+            runner = new_runner(train_args, work_dir + fault.replace(" ", "_"),
+                                *MESH_ARGS[kind], "--device", "cuda:0")
+            faults[fault] = runner_steps(torch, runner)[::3]
+        del runner
+    torch.save(dict(steps=steps, ms=ms, peak=peak, grads=grads if rank == 0 else None,
+                    counts=counts, state=state, faults=faults if rank == 0 else {}),
+               out)
+    dist.destroy_process_group()
+
+
+def run_mesh(tmp, kind, train_args, timeout=600):
+    """Start this script's 2 ranks of ``kind`` on the card and wait; fail,
+    with their logs, if one fails or the deadline passes (the others are
+    killed). Returns each rank's results."""
+    import socket
+
+    import torch
+
+    spec = os.path.join(tmp, f"mesh_{kind}.json")
+    with open(spec, "w") as f:
+        json.dump([train_args, os.path.join(tmp, f"mesh_{kind}")], f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    procs, logs = [], []
+    for r in range(2):
+        logs.append(open(os.path.join(tmp, f"mesh_{kind}_{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", kind, str(r), port, spec,
+             os.path.join(tmp, f"mesh_{kind}_{r}.pt")], stdout=logs[-1], stderr=subprocess.STDOUT,
+            cwd=REPO))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        for log in logs:
+            log.close()
+    if any(p.returncode != 0 for p in procs):
+        for r in range(2):
+            with open(os.path.join(tmp, f"mesh_{kind}_{r}.log")) as f:
+                print(f"--- mesh {kind} rank {r} (rc {procs[r].returncode}) ---\n"
+                      f"{f.read()[-4000:]}", file=sys.stderr)
+        fail(f"the 2-rank {kind}-parallel run failed or timed out")
+    return [torch.load(os.path.join(tmp, f"mesh_{kind}_{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def check_ring_on_card(torch):
+    """The ring's per-step function driven over 4 chunks of 304 in one
+    process on CUDA tensors (B 2, H 16, T 1216, d_head 48, causal, row 1's
+    keys pad from 500 on: across the boundaries of chunks 1, 2 and 3)
+    against kernel 1's output and kernel 4's gradients (q, k, v, E), with
+    phase 3's tolerances for those kernels against their twins."""
+    from midi_emotion_tpu_torch.ops.flash_attention import flash_rel_attention
+    from midi_emotion_tpu_torch.parallel.ring_attention import ring_attention_one_process
+
+    B, H, T, dh, n = 2, 16, TRAIN_T, 48, 4
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    pad = torch.zeros((B, T), dtype=torch.bool, device="cuda")
+    pad[1, 500:] = True
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q, k, v, w = (torch.randn((B, H, T, dh), generator=g, device="cuda") for _ in range(4))
+        e = torch.randn((FLAGSHIP["max_seq"], dh), generator=g, device="cuda")
+        q, k, v, e = (t.to(dtype) for t in (q, k, v, e))
+        outs = []
+        for fn in (lambda *a: ring_attention_one_process(*a, n, True, pad),
+                   lambda *a: flash_rel_attention(*a, True, pad)[0]):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v, e)]
+            o = fn(*leaves)
+            (o.float() * w).sum().backward()
+            outs.append([o.detach()] + [t.grad for t in leaves])
+        torch.cuda.synchronize()
+        for name, got, want in zip(("out", "dq", "dk", "dv", "dE"), *outs):
+            err, scale = _rel_err(got, want)
+            print(f"ring ({n} chunks of {T // n}, {dtype_name(dtype)}) {name} against kernel "
+                  f"{1 if name == 'out' else 4}: max|diff| {err:.3e} (tol {tol:g} x (1 + "
+                  f"{scale:.3g}))")
+            if not torch.isfinite(got).all() or err > tol * (1 + scale):
+                fail(f"the ring's {name} ({dtype_name(dtype)}) disagrees with kernel "
+                     f"{1 if name == 'out' else 4}")
+        del outs
+        torch.cuda.empty_cache()
+    print("the ring's rotation across ranks (torch.distributed.batch_isend_irecv) runs on the "
+          "card in the --mesh_seq 2 run above, under gloo, which carries CUDA tensors through "
+          "host copies; one card cannot host two NCCL ranks, so NCCL's send/recv is not run")
+
+
+def parallel_phase(torch, tmp, train_args, card):
+    """Phase 5c, each part fatal. Returns the counts of each path it ran."""
+    t_phase = time.perf_counter()
+    paths, runs = [], {}
+    # --remat: 2 steps each from one init and dropout generator
+    for remat in ("none", "dots", "full"):
+        def two_steps():
+            r = new_runner(train_args, os.path.join(tmp, f"remat_{remat}"), "--remat", remat)
+            return r, runner_steps(torch, r)
+
+        counts, (runner, res) = run_path(
+            f"train (flagship, dropout 0.1, --remat {remat}, 2 steps)",
+            ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "dropout", "dal_fwd", "dal_bwd"),
+            two_steps)
+        paths.append(counts)
+        runs[remat] = res
+        steps, ms, peak, _ = res
+        per_step = {k: counts[k] / 2 for k in ("flash_rel_attn_fwd", "flash_rel_attn_bwd")}
+        print(f"--remat {remat}: (loss, grad norm) {steps}; step 1 {ms[0]:.1f} ms, step 2 "
+              f"{ms[1]:.1f} ms; peak memory {peak / 2**30:.2f} GiB; kernel 1 "
+              f"{per_step['flash_rel_attn_fwd']:g}, "
+              f"kernel 4 {per_step['flash_rel_attn_bwd']:g} launches a step on {card}")
+        want_fwd = 20 if remat == "none" else 40
+        if per_step != {"flash_rel_attn_fwd": want_fwd, "flash_rel_attn_bwd": 20}:
+            fail(f"--remat {remat}: kernel 1 must launch {want_fwd} times a step and kernel 4 "
+                 f"20 times, got {per_step}")
+        if remat == "none":
+            reference = {n: p.detach().cpu() for n, p in runner.model.named_parameters()}
+        del runner
+        torch.cuda.empty_cache()
+    base, base_grads = runs["none"][0], runs["none"][3]
+    for remat in ("dots", "full"):
+        steps, grads = runs[remat][0], runs[remat][3]
+        worst = max(abs(a - b) / abs(b) for s, t in zip(steps, base) for a, b in zip(s, t))
+        g_err, g_name = grad_error(grads, base_grads)
+        print(f"--remat {remat} against none: losses and grad norms "
+              f"{'bitwise equal' if steps == base else f'within {worst:.3e} relative'}, step 1's "
+              f"gradients within {g_err:.3e} relative ({g_name}) (tol 1e-6 relative)")
+        if max(worst, g_err) > 1e-6:
+            fail(f"--remat {remat}: the steps differ from --remat none's")
+    del runs
+
+    # data, tensor and seq (ring) parallelism: 2 ranks on cuda:0 under gloo
+    # against the one-process run above (--remat none, global B 8)
+    def readings(steps, grads):
+        """(first loss, step 1's grad norm and step 2's loss, step 2's grad
+        norm, step 1's gradients) off one process's, relative."""
+        e = [abs(steps[i][j] - base[i][j]) / abs(base[i][j])
+             for i, j in ((0, 0), (0, 1), (1, 0), (1, 1))]
+        g = grad_error(grads, base_grads) if grads is not None else (0.0, "")
+        return (e[0], max(e[1], e[2]), e[3], g[0]), g[1]
+
+    names = ("first loss", "step 1's grad norm or step 2's loss", "step 2's grad norm",
+             "step 1's gradients")
+    for kind in ("data", "model", "seq"):
+        t1 = time.perf_counter()
+        ranks = run_mesh(tmp, kind, train_args)
+        tols = MESH_TOLS[kind]
+        for r, res in enumerate(ranks):
+            counts = res["counts"]
+            paths.append(counts)
+            print(f"path train (flagship, dropout 0.1, {' '.join(MESH_ARGS[kind])}, rank {r} of "
+                  f"2 on cuda:0, gloo, 2 steps): kernel launches {counts}")
+            missing = [k for k in MESH_KERNELS[kind] if counts[k] <= 0]
+            if missing:
+                fail(f"--mesh_{kind} 2 rank {r}: kernels never launched: {missing}")
+            if kind == "seq" and (counts["flash_rel_attn_fwd"] or counts["flash_rel_attn_bwd"]):
+                fail(f"--mesh_seq 2 rank {r}: the ring launched a flash kernel: {counts}")
+            errs, g_name = readings(res["steps"], res["grads"])
+            print(f"--mesh_{kind} 2 rank {r}: (loss, grad norm) {res['steps']}, one process "
+                  f"{base}: off by " + ", ".join(f"{x:.3e}" for x in errs) + f" ({', '.join(names)}"
+                  f"{'; worst ' + g_name if g_name else ''}) relative, tol {tols}; steps of "
+                  f"{res['ms'][0]:.1f} and {res['ms'][1]:.1f} ms, peak memory "
+                  f"{res['peak'] / 2**30:.2f} GiB, on {card}")
+            if any(e > t for e, t in zip(errs, tols)):
+                fail(f"--mesh_{kind} 2 rank {r}: the steps are off one process's")
+            for fault, (steps, grads) in res["faults"].items():
+                errs, g_name = readings(steps, grads)
+                caught = [n for n, x, t in zip(names, errs, tols) if x > t]
+                print(f"--mesh_{kind} 2 rank {r}, planted fault ({fault}): off by "
+                      + ", ".join(f"{x:.3e}" for x in errs)
+                      + f"{' (worst ' + g_name + ')' if g_name else ''}; over the limit: "
+                      f"{', '.join(caught) or 'none'}")
+                if not caught:
+                    fail(f"--mesh_{kind} 2: the limits do not see the planted fault ({fault})")
+        state = ranks[0]["state"]
+        worst = max((state[n] - w).abs().max().item() for n, w in reference.items())
+        print(f"--mesh_{kind} 2: largest parameter difference from one process after 2 steps "
+              f"at train_cli's default lr 2e-5: {worst:.3e}; {time.perf_counter() - t1:.1f} s "
+              f"with the ranks' start")
+        del ranks, state
+    check_ring_on_card(torch)
+    print(f"phase 5c (remat, data and tensor parallelism, the ring): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timed generation
 # ---------------------------------------------------------------------------
 
@@ -1601,6 +1993,7 @@ def main():
         check_layernorm_bwd(torch, rows + 1, 99, dtype, tol)
         check_dal(torch, rows + 1, 99, dtype, 0.1, tol)
     time_ln_bwd_passes(torch, rows, 768, card)
+    check_dropout_places(torch, card)
     decode_int8 = check_decode(torch, True, timed=True)  # the JSON line's row: int8, staged
     check_decode(torch, False, timed=True)
     for shape in DECODE_SHAPES:
@@ -1730,6 +2123,10 @@ def main():
         native_counts = native_phase(torch, tmp, trained, train_args, drop0)
         del drop0
 
+        # phase 5c ------------------------------------------------------
+        parallel_counts = parallel_phase(torch, tmp, train_args, card)
+        torch.cuda.empty_cache()
+
         # phase 6 -------------------------------------------------------
         padded_counts = serve_padded_heads(torch, vocab)
         model = load_model_dir(trained, torch.bfloat16, "cuda")[1]
@@ -1806,8 +2203,9 @@ def main():
     measured = {"flash_rel_attn_fwd": flash, "ln_fwd": ln, "ln_bwd": ln_bwd,
                 "flash_rel_attn_bwd": flash_bwd, **bwd_kernels, "dropout": dropout,
                 "dal_fwd": dal_fwd, "dal_bwd": dal_bwd, "decode_attn_stacked": decode_int8}
-    paths = (train_counts, drop0_counts, *decomposition_counts, *native_counts, padded_counts,
-             serve_counts, int8_counts, unstaged_counts, exact_counts)
+    paths = (train_counts, drop0_counts, *decomposition_counts, *native_counts,
+             *parallel_counts, padded_counts, serve_counts, int8_counts, unstaged_counts,
+             exact_counts)
     kernels = []
     for name, route, source, replaces in KERNELS:
         m = measured[name]
@@ -1826,4 +2224,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase 5c's mesh part
+        mesh_rank(*sys.argv[2:7])
+    else:
+        main()

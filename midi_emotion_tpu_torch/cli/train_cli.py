@@ -8,9 +8,17 @@ train_cli.py`` (and so of the reference's ``config.py:5-156``), plus
         --feature_file <csv> --work_dir <dir> --device cuda
 
 ``--attn_impl`` takes ``auto`` (the flash kernels on a CUDA device, the
-plain closed form on the CPU), ``kernel`` or ``plain``; ``ring`` and the
-``--mesh_*`` and ``--remat dots|full`` flags are parsed and raise
-NotImplementedError in the Runner until their ROADMAP items land.
+plain closed form on the CPU), ``kernel``, ``plain`` or ``ring`` (with
+``--mesh_seq`` > 1). On several cards, one process per card under
+torchrun:
+
+    torchrun --nproc_per_node N -m midi_emotion_tpu_torch.cli.train_cli \
+        --mesh_data N ...
+
+``--mesh_data`` x ``--mesh_model`` x ``--mesh_seq`` must equal the number
+of processes (``--mesh_data`` defaults to what is left); ``--remat
+none|dots|full|auto`` recomputes each encoder layer's activations in the
+backward (``auto``: none under the flash kernels, dots otherwise).
 """
 
 from __future__ import annotations
@@ -81,9 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--regression", action="store_true")
     p.add_argument("--always_use_discrete_condition", action="store_true")
     p.add_argument("--regression_dir", type=str, default=None)
-    # the JAX package's extras; a mesh is not ported yet (see the Runner)
+    # the JAX package's extras: the process mesh (see the Runner)
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="data-parallel mesh size (only 1 is ported)")
+                   help="data-parallel mesh size (default: processes / (model * seq))")
     p.add_argument("--mesh_model", type=int, default=1,
                    help="tensor-parallel mesh size")
     p.add_argument("--mesh_seq", type=int, default=1,
@@ -93,12 +101,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn_impl", type=str, default="auto",
                    choices=["auto", "kernel", "plain", "ring"],
                    help="'auto' = the flash kernels on CUDA, the plain closed form "
-                        "on CPU; 'ring' is not ported yet")
+                        "on CPU; 'ring' = sequence-parallel ring attention over --mesh_seq")
     # the reference hard-codes 2048 (build_model.py:22); here the E and
     # positional tables are sized by this flag
     p.add_argument("--max_seq", type=int, default=2048)
-    # activation recomputation: not ported; the flash kernels keep the
-    # attention O(T) in memory, so "auto" = "none" trains the flagship
+    # activation recomputation of each encoder layer; "auto" = "none" under
+    # the flash kernels (O(T) attention memory), "dots" otherwise
     p.add_argument("--remat", type=str, default="auto",
                    choices=["auto", "none", "dots", "full"])
     p.add_argument("--profile_dir", type=str, default=None,

@@ -39,22 +39,52 @@ the positional add (JAX ``model.py:453``) and ``LN(x + dropout(attn))``,
 ``ops/fused_dropout.py``. One seed per site is drawn from the ``generator``
 passed to ``forward``; a site's forward and backward share it, so their
 masks are the same bits.
+
+With ``config.remat`` (``ModelConfig.remat`` / ``remat_policy``, the JAX
+package's ``nn.remat(EncoderLayer, policy=...)``, ``model.py:360-366``) a
+training forward runs each encoder layer under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: "full" keeps
+nothing of the layer and reruns it whole in the backward; "dots" keeps the
+outputs of the products without batch dimensions (``aten.mm`` and
+``aten.addmm``: the Linear layers, as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps the
+Dense results) through a selective-checkpoint policy and reruns the rest.
+The flash and dropout kernels are launched through ctypes and Triton, out
+of the policy's sight, so the recompute reruns each of them whole into
+buffers it allocates afresh. The dropout seeds are drawn once per forward,
+outside the checkpointed layer, and passed in, so the recompute draws the
+same masks (as ``dropout_seeds`` stays outside ``nn.remat`` in JAX).
+
+``parallelize(mesh)`` puts the model on a mesh (``parallel/mesh.py``):
+its parameters are cut to this rank's tensor-parallel shards (Megatron's
+layers: each rank runs the attention of n_head / n_model heads and its
+slice of the MLP) and, with a "seq" axis, the layer stack runs on this
+rank's T / n_seq positions, the attention as a ring
+(``parallel/ring_attention.py``, ``attn_impl="ring"``). The embedding and
+the positions are taken for the whole sequence, so positions and the
+causal mask stay global. Each dropout site draws this rank's slice of the
+mask of the global [B, T, D] activation (``ops/fused_dropout.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention import decode_rel_attention, relative_attention, resolve_attn_impl
 from ..ops.decode_attention import (cache_dh, cache_rows, decode_attn_cached, expand_e_rows,
                                     merge_self, quantize_rows)
 from ..ops.fused_dropout import dropout_add_layernorm, fused_dropout
 from ..ops.layernorm import LayerNorm
+from ..parallel import mesh as mesh_lib
+from ..parallel.ring_attention import ring_relative_attention
 from .config import ModelConfig
 from .positional import sinusoid_table
 
@@ -74,19 +104,51 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def resolve_remat(remat: str, attn_impl: str) -> str:
+    """``--remat auto`` as the JAX Runner resolves it (``train.py:129-134``):
+    "none" under the flash kernels, whose attention is O(T) in memory, and
+    "dots" under the plain closed form and the ring, which hold [T, T]
+    scores per layer. Other choices stand."""
+    if remat not in ("auto", "none", "dots", "full"):
+        raise ValueError(f"remat must be auto, none, dots or full, got {remat!r}")
+    if remat != "auto":
+        return remat
+    return "none" if attn_impl == "kernel" else "dots"
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the products without batch dimensions, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` that computes in its input's dtype: parameters held in
-    another type (the training model's f32 masters) are cast at each use."""
+    another type (the training model's f32 masters) are cast at each use.
+    Row-parallel under tensor parallelism (``reduce_group`` set): the
+    product of this rank's input columns is summed over the group before
+    the bias, which is replicated."""
+
+    reduce_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.weight, self.bias
         if w.dtype != x.dtype:  # no cast call at all on the serving path
             w, b = w.to(x.dtype), b.to(x.dtype)
-        return F.linear(x, w, b)
+        if self.reduce_group is None:
+            return F.linear(x, w, b)
+        return mesh_lib.reduce_from(F.linear(x, w), self.reduce_group) + b
 
 
 class RelativeGlobalAttention(nn.Module):
-    """Multi-head attention with the learned relative table E [max_seq, dh]."""
+    """Multi-head attention with the learned relative table E [max_seq, dh].
+    Under tensor parallelism (``tp_group`` set) it holds n_head / n_model
+    heads' projections; under a seq axis (``seq``: the seq group and its
+    ranks) its prefill attention is the ring."""
+
+    tp_group = None
+    seq = None
 
     def __init__(self, d_model: int, n_head: int, max_seq: int, dtype, device,
                  attn_impl: str):
@@ -108,13 +170,22 @@ class RelativeGlobalAttention(nn.Module):
                 return_kv: bool = False):
         """x [B, T, d]. With ``return_kv`` also returns this layer's K and V
         in the cache layout, time-major [B, T, d]."""
-        B, T, d = x.shape
+        B, T, _ = x.shape
+        x = mesh_lib.copy_to(x, self.tp_group)
         k_rows, v_rows = self.Wk(x), self.Wv(x)
-        out = relative_attention(
-            self._heads(self.Wq(x)), self._heads(k_rows), self._heads(v_rows),
-            self.E.to(x.dtype), causal=causal, pad_keys=pad_keys, impl=self.attn_impl,
-        )
-        out = self.fc(out.transpose(1, 2).reshape(B, T, d))
+        q, k, v = self._heads(self.Wq(x)), self._heads(k_rows), self._heads(v_rows)
+        # E is replicated but each rank uses it for its own heads
+        e = mesh_lib.copy_to(self.E.to(x.dtype), self.tp_group)
+        if self.attn_impl == "ring":
+            if self.seq is None:
+                raise ValueError("attn_impl='ring' runs on a seq mesh axis: "
+                                 "call parallelize(mesh) first")
+            out = ring_relative_attention(q, k, v, e, *self.seq, causal=causal,
+                                          pad_keys=pad_keys)
+        else:
+            out = relative_attention(q, k, v, e, causal=causal, pad_keys=pad_keys,
+                                     impl=self.attn_impl)
+        out = self.fc(out.transpose(1, 2).reshape(B, T, -1))
         if return_kv:
             return out, k_rows, v_rows
         return out
@@ -179,7 +250,11 @@ class RelativeGlobalAttention(nn.Module):
 
 class EncoderLayer(nn.Module):
     """Post-LN block: RGA -> LN(x + dropout(attn)) -> ReLU MLP ->
-    LN(. + dropout(mlp)). Dropout runs only when ``drop_seeds`` is given."""
+    LN(. + dropout(mlp)). Dropout runs only when ``drop_seeds`` is given,
+    at ``place`` in the global activation. Under tensor parallelism
+    (``ffn_group`` set) FFN_pre is column- and FFN_suf row-parallel."""
+
+    ffn_group = None
 
     def __init__(self, d_model: int, d_inner: int, n_head: int, max_seq: int,
                  dropout: float, dtype, device, attn_impl: str):
@@ -192,22 +267,23 @@ class EncoderLayer(nn.Module):
         self.layernorm2 = LayerNorm(d_model, eps=1e-6, device=device)
 
     def _add_norm(self, ln: LayerNorm, res: torch.Tensor, sub: torch.Tensor,
-                  seed: Optional[int]) -> torch.Tensor:
+                  seed: Optional[int], place=None) -> torch.Tensor:
         if seed is None:
             return ln(res + sub)
-        return dropout_add_layernorm(sub, res, ln.weight, ln.bias, seed, self.dropout, ln.eps)
+        return dropout_add_layernorm(sub, res, ln.weight, ln.bias, seed, self.dropout, ln.eps,
+                                     place=place)
 
-    def _mlp_block(self, x, attn, drop_seeds=(None, None)):
-        out1 = self._add_norm(self.layernorm1, x, attn, drop_seeds[0])
-        ffn = self.FFN_suf(F.relu(self.FFN_pre(out1)))
-        return self._add_norm(self.layernorm2, out1, ffn, drop_seeds[1])
+    def _mlp_block(self, x, attn, drop_seeds=(None, None), place=None):
+        out1 = self._add_norm(self.layernorm1, x, attn, drop_seeds[0], place)
+        ffn = self.FFN_suf(F.relu(self.FFN_pre(mesh_lib.copy_to(out1, self.ffn_group))))
+        return self._add_norm(self.layernorm2, out1, ffn, drop_seeds[1], place)
 
     def forward(self, x, pad_keys, causal: bool = True, return_kv: bool = False,
-                drop_seeds=(None, None)):
+                drop_seeds=(None, None), place=None):
         if return_kv:
             attn, k, v = self.rga(x, causal, pad_keys, return_kv=True)
             return self._mlp_block(x, attn), k, v
-        return self._mlp_block(x, self.rga(x, causal, pad_keys), drop_seeds)
+        return self._mlp_block(x, self.rga(x, causal, pad_keys), drop_seeds, place)
 
     def decode(self, x_t, k_cache, v_cache, length: int):
         return self._mlp_block(x_t, self.rga.decode(x_t, k_cache, v_cache, length))
@@ -223,7 +299,11 @@ class EncoderLayer(nn.Module):
 class MusicTransformer(nn.Module):
     """The model, on ``device`` (the card unless the caller asks for the
     CPU), computing in ``dtype`` with parameters held in ``param_dtype``
-    (default ``dtype``)."""
+    (default ``dtype``). ``mesh`` is None until ``parallelize``."""
+
+    mesh = None
+    _embed_group = None  # the model group when the vocabulary is sharded
+    _head_group = None  # the model group when the output head is sharded
 
     def __init__(self, config: ModelConfig, dtype=torch.float32, device="cuda",
                  attn_impl: str = "auto", param_dtype=None):
@@ -285,9 +365,56 @@ class MusicTransformer(nn.Module):
         return self
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
+    def parallelize(self, mesh: "mesh_lib.Mesh") -> "MusicTransformer":
+        """Put the model on ``mesh``: cut each parameter that the rules shard
+        (``mesh_lib.shard_dim``) to this rank's slice, in place, and wire
+        the tensor-parallel collectives and the ring. Every rank must hold
+        the same whole model when it calls this."""
+        cfg = self.config
+        n = mesh.shape["model"]
+        if mesh.shape["seq"] > 1:
+            if self.attn_impl != "ring":
+                raise ValueError("a seq mesh axis runs the attention as a ring: "
+                                 "use attn_impl='ring'")
+            if cfg.is_regression:
+                raise NotImplementedError("the regression model reads position 0 only; it "
+                                          "does not run on a seq mesh axis")
+        elif self.attn_impl == "ring":
+            raise ValueError("attn_impl='ring' needs a seq mesh axis (--mesh_seq > 1)")
+        dims = mesh_lib.shard_dims(self.named_parameters(), n)
+        group = mesh.group("model")
+        for i, layer in enumerate(self.enc_layers):
+            p = f"enc_layers.{i}."
+            if dims[p + "rga.Wq.weight"] is not None:  # d_model divides: all four shard
+                if cfg.n_head % n:
+                    raise ValueError(f"{cfg.n_head} heads do not divide over {n} model ranks")
+                layer.rga.tp_group = layer.rga.fc.reduce_group = group
+                layer.rga.n_head //= n
+            if dims[p + "FFN_pre.weight"] is not None:  # d_inner divides: both shard
+                layer.ffn_group = layer.FFN_suf.reduce_group = group
+            if mesh.shape["seq"] > 1:
+                layer.rga.seq = (mesh.group("seq"), mesh.ranks("seq"))
+        if dims["embedding.weight"] is not None:
+            self._embed_group = group
+        if dims["fc.0.weight" if cfg.is_regression else "fc.weight"] is not None:
+            self._head_group = group
+        for name, prm in self.named_parameters():
+            prm.data = mesh_lib.local_part(prm.data, dims[name], mesh)
+        self.mesh, self.shard_dims = mesh, dims
+        return self
+
     def _scaled_embedding(self, tokens: torch.Tensor) -> torch.Tensor:
         # embed_dim is d_model in every mode but continuous_concat
-        return self.embedding(tokens).to(self.dtype) * math.sqrt(self.config.embed_dim)
+        if self._embed_group is None:
+            x = self.embedding(tokens)
+        else:  # this rank's rows of the vocabulary; the others' rows are 0 here
+            w = self.embedding.weight
+            local = tokens - self.mesh.coords["model"] * w.shape[0]
+            live = (local >= 0) & (local < w.shape[0])
+            x = F.embedding(local.clamp(0, w.shape[0] - 1), w) * live[..., None]
+            x = mesh_lib.reduce_from(x, self._embed_group)
+        return x.to(self.dtype) * math.sqrt(self.config.embed_dim)
 
     def _embed(self, tokens: torch.Tensor, condition: Optional[torch.Tensor]):
         """Token and condition embedding -> (x [B, T', d_model], causal,
@@ -326,15 +453,55 @@ class MusicTransformer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """tokens [B, T] int; condition [B, 2] float (ignored by none,
         discrete_token and regression). Returns logits [B, T + prefix,
-        vocab], or [B, output_size] for regression.
+        vocab] (on a seq mesh axis, this rank's positions of them:
+        ``seq_part``), or [B, output_size] for regression.
 
         In training mode with ``dropout > 0`` the dropout seeds are drawn
         from ``generator``, a CPU ``torch.Generator`` (torch's default one
         when None)."""
         x = self.features(tokens, condition, generator)
         if self.config.is_regression:
-            return self.fc(x[:, 0, :])
-        return self.fc(x)
+            return self._head(x[:, 0, :])
+        return self._head(x)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        if self._head_group is None:
+            return self.fc(x)
+        m = self.mesh
+        y = self.fc(mesh_lib.copy_to(x, self._head_group))
+        return mesh_lib.gather_from(y, self._head_group, m.coords["model"], m.shape["model"])
+
+    def seq_part(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's positions of a [B, T, ...] tensor along dim 1 (the
+        model-internal sequence, the continuous_token prefix included):
+        [i * T / n, (i + 1) * T / n) on seq rank i of n, contiguous, as the
+        kernels take it; t itself without a seq axis."""
+        if self.mesh is None or self.mesh.shape["seq"] == 1:
+            return t
+        n, i = self.mesh.shape["seq"], self.mesh.coords["seq"]
+        T = t.shape[1]
+        if T % n:
+            raise ValueError(f"the model's sequence of {T} does not divide over {n} seq ranks")
+        return t[:, i * T // n:(i + 1) * T // n].contiguous()
+
+    def dropout_place(self, B: int, T: int):
+        """(b0, t0, T_g) of this rank's [B, T, D] activation in the global
+        one, or None off a mesh."""
+        if self.mesh is None:
+            return None
+        m = self.mesh
+        return m.coords["data"] * B, m.coords["seq"] * T, T * m.shape["seq"]
+
+    def _remat_layer(self):
+        """The layer call under this forward's recomputation, or None."""
+        cfg = self.config
+        if not (cfg.remat and self.training and torch.is_grad_enabled()):
+            return None
+        kw = dict(use_reentrant=False)
+        if cfg.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _dots_policy)
+        return lambda layer, *args, **kwargs: checkpoint(layer, *args, **kw, **kwargs)
 
     def features(self, tokens: torch.Tensor, condition: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
@@ -342,12 +509,20 @@ class MusicTransformer(nn.Module):
         """The forward pass up to the output head: [B, T + prefix, d_model].
         ``deterministic`` runs no dropout even in training mode."""
         x, causal, pad_keys = self._embed(tokens, condition)
+        x = self.seq_part(x)
+        if pad_keys is not None:
+            pad_keys = self.seq_part(pad_keys)
+        place = self.dropout_place(x.shape[0], x.shape[1])
         seeds = None if deterministic else self.dropout_seeds(generator)
         if seeds is not None:
-            x = fused_dropout(x, seeds[0], self.config.dropout)
+            x = fused_dropout(x, seeds[0], self.config.dropout, place=place)
+        remat = self._remat_layer()
         for i, layer in enumerate(self.enc_layers):
             drop = (None, None) if seeds is None else (seeds[1 + 2 * i], seeds[2 + 2 * i])
-            x = layer(x, pad_keys, causal, drop_seeds=drop)
+            if remat is None:
+                x = layer(x, pad_keys, causal, drop_seeds=drop, place=place)
+            else:
+                x = remat(layer, x, pad_keys, causal, drop_seeds=drop, place=place)
         return x
 
     def dropout_seeds(self, generator: Optional[torch.Generator]) -> Optional[List[int]]:

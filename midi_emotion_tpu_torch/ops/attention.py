@@ -14,7 +14,9 @@ package.
 ``impl`` selects the prefill attention: "kernel" is the hand-written flash
 kernel (``ops/flash_attention.py``), "plain" the closed form below, and
 "auto" picks the kernel for a CUDA tensor and the closed form for a CPU
-one.
+one. "ring" is the sequence-sharded ring of ``parallel/ring_attention.py``,
+which the model runs on a mesh with a seq axis; this module's
+``relative_attention`` does not take it.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-ATTN_IMPLS = ("auto", "kernel", "plain")
+ATTN_IMPLS = ("auto", "kernel", "plain", "ring")
 
 
 def resolve_attn_impl(impl: str, device: torch.device) -> str:
@@ -67,10 +69,14 @@ def relative_attention(
     Returns [B, H, L, dh]. The "plain" path gives NaN on a query row whose
     keys are all masked, as the JAX closed form does; the kernel gives 0.
     """
-    if resolve_attn_impl(impl, q.device) == "kernel":
+    impl = resolve_attn_impl(impl, q.device)
+    if impl == "kernel":
         from .flash_attention import flash_rel_attention
 
         return flash_rel_attention(q, k, v, e, causal, pad_keys)[0]
+    if impl == "ring":
+        raise ValueError("impl 'ring' runs in the model on a seq mesh axis "
+                         "(parallel/ring_attention.py), not on whole arrays")
 
     L, dh = q.shape[2], q.shape[-1]
     srel = rel_position_bias(q, e)

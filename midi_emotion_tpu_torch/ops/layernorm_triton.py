@@ -28,6 +28,15 @@ depends on (seed, index) only, not on the block layout, so the forward and
 backward kernels of one site, and the dropout and dropout+LN kernels given
 one seed and shape, draw the same mask.
 
+Under a mesh a rank holds a slice [B, T, D] of a global [B_g, T_g, D]
+activation, from batch row b0 and position t0. With ``GLOBAL`` the three
+dropout kernels index the mask by the element's place in the global tensor:
+local row r = b * T + t draws as global row ``(b0 + r // T) * T_g + t0 + r % T``
+(``_global_rows``), so each rank draws its slice of the mask one process
+draws on the global batch. Without it (the default place: b0 = t0 = 0,
+T_g = T, where the two indexings agree) the kernels run the code they ran
+before the mesh, bit for bit.
+
 Importing this module imports triton, which CPU-only machines lack, so the
 ops import it on their first launch on a CUDA tensor.
 """
@@ -59,6 +68,13 @@ def _keep(seed, offs, thresh):
 
 
 @triton.jit
+def _global_rows(rows, b0, t0, T, T_g):
+    """Global row of local rows ``rows`` of a [B, T, D] slice that starts at
+    batch row b0 and position t0 of a [B_g, T_g, D] tensor."""
+    return (b0 + rows // T) * T_g + t0 + rows % T
+
+
+@triton.jit
 def _dropped(s, keep, inv_keep):
     """where(keep, s * inv_keep, 0), the product in f32 rounded to s's type."""
     return tl.where(keep, s.to(tl.float32) * inv_keep, 0.0).to(s.dtype)
@@ -81,9 +97,9 @@ def ln_fwd(x_ptr, w_ptr, b_ptr, y_ptr, D, eps, BLOCK_D: tl.constexpr):
     tl.store(y_ptr + row * D + cols, y.to(y_ptr.dtype.element_ty), mask=live)
 
 
-@triton.jit(do_not_specialize=["seed"])
-def dal_fwd(s_ptr, r_ptr, w_ptr, b_ptr, y_ptr, D, eps, seed, thresh, inv_keep,
-            BLOCK_D: tl.constexpr):
+@triton.jit(do_not_specialize=["seed", "b0", "t0"])
+def dal_fwd(s_ptr, r_ptr, w_ptr, b_ptr, y_ptr, D, eps, seed, thresh, inv_keep, b0, t0, T, T_g,
+            GLOBAL: tl.constexpr, BLOCK_D: tl.constexpr):
     """One program per row: y = LN(r + dropout(s)). The add runs in the
     input type, the statistics in f32."""
     row = tl.program_id(0)
@@ -92,7 +108,11 @@ def dal_fwd(s_ptr, r_ptr, w_ptr, b_ptr, y_ptr, D, eps, seed, thresh, inv_keep,
     offs = row * D + cols  # int32 flat index: the mask's counter
     s = tl.load(s_ptr + offs, mask=live, other=0.0)
     r = tl.load(r_ptr + offs, mask=live, other=0.0)
-    xs = _dropped(s, _keep(seed, offs, thresh), inv_keep)
+    if GLOBAL:
+        idx = _global_rows(row, b0, t0, T, T_g) * D + cols
+    else:
+        idx = offs
+    xs = _dropped(s, _keep(seed, idx, thresh), inv_keep)
     x = (r.to(tl.float32) + xs.to(tl.float32)).to(r.dtype).to(tl.float32)
     mean = tl.sum(x, axis=0) / D
     xc = tl.where(live, x - mean, 0.0)
@@ -118,16 +138,17 @@ def _keep_tile(seed, rows, cols, D, thresh, ALIGN4: tl.constexpr, BLOCK_D: tl.co
     return _keep(seed, rows[:, None] * D + cols[None, :], thresh)
 
 
-@triton.jit(do_not_specialize=["seed"])
+@triton.jit(do_not_specialize=["seed", "b0", "t0"])
 def ln_bwd(x_ptr, s_ptr, dy_ptr, w_ptr, dx_ptr, ds_ptr, part_ptr, N, D, eps, seed, thresh,
-           inv_keep, HAS_DROPOUT: tl.constexpr, ALIGN4: tl.constexpr, ROWS: tl.constexpr,
-           BLOCK_D: tl.constexpr, STAGES: tl.constexpr):
+           inv_keep, b0, t0, T, T_g, HAS_DROPOUT: tl.constexpr, GLOBAL: tl.constexpr,
+           ALIGN4: tl.constexpr, ROWS: tl.constexpr, BLOCK_D: tl.constexpr,
+           STAGES: tl.constexpr):
     """Program p takes the tiles of ROWS rows p, p + n_prog, ...: dx =
     (w*dy - mean(w*dy) - xhat * mean(w*dy*xhat)) * rstd with the
     statistics recomputed, and sums dy*xhat and dy over its rows into f32
     partials part[0, p, :], part[1, p, :]. With HAS_DROPOUT, x is r +
     dropout(s) (r at x_ptr), dx is dr, and ds = where(keep, dx * inv_keep,
-    0) from the same mask."""
+    0) from the same mask, drawn at the global rows under GLOBAL."""
     pid = tl.program_id(0)
     n_prog = tl.num_programs(0)
     cols = tl.arange(0, BLOCK_D)
@@ -142,7 +163,11 @@ def ln_bwd(x_ptr, s_ptr, dy_ptr, w_ptr, dx_ptr, ds_ptr, part_ptr, N, D, eps, see
         x = tl.load(x_ptr + offs, mask=m, other=0.0)
         dy = tl.load(dy_ptr + offs, mask=m, other=0.0).to(tl.float32)
         if HAS_DROPOUT:
-            keep = _keep_tile(seed, rows, cols, D, thresh, ALIGN4, BLOCK_D)
+            if GLOBAL:
+                keep = _keep_tile(seed, _global_rows(rows, b0, t0, T, T_g), cols, D, thresh,
+                                  ALIGN4, BLOCK_D)
+            else:
+                keep = _keep_tile(seed, rows, cols, D, thresh, ALIGN4, BLOCK_D)
             xs = _dropped(tl.load(s_ptr + offs, mask=m, other=0.0), keep, inv_keep)
             xf = (x.to(tl.float32) + xs.to(tl.float32)).to(x.dtype).to(tl.float32)
         else:
@@ -182,18 +207,32 @@ def col_sum(part_ptr, out_ptr, P, D, BLOCK_P: tl.constexpr, BLOCK_C: tl.constexp
     tl.store(out_ptr + g * D + cols, acc, mask=live)
 
 
-@triton.jit(do_not_specialize=["seed"])
-def dropout(x_ptr, y_ptr, N, seed, thresh, inv_keep, BLOCK: tl.constexpr):
+@triton.jit(do_not_specialize=["seed", "b0", "t0"])
+def dropout(x_ptr, y_ptr, N, seed, thresh, inv_keep, D, b0, t0, T, T_g, GLOBAL: tl.constexpr,
+            PER_ELEMENT: tl.constexpr, BLOCK: tl.constexpr):
     """y = where(keep, x * inv_keep, 0) over a flat block of BLOCK elements,
-    one Philox call per four elements (the mask of ``_keep``)."""
+    one Philox call per four elements (the mask of ``_keep``). Under GLOBAL
+    the elements of row r draw at global row ``_global_rows(r)``: still one
+    call per four when D % 4 == 0 (a row then starts a group of four),
+    else one per element."""
     pid = tl.program_id(0)
-    r0, r1, r2, r3 = tl.randint4x(seed, pid * (BLOCK // 4) + tl.arange(0, BLOCK // 4))
-    # words in element order: element 4c + w takes word w of counter c
-    bits = tl.interleave(tl.interleave(r0, r2), tl.interleave(r1, r3))
-    offs = pid * BLOCK + tl.arange(0, BLOCK)
-    live = offs < N
-    x = tl.load(x_ptr + offs, mask=live, other=0.0)
-    tl.store(y_ptr + offs, _dropped(x, _keep_bits(bits, thresh), inv_keep), mask=live)
+    if PER_ELEMENT:  # GLOBAL, D % 4 != 0
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        live = offs < N
+        x = tl.load(x_ptr + offs, mask=live, other=0.0)
+        keep = _keep(seed, _global_rows(offs // D, b0, t0, T, T_g) * D + offs % D, thresh)
+    else:
+        ctr = pid * (BLOCK // 4) + tl.arange(0, BLOCK // 4)
+        if GLOBAL:  # counter c of local row c // (D / 4) -> the same column of the global row
+            ctr = _global_rows(ctr // (D // 4), b0, t0, T, T_g) * (D // 4) + ctr % (D // 4)
+        r0, r1, r2, r3 = tl.randint4x(seed, ctr)
+        # words in element order: element 4c + w takes word w of counter c
+        bits = tl.interleave(tl.interleave(r0, r2), tl.interleave(r1, r3))
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        live = offs < N
+        x = tl.load(x_ptr + offs, mask=live, other=0.0)
+        keep = _keep_bits(bits, thresh)
+    tl.store(y_ptr + offs, _dropped(x, keep, inv_keep), mask=live)
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,10 +246,16 @@ def ln_fwd_launch(x, weight, bias, y, eps: float) -> None:
                               BLOCK_D=triton.next_power_of_2(D), num_warps=4)
 
 
+# a dropout kernel's place in the global tensor: (b0, t0, T, T_g), or None
+# for the default place, where local and global indices agree
+NO_PLACE = (0, 0, 1, 1)
+
+
 def dal_fwd_launch(sub, res, weight, bias, y, eps: float, seed: int, thresh: int,
-                   inv_keep: float) -> None:
+                   inv_keep: float, place=None) -> None:
     D = sub.shape[-1]
     dal_fwd[(sub.numel() // D,)](sub, res, weight, bias, y, D, eps, seed, thresh, inv_keep,
+                                 *(place or NO_PLACE), GLOBAL=place is not None,
                                  BLOCK_D=triton.next_power_of_2(D), num_warps=4)
 
 
@@ -224,10 +269,11 @@ LN_BWD_STAGE_BYTES = 96 * 1024
 
 
 def ln_bwd_launch(x, sub, dy, weight, dx, ds, eps: float, seed: int = 0, thresh: int = 0,
-                  inv_keep: float = 1.0, reduce: bool = True):
+                  inv_keep: float = 1.0, reduce: bool = True, place=None):
     """dx (and ds when ``sub`` is given) in place; returns (dweight,
     dbias) in f32, summed by ``col_sum`` from the row pass's per-program
-    partials, or with ``reduce`` False the partials [2, programs, D]."""
+    partials, or with ``reduce`` False the partials [2, programs, D].
+    ``place`` as in ``dal_fwd_launch``."""
     D = x.shape[-1]
     N = x.numel() // D
     block_d = triton.next_power_of_2(D)
@@ -239,7 +285,8 @@ def ln_bwd_launch(x, sub, dy, weight, dx, ds, eps: float, seed: int = 0, thresh:
     part = torch.empty((2, n_prog, D), dtype=torch.float32, device=x.device)
     ln_bwd[(n_prog,)](
         x, sub if has_dropout else x, dy, weight, dx, ds if has_dropout else dx, part,
-        N, D, eps, seed, thresh, inv_keep, HAS_DROPOUT=has_dropout, ALIGN4=D % 4 == 0,
+        N, D, eps, seed, thresh, inv_keep, *(place or NO_PLACE), HAS_DROPOUT=has_dropout,
+        GLOBAL=place is not None, ALIGN4=D % 4 == 0,
         ROWS=rows, BLOCK_D=block_d, STAGES=stages, num_warps=max(1, rows * block_d // 1024))
     return col_sum_launch(part) if reduce else part
 
@@ -255,8 +302,11 @@ def col_sum_launch(part):
     return out[0], out[1]
 
 
-def dropout_launch(x, y, seed: int, thresh: int, inv_keep: float) -> None:
+def dropout_launch(x, y, seed: int, thresh: int, inv_keep: float, place=None) -> None:
     n = x.numel()
+    D = x.shape[-1]
     block = 4096
-    dropout[(triton.cdiv(n, block),)](x, y, n, seed, thresh, inv_keep, BLOCK=block,
+    dropout[(triton.cdiv(n, block),)](x, y, n, seed, thresh, inv_keep, D, *(place or NO_PLACE),
+                                      GLOBAL=place is not None,
+                                      PER_ELEMENT=place is not None and D % 4 != 0, BLOCK=block,
                                       num_warps=8)

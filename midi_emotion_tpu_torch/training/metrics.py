@@ -24,14 +24,29 @@ def topk_accuracy(
 ) -> Dict[str, torch.Tensor]:
     """Top-k accuracy over non-pad targets, plus the valid-element count
     for weighted aggregation."""
+    counts = topk_counts(logits, target, topk, ignore_index)
+    n_valid = counts["n_valid"]
+    out = {f"top{k}": counts[f"top{k}"] / n_valid.clamp(min=1) for k in topk}
+    out["n_valid"] = n_valid
+    return out
+
+
+def topk_counts(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    topk: Sequence[int] = (1, 5),
+    ignore_index: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """The number of non-pad targets within the top k, for each k, and the
+    number of non-pad targets ("n_valid"): the sums a mesh adds up over its
+    ranks before it divides."""
     logits = logits.reshape(-1, logits.shape[-1])
     target = target.reshape(-1)
     valid = target != ignore_index
-    n_valid = valid.sum()
     _, pred = torch.topk(logits.float(), max(topk), dim=-1, sorted=True)
     correct = (pred == target[:, None]) & valid[:, None]
-    out = {f"top{k}": correct[:, :k].sum() / n_valid.clamp(min=1) for k in topk}
-    out["n_valid"] = n_valid
+    out = {f"top{k}": correct[:, :k].sum() for k in topk}
+    out["n_valid"] = valid.sum()
     return out
 
 

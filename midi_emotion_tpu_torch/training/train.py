@@ -6,17 +6,32 @@ logging and checkpointing every ``log_step``, evaluation every
 ``eval_step`` with the optional plateau LR, ``find_lr`` and resume from a
 work dir of either layout (``--restart_dir``: the reference's, or a native
 dir the JAX package trained, with its Adam state). The step is
-``train_step.make_train_step`` on one device, the card unless
-``--device`` says otherwise.
+``train_step.make_train_step``, on the card unless ``--device`` says
+otherwise.
 
-There is no mesh: ``--mesh_data``/``--mesh_model``/``--mesh_seq`` other
-than 1, ``--attn_impl ring`` and ``--remat dots|full`` raise
-NotImplementedError, each naming its ROADMAP item. ``--profile_dir``
-writes a ``torch.profiler`` trace of ``--profile_steps`` steps.
+Under torchrun (``WORLD_SIZE`` > 1) the Runner starts the process group
+(NCCL on cards, each rank on ``cuda:LOCAL_RANK``; gloo on the CPU; a caller
+may start it first with another backend) and lays the ranks on the
+(``--mesh_data``, ``--mesh_model``, ``--mesh_seq``) mesh
+(``parallel/mesh.py``). Every rank builds the loader and the model from
+the same seed and takes its rows of each global batch; the model is cut to
+the rank's tensor-parallel shards, and with ``--mesh_seq`` > 1
+(``--attn_impl ring``) its layers run on the rank's positions. Losses,
+grad norms, eval metrics and ``performance.csv`` are the global batch's.
+Only rank 0 writes the work dir, its logs and checkpoints (whole, in the
+layout one process writes; ``--restart_dir`` is cut to the mesh again) and
+generates the corner samples, with the whole model; the other ranks wait
+at a barrier. ``--remat`` resolves as in the JAX Runner
+(``models.model.resolve_remat``) into the run's config, a restarted
+run's too, whatever the config it loads holds: recomputation changes no
+result, only memory and time (the JAX Runner keeps a loaded config's
+remat). ``--profile_dir`` writes a
+``torch.profiler`` trace of ``--profile_steps`` steps from rank 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import time
@@ -27,7 +42,9 @@ import torch
 from ..data.features import preprocess_features
 from ..data.loader import Loader, LoaderExhaustive, LoaderGenerations
 from ..models.config import ModelConfig
-from ..models.model import MusicTransformer, resolve_device
+from ..models.model import MusicTransformer, resolve_device, resolve_remat
+from ..ops.attention import resolve_attn_impl
+from ..parallel import mesh as mesh_lib
 from ..vocab import Vocab
 from . import checkpoint as ckpt
 from .metrics import CsvWriter, create_exp_dir
@@ -37,32 +54,34 @@ from .train_step import make_eval_step, make_optimizer, make_train_step
 CSV_FIELDS = ["epoch", "step", "hour", "lr", "trn_loss", "val_loss", "val_l1_v", "val_l1_a"]
 
 
-def _check_unported(args) -> None:
-    meshes = {"--mesh_data": args.mesh_data, "--mesh_model": args.mesh_model,
-              "--mesh_seq": args.mesh_seq}
-    for flag, n in meshes.items():
-        if n not in (None, 1):
-            raise NotImplementedError(
-                f"{flag} {n}: the torch port has no device mesh yet (ROADMAP queue 1, "
-                "item 5: data, tensor and ring-attention parallelism)")
-    if args.attn_impl == "ring":
-        raise NotImplementedError(
-            "--attn_impl ring: ring attention is not ported yet (ROADMAP queue 1, item 5)")
-    if args.remat not in ("auto", "none"):
-        raise NotImplementedError(
-            f"--remat {args.remat}: activation recomputation is not ported (ROADMAP "
-            "queue 1, item 6: the flash kernels keep attention O(T) in memory, "
-            "so the flagship trains without it)")
+def _quiet(*args, **kwargs) -> None:
+    """The logger of ranks other than 0."""
 
 
 class Runner:
     def __init__(self, args):
-        _check_unported(args)
         self.args = args
-        self.device = resolve_device(args.device)
-        self.logging = create_exp_dir(args.work_dir, debug=args.debug)
+        self.device = mesh_lib.rank_device(resolve_device(args.device))
+        mesh_lib.initialize_distributed("nccl" if self.device.type == "cuda" else "gloo")
+        self.mesh = mesh_lib.make_mesh(n_data=args.mesh_data, n_model=args.mesh_model,
+                                       n_seq=args.mesh_seq)
+        self.main = self.mesh.rank == 0
+        self.logging = create_exp_dir(args.work_dir, debug=args.debug) if self.main else _quiet
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         self.logging(f"Device: {self.device} ({name})")
+        n_data, n_seq = self.mesh.shape["data"], self.mesh.shape["seq"]
+        self.logging(f"Mesh: data={n_data} model={self.mesh.shape['model']} seq={n_seq}")
+        if args.batch_size % n_data:
+            raise ValueError(f"--batch_size {args.batch_size} must be divisible by the data "
+                             f"mesh size {n_data} (set --mesh_data)")
+        if (args.attn_impl == "ring") != (n_seq > 1):
+            raise ValueError("--attn_impl ring and --mesh_seq > 1 go together: the ring runs "
+                             "over the seq mesh axis")
+        if args.tgt_len % n_seq:
+            # the model-internal T is tgt_len in every conditioning mode (the
+            # continuous_token loader shortens its input by the 2-slot prefix)
+            raise ValueError(f"--tgt_len {args.tgt_len} must be divisible by the seq mesh "
+                             f"axis ({n_seq})")
 
         self.train_step_num = 0
         self.n_sequences_total = 0
@@ -119,7 +138,9 @@ class Runner:
 
         # ---- model: f32 master parameters, compute in --dtype ------------
         dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-        self.logging(f"compute dtype: {args.dtype}, parameters f32")
+        remat = resolve_remat(args.remat, resolve_attn_impl(args.attn_impl, self.device))
+        remat_fields = dict(remat=remat != "none",
+                            remat_policy=remat if remat != "none" else "dots")
         self.restart_dir = args.restart_dir
         if self.restart_dir:
             from ..convert import load_model_dir
@@ -129,13 +150,16 @@ class Runner:
                 attn_impl=args.attn_impl, param_dtype=torch.float32)
             if args.overwrite_dropout:
                 # build_model.py:43-47: reset dropout when reloading
-                import dataclasses
-
                 self.cfg = dataclasses.replace(self.cfg, dropout=args.dropout)
-                self.model.config = self.cfg
                 for layer in self.model.enc_layers:
                     layer.dropout = args.dropout
                 self.logging(f"Dropout rate changed to {args.dropout}")
+            # recomputation changes no result: --remat, auto too, is this
+            # run's choice, whatever the loaded config holds (a reference
+            # dir's holds none, a native dir's the choice of the run or
+            # conversion that wrote it)
+            self.cfg = dataclasses.replace(self.cfg, **remat_fields)
+            self.model.config = self.cfg
             self.csv_in = os.path.join(self.restart_dir, "performance.csv")
         else:
             self.cfg = ModelConfig(
@@ -149,7 +173,7 @@ class Runner:
                 dropout=args.dropout,
                 max_seq=max(args.max_seq, args.tgt_len),
                 pad_id=self.vocab.pad_id,
-                remat=False,
+                **remat_fields,
             ).validate()
             self.model = MusicTransformer(
                 self.cfg, dtype=dtype, device=self.device, attn_impl=args.attn_impl,
@@ -157,6 +181,8 @@ class Runner:
             ).init_weights(torch.Generator().manual_seed(max(args.seed, 0)))
             self.csv_in = None
         self.model.train()
+        remat = self.cfg.remat_policy if self.cfg.remat else "none"
+        self.logging(f"compute dtype: {args.dtype}, parameters f32, remat {remat}")
 
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logging(f"#params = {n_params}")
@@ -169,7 +195,7 @@ class Runner:
             decay_rate=args.decay_rate, patience=args.patience,
         )
 
-        if self.restart_dir:
+        if self.restart_dir:  # read whole, then cut to the mesh below
             if not ckpt.load_opt_state(self.restart_dir, self.optimizer, self.model):
                 self.logging(f"no optimizer state in {self.restart_dir} fits: Adam starts afresh")
             stats = ckpt.load_stats(self.restart_dir)
@@ -180,6 +206,10 @@ class Runner:
             if args.overwrite_lr:
                 self.lr_ctrl.base_lr = args.lr
 
+        if self.mesh.size > 1:
+            self.model.parallelize(self.mesh)
+            self._shard_optimizer()
+
         self._train_fn = make_train_step(
             self.model, self.optimizer, args.clip, accumulate_steps=args.accumulate_step
         )
@@ -187,20 +217,69 @@ class Runner:
         # draws every step's dropout seeds
         self._generator = torch.Generator().manual_seed(max(args.seed, 0) + 17)
 
-        if not args.debug:
-            ckpt.save_checkpoint(args.work_dir, self.model, self.cfg, self.vocab)
+        self._save()
         self.csv_writer = CsvWriter(
             os.path.join(args.work_dir, "performance.csv"),
-            CSV_FIELDS, in_path=self.csv_in, debug=args.debug,
+            CSV_FIELDS, in_path=self.csv_in, debug=args.debug or not self.main,
         )
         self.gen_dir = os.path.join(args.work_dir, "generations", "training")
 
     # ------------------------------------------------------------------
+    def _shard_optimizer(self) -> None:
+        """Cut the Adam moments of each sharded parameter to this rank's
+        slice, as ``parallelize`` cut the parameter."""
+        for name, p in self.model.named_parameters():
+            state = self.optimizer.state.get(p)
+            dim = self.model.shard_dims[name]
+            if state and dim is not None:
+                for key in ("exp_avg", "exp_avg_sq"):
+                    state[key] = mesh_lib.local_part(state[key], dim, self.mesh)
+
+    def _whole(self, with_optimizer: bool = False):
+        """(model, optimizer or None) as one process holds them: the Runner's
+        own off a tensor-parallel or seq mesh axis, else a new model with
+        the shards gathered (every rank must call this) and attention that
+        runs on one device."""
+        if self.mesh.shape["model"] == 1 and self.mesh.shape["seq"] == 1:
+            return self.model, self.optimizer if with_optimizer else None
+        dims = self.model.shard_dims
+        whole = MusicTransformer(self.cfg, dtype=self.model.dtype, device=self.device,
+                                 param_dtype=self.model.param_dtype)
+        named = list(self.model.named_parameters())
+        with torch.no_grad():
+            for (name, p), w in zip(named, whole.parameters()):
+                w.copy_(mesh_lib.gather_whole(p.detach(), dims[name], self.mesh))
+        if not with_optimizer:
+            return whole, None
+        state = self.optimizer.state_dict()
+        state["state"] = {i: dict(st) for i, st in state["state"].items()}  # not the live dicts
+        for i, (name, _) in enumerate(named):
+            st = state["state"].get(i)
+            if st:
+                for key in ("exp_avg", "exp_avg_sq"):
+                    st[key] = mesh_lib.gather_whole(st[key], dims[name], self.mesh)
+        optimizer = make_optimizer(whole)
+        optimizer.load_state_dict(state)
+        return whole, optimizer
+
+    def _save(self, stats=None) -> None:
+        """A checkpoint of the whole model (with the optimizer when
+        ``stats`` is given), written by rank 0; the others wait."""
+        args = self.args
+        if args.debug:
+            return
+        model, optimizer = self._whole(with_optimizer=stats is not None)
+        if self.main:
+            ckpt.save_checkpoint(args.work_dir, model, self.cfg, self.vocab,
+                                 optimizer=optimizer, stats=stats, clip=args.clip)
+        mesh_lib.barrier(self.mesh)
+
     def _to_device(self, batch):
-        """numpy batch -> tensors on the device: token arrays as int64,
-        conditions as f32."""
+        """numpy batch -> this rank's rows as tensors on the device: token
+        arrays as int64, conditions as f32."""
+        leading_accum = batch["input"].ndim == 3
         out = {}
-        for k, v in batch.items():
+        for k, v in mesh_lib.shard_batch(batch, self.mesh, leading_accum).items():
             dtype = torch.float32 if k == "condition" else torch.long
             out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device, dtype)
         return out
@@ -239,7 +318,13 @@ class Runner:
 
     def _generate_corners(self):
         """Fixed-corner sample generation during training
-        (train.py:335-373)."""
+        (train.py:335-373), by rank 0 with the whole model."""
+        model, _ = self._whole()
+        if self.main:
+            self._generate_with(model)
+        mesh_lib.barrier(self.mesh)
+
+    def _generate_with(self, model):
         args = self.args
         from ..generation.generate import generate
 
@@ -257,7 +342,7 @@ class Runner:
             continuous = [[-0.8, -0.8], [-0.8, 0.8], [0.8, -0.8], [0.8, 0.8]]
         try:
             generate(
-                self.model, self.vocab, self.gen_dir,
+                model, self.vocab, self.gen_dir,
                 args.conditioning, discrete_conditions=discrete,
                 continuous_conditions=continuous, min_n_instruments=1,
                 gen_len=args.gen_len, max_input_len=max_input_len,
@@ -301,7 +386,7 @@ class Runner:
 
         profiler = None
         while self.train_step_num < args.max_step:
-            if args.profile_dir and self.train_step_num == args.profile_start:
+            if args.profile_dir and self.main and self.train_step_num == args.profile_start:
                 profiler = _start_profiler(self.device)
             if profiler and self.train_step_num == args.profile_start + args.profile_steps:
                 self._stop_profiler(profiler)
@@ -338,14 +423,8 @@ class Runner:
                 )
                 train_loss, n_elements_total = 0.0, 0
                 interval_start = time.time()
-                if not args.debug:
-                    ckpt.save_checkpoint(
-                        args.work_dir, self.model, self.cfg, self.vocab,
-                        optimizer=self.optimizer,
-                        stats={"step": step, "hour": hours, "epoch": self.epoch,
-                               "sample": self.n_sequences_total},
-                        clip=args.clip,
-                    )
+                self._save({"step": step, "hour": hours, "epoch": self.epoch,
+                            "sample": self.n_sequences_total})
 
             if step % args.eval_step == 0 and not args.overfit:
                 val_loss, val_acc = self.evaluate()
@@ -419,7 +498,7 @@ class Runner:
             f"LR finder: swept {len(lrs)} steps, diverged near {lrs[-1]:.2e}; "
             f"suggested lr ~ {suggestion:.2e}"
         )
-        if not args.debug:
+        if not args.debug and self.main:
             with open(os.path.join(args.work_dir, "lr_finder.csv"), "w") as f:
                 f.write("lr,loss\n")
                 for l, v in zip(lrs, losses):

@@ -43,6 +43,7 @@ import midi_emotion_tpu_torch.convert.transfer, midi_emotion_tpu_torch.convert.t
 import midi_emotion_tpu_torch.data.preprocess, midi_emotion_tpu_torch.data.dataset_builder
 import midi_emotion_tpu_torch.data.msd_hdf5, midi_emotion_tpu_torch.utils
 import midi_emotion_tpu_torch.demo, midi_emotion_tpu_torch.entry
+import midi_emotion_tpu_torch.parallel.mesh, midi_emotion_tpu_torch.parallel.ring_attention
 from midi_emotion_tpu_torch.convert import flax_msgpack
 from midi_emotion_tpu_torch.generation.sampler import Sampler
 from midi_emotion_tpu_torch.models.config import ModelConfig
@@ -100,6 +101,8 @@ def test_port_sources_import_no_jax_package():
     for root, _, names in os.walk(os.path.join(REPO, "midi_emotion_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    assert {os.path.join("midi_emotion_tpu_torch", "parallel", n)
+            for n in ("mesh.py", "ring_attention.py")} <= {os.path.relpath(f, REPO) for f in files}
     bad = {os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {f: names for f, names in bad.items() if names}

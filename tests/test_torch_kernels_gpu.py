@@ -828,3 +828,88 @@ def test_dropout_mask_lanes_independent(cuda):
         p = (1 - rate) ** 2
         sd = (p * (1 - p) / both.numel()) ** 0.5
         assert abs(both.mean().item() - p) <= 6 * sd, (a, b, both.mean().item())
+
+
+@pytest.mark.parametrize("D", [768, 99])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernels_draw_the_slice_of_the_global_mask(cuda, D, dtype):
+    """Kernels 10, 11 and 12 given a place (b0, t0, T_g): a rank's slice of a
+    [4, 40, D] activation draws the global call's mask at its elements and
+    gives the global call's outputs there, bit for bit (D 99: the
+    one-draw-per-element path); a place that covers the whole tensor draws
+    the default's bits."""
+    rate, seed, Bg, Tg = 0.1, 2024, 4, 40
+    g = torch.Generator(device="cuda").manual_seed(3)
+    sub, res, dy = (torch.randn((Bg, Tg, D), generator=g, device=cuda).to(dtype)
+                    for _ in range(3))
+    w, b = torch.randn((D,), generator=g, device=cuda), torch.randn((D,), generator=g, device=cuda)
+    ones = torch.ones_like(sub)
+    keep = fd.fused_dropout(ones, seed, rate) != 0
+    assert torch.equal(fd.fused_dropout(ones, seed, rate, place=(0, 0, Tg)) != 0, keep)
+    y = fd.dropout_add_layernorm(sub, res, w, b, seed, rate)
+    ds, dr, _, _ = fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate)
+    for b0, t0, B, T in ((2, 0, 2, 40), (1, 16, 2, 8), (0, 32, 4, 8), (3, 0, 1, 40)):
+        at = (slice(b0, b0 + B), slice(t0, t0 + T))
+        part = lambda t: t[at].contiguous()
+        place = (b0, t0, Tg)
+        assert torch.equal(fd.fused_dropout(part(ones), seed, rate, place=place) != 0, keep[at])
+        got = fd.dropout_add_layernorm(part(sub), part(res), w, b, seed, rate, place=place)
+        assert torch.equal(got, y[at]), place
+        pds, pdr, _, _ = fd.dropout_add_layernorm_bwd(part(sub), part(res), part(dy), w, seed,
+                                                      rate, place=place)
+        assert torch.equal(pds, ds[at]) and torch.equal(pdr, dr[at]), place
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_steps_match_kernels_1_and_4(cuda, causal):
+    """The ring's per-step function driven over 4 chunks in one process
+    (plain f32 tensor code) against kernel 1's output and kernel 4's
+    gradients (q, k, v, e), f32, pad keys across a chunk boundary: 1e-4 of
+    each scale, phase 3's f32 tolerance for those kernels."""
+    from midi_emotion_tpu_torch.parallel.ring_attention import ring_attention_one_process
+
+    q, k, v, e = _qkve(2, 4, 128, 48, 256, torch.float32)
+    pad = torch.zeros((2, 128), dtype=torch.bool, device=cuda)
+    pad[1, 70:] = True
+    w = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(9),
+                    device=cuda)
+    outs = []
+    for fn in (lambda *a: ring_attention_one_process(*a, 4, causal, pad),
+               lambda *a: flash_rel_attention(*a, causal, pad)[0]):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, e)]
+        o = fn(*leaves)
+        (o * w).sum().backward()
+        outs.append([o.detach()] + [t.grad for t in leaves])
+    for got, want in zip(*outs):
+        tol = 1e-4 * (1 + want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_seq_rank_activation_runs_the_dropout_kernels(cuda):
+    """A seq rank's positions of the model's [4, 40, 768] bf16 activation
+    (``seq_part``, B > 1) through kernels 10, 11 and 12 at the rank's place
+    (``dropout_place``) at rate 0.1: the global call's outputs at its
+    positions, bit for bit, as the ring model's layers run them."""
+    from midi_emotion_tpu_torch.parallel.mesh import Mesh, rank_grid
+
+    cfg = ModelConfig(vocab_size=1007, mode="continuous_concat", n_layer=1, n_head=16,
+                      d_model=768, d_inner=64, d_condition=192, max_seq=64, dropout=0.1)
+    model = MusicTransformer(cfg, device=cuda)
+    rate, seed = 0.1, 31
+    g = torch.Generator(device="cuda").manual_seed(4)
+    sub, res, dy = (torch.randn((4, 40, 768), generator=g, device=cuda).to(torch.bfloat16)
+                    for _ in range(3))
+    w, b = torch.randn((768,), generator=g, device=cuda), torch.randn((768,), generator=g,
+                                                                     device=cuda)
+    d = fd.fused_dropout(sub, seed, rate)
+    y = fd.dropout_add_layernorm(sub, res, w, b, seed, rate)
+    ds, dr, _, _ = fd.dropout_add_layernorm_bwd(sub, res, dy, w, seed, rate)
+    for rank in (0, 1):
+        model.mesh = Mesh(rank_grid(1, 1, 2), rank)
+        ps, pr, pdy = (model.seq_part(t) for t in (sub, res, dy))
+        place = model.dropout_place(*ps.shape[:2])
+        at = (slice(None), slice(rank * 20, (rank + 1) * 20))
+        assert torch.equal(fd.fused_dropout(ps, seed, rate, place=place), d[at])
+        assert torch.equal(fd.dropout_add_layernorm(ps, pr, w, b, seed, rate, place=place), y[at])
+        pds, pdr, _, _ = fd.dropout_add_layernorm_bwd(ps, pr, pdy, w, seed, rate, place=place)
+        assert torch.equal(pds, ds[at]) and torch.equal(pdr, dr[at])

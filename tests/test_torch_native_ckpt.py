@@ -8,6 +8,7 @@ writes read back bitwise by the JAX package, and the training and
 generation CLIs on a JAX-written native dir."""
 
 import csv
+import dataclasses
 import json
 import os
 
@@ -303,7 +304,9 @@ def test_port_native_dir_reads_back_in_jax(tmp_path, jax_native):
 
 def test_restart_and_generate_cli_on_jax_native_dir(tmp_path, jax_native):
     """train_cli --restart_dir <native dir> continues from its stats.json
-    step, Adam state and performance.csv; generate_cli serves the dir."""
+    step, Adam state and performance.csv, with the dir's config but for
+    the remat, which --remat auto resolves for this run (the plain
+    attention on the CPU: dots); generate_cli serves the dir."""
     folder, records = make_dataset(str(tmp_path / "data"), n_songs=12, bars_per_song=8)
     feats = str(tmp_path / "features.csv")
     with open(feats, "w") as f:
@@ -317,8 +320,8 @@ def test_restart_and_generate_cli_on_jax_native_dir(tmp_path, jax_native):
         "--dtype", "f32", "--num_workers", "0", "--device", "cpu",
         "--work_dir", str(tmp_path / "run"), "--max_step", "4",
         "--restart_dir", jax_native["dir"]])
-    assert runner.train_step_num == 4 and runner.cfg == native.read_config_and_vocab(
-        jax_native["dir"])[0]
+    assert runner.train_step_num == 4 and runner.cfg == dataclasses.replace(
+        native.read_config_and_vocab(jax_native["dir"])[0], remat=True, remat_policy="dots")
     assert {int(s["step"]) for s in runner.optimizer.state.values()} == {4}  # 2 restored + 2
     with open(os.path.join(runner.args.work_dir, "performance.csv")) as f:
         rows = list(csv.DictReader(f))
