@@ -20,8 +20,11 @@ Phases, each fatal on failure:
      bf16, the flash kernels in bf16 at every d_head and at 40, which
      their wrappers pad to 48, and the decode kernel at D 1280, two head
      groups, and at d_head 40, laid out at 48; kernels 1 and 4 timed at
-     d_head 128 beside 64); count the tensor-core instructions of kernels
-     1 and 4-9 in their SASS (cuobjdump), failing on one without any or on
+     d_head 128 beside 64; kernel 1 also at the train step's B 8, and
+     kernel 4's call split into its launches: dsum, the main kernel, the
+     dQ and the dE reductions); count the tensor-core instructions of
+     kernels 1 and 4-9 in their SASS (cuobjdump), failing on one without
+     any, on a bf16 kernel 1 or 4 without a wgmma (HGMMA) instruction or on
      a missing kernel 7, 8 or 9; time kernel 9 on its two grids; hold each
      backward decomposition (split, fused/column, fused/dist) against the
      merged kernel, and time the whole split call beside SDPA's backward;
@@ -289,9 +292,17 @@ def check_flash(torch, B, H, T, dh, dtype, causal, tol_o, tol_lse, timed=False):
                    lambda: flash_rel_attention_plain(q, k, v, e, causal, pad), library)
 
 
-def check_flash_bwd(torch, B, H, T, dh, dtype, causal, tol, timed=False):
+# kernel 4's launches in one call of its wrapper: label -> a substring of
+# the kernel's name
+BWD_LAUNCHES = (("dsum", "dsum"), ("main", "flash_bwd_tc_kernel"),
+                ("dq_reduce", "dq_reduce_kernel"), ("de_reduce", "de_reduce_kernel"))
+
+
+def check_flash_bwd(torch, B, H, T, dh, dtype, causal, tol, timed=False, launches=False):
     """dQ, dK, dV, dE against the twin, with a fully masked row and a pad
-    tail; each gradient within tol * (1 + its max |value|)."""
+    tail; each gradient within tol * (1 + its max |value|). With ``timed``
+    and ``launches`` (bf16), also each of the call's launches apart
+    (``BWD_LAUNCHES``), into ``launch_ms``."""
     from midi_emotion_tpu_torch.ops.flash_attention import (
         flash_rel_attention, flash_rel_attention_bwd, flash_rel_attention_bwd_plain)
 
@@ -338,10 +349,16 @@ def check_flash_bwd(torch, B, H, T, dh, dtype, causal, tol, timed=False):
 
     # the kernel's time: the whole wrapper call, its dsum, backward kernel
     # and reductions, every one of them the port's own
-    return _report(torch, out, timed, name,
-                   lambda: flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do),
-                   lambda: flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do),
-                   library, iters=5)
+    call = lambda: flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    out = _report(torch, out, timed, name, call,
+                  lambda: flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do),
+                  library, iters=5)
+    if timed and launches:
+        out["launch_ms"] = {label: device_ms(torch, call, iters=10, only=only)
+                            for label, only in BWD_LAUNCHES}
+        print(f"{name}: device ms by launch " +
+              ", ".join(f"{k} {v:.4f}" for k, v in out["launch_ms"].items()))
+    return out
 
 
 # the other backward decompositions' kernels: JSON name -> (its wrapper in
@@ -948,8 +965,9 @@ def timed_training(torch, runner, n_warmup=2, n_timed=5):
 # launch counters
 # ---------------------------------------------------------------------------
 
-# name, route, source, the TPU kernel it replaces. In bf16 kernels 1 and
-# 4-9 run on the tensor cores (mma.sync); every f32 path on the CUDA cores
+# name, route, source, the TPU kernel it replaces. In bf16 kernels 1 and 4
+# run on the tensor cores by wgmma, 5-9 by mma.sync; every f32 path on the
+# CUDA cores
 KERNELS = (
     ("flash_rel_attn_fwd", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_fwd.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:369"),
@@ -1837,12 +1855,15 @@ def print_ptxas(lib_path, label):
     spills = re.findall(r"(\d+) bytes spill stores", text)
     for kern, r, sp in zip(kinds, regs, spills):
         print(f"ptxas: {label} {_kernel_label(kern)}: {r} registers, {sp} bytes spilled")
+    for line in text.splitlines():  # e.g. wgmma serialized by the compiler
+        if "Performance Loss" in line:
+            print(f"ptxas: {label}: {line.strip()[:300]}")
 
 
 def print_sass_mma(lib_path, label):
     """Count each kernel's tensor-core instructions (HMMA for mma.sync,
     HGMMA for wgmma) in the library's SASS, by cuobjdump, and print them.
-    Returns {kernel label: count}."""
+    Returns {kernel label: {"HMMA": count, "HGMMA": count}}."""
     cuda_bin = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
     tool = shutil.which("cuobjdump") or os.path.join(cuda_bin, "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
@@ -1854,11 +1875,14 @@ def print_sass_mma(lib_path, label):
         m = re.search(r"Function : (\S+)", line)
         if m:
             kern = _kernel_label(m.group(1))
-            counts[kern] = 0
-        elif kern is not None and re.search(r"\bHG?MMA\.", line):
-            counts[kern] += 1
+            counts[kern] = {"HMMA": 0, "HGMMA": 0}
+        elif kern is not None:
+            m = re.search(r"\b(HG?MMA)\.", line)
+            if m:
+                counts[kern][m.group(1)] += 1
     for kern, n in counts.items():
-        print(f"sass: {label} {kern}: {n} tensor-core (HMMA/HGMMA) instructions")
+        print(f"sass: {label} {kern}: {n['HMMA']} HMMA (mma.sync), {n['HGMMA']} HGMMA (wgmma) "
+              f"instructions")
     return counts
 
 
@@ -1904,9 +1928,17 @@ def main():
         # the tensor-core kernels (kernels 1 and 4-9 in bf16) run mma instructions
         tc_kernels.update({k: n for k, n in print_sass_mma(library_path(name), name).items()
                            if "_tc_" in k})
-    idle = [k for k, n in tc_kernels.items() if n == 0]
+    idle = [k for k, n in tc_kernels.items() if n["HMMA"] + n["HGMMA"] == 0]
     if idle:
         fail(f"tensor-core kernels without an mma instruction: {idle}")
+    # kernels 1 and 4 run wgmma at every d_head they are built for
+    from midi_emotion_tpu_torch.ops.flash_attention import KERNEL_DHS
+
+    wanted = [f"{kern} <bf16, dh={dh}>" for kern in ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel")
+              for dh in KERNEL_DHS]
+    no_wgmma = [k for k in wanted if tc_kernels.get(k, {"HGMMA": 0})["HGMMA"] == 0]
+    if no_wgmma:
+        fail(f"kernel 1 or 4 instantiations without a wgmma (HGMMA) instruction: {no_wgmma}")
     # kernel 7 (the key-major sweep with dQ), kernel 9 (without) and kernel
     # 8 (REL) among them
     for want in ("flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV/dQ_qk>",
@@ -1945,7 +1977,12 @@ def main():
         if dh > 64 or dh == 40:
             check_flash_bwd(torch, 2, 4, 200, dh, torch.float32, True, 1e-4)
     flash_bwd = check_flash_bwd(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16, True, 2e-2,
-                                timed=True)
+                                timed=True, launches=True)
+    # kernel 1 at the train step's shape too, beside the table's B 4
+    flash_b8 = check_flash(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16, True, 2e-2, 1e-3,
+                           timed=True)
+    flash["train_shape"] = {"B": TRAIN_B, **{key: flash_b8[key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}}
     # what the widest heads cost: d_head 128 timed beside d_head 64 at one
     # width (H * dh = 1024), kernels 1 and 4 in both dtypes, at B 2
     for H, dh in ((16, 64), (8, 128)):
@@ -2213,7 +2250,8 @@ def main():
             name=name, route=route, source=source, replaces=replaces,
             launches=sum(c[name] for c in paths), max_abs_err=m["max_abs_err"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-            library_ms=m["library_ms"]))
+            library_ms=m["library_ms"],
+            **{key: m[key] for key in ("train_shape", "launch_ms") if key in m}))
     print(f"total {time.perf_counter() - t_start:.1f} s; train tokens/sec {tps:.1f}; headline "
           f"sampled tokens/sec native {headline['native']:.1f}, int8 {headline['int8']:.1f}, "
           f"bf16 {headline['bf16']:.1f} on {card}")

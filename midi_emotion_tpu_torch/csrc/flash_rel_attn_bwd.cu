@@ -21,42 +21,43 @@
 // Both dtype paths keep the TPU kernel's ownership scheme: a block sweeps
 // 64-key tiles of one (b, h) and, inside, the 64-row query tiles that see
 // them (causal: those at or below the diagonal), as the TPU's sequential
-// grid did. dK and dV of the key tile live in registers; dQ accumulates in
-// an f32 scratch and dE in an f32 partial indexed by distance, each only
-// this block's; second kernels reduce the partials in a fixed order. No
-// atomics, no sum through bf16, a deterministic result.
+// grid did. dK and dV of the key tile stay on chip (registers, or f32
+// shared memory); dQ accumulates in an f32 partial and dE in an f32 partial
+// indexed by distance, each only this block's; second kernels reduce the
+// partials in a fixed order. No atomics, no sum through bf16, a
+// deterministic result.
 //
 // bf16 (the training path). Bound on the H100: operations. At B 8, H 16,
 // T 1216, dh 48 the nine products over the visible pairs are about 72
-// GFLOP, 73 us at the tensor cores' 989 TFLOP/s. The design puts every
-// product on the tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums)
-// with 8 warps a block, per tile pair:
-//   1. S = Q K^T and the band Q E_band^T (bq + bk rows of E), skewed into
-//      Srel through a per-warp shared scratch; P = exp(s - lse);
-//   2. dP = dO V^T; dS' = c P (dP - dsum) in f32, rounded to bf16 as the
-//      TPU kernel rounds ds; P rounded to bf16 (both into shared tiles);
-//   3. dS' scattered by distance into dsd (the skew back, 0 where the
-//      distance is negative), which feeds dQ_rel = dsd E_band and
-//      dE += dsd^T Q as plain products;
-//   4. dV += P^T dO, dK += dS'^T Q (operands read transposed by ldmatrix),
-//      dQ += dS' K + dsd E_band.
-// Two blocks share a (b, h), taking alternate key tiles, each with its own
-// dQ and dE partials (the reductions sum the two in block order): at B 8,
-// H 16 that is 256 blocks, two an SM at d_head <= 48, so one block's
-// products run while the other waits at a barrier or on its copies. The
-// band moves 64 distances a query tile, so a warp's upper dE block is the
-// next pair's lower one and stays in registers (each dE partial row is
-// read and written once a key tile, not twice), and E lives in a ring of
-// 64-row chunks of which a pair copies one. Q, dO, lse, dsum and E come by
-// cp.async (at d_head <= 32 in a two-stage ring, the next pair's copies
-// under this pair's products); rows are padded by 16 bytes so ldmatrix
-// reads are free of bank conflicts. mma.sync and not wgmma, chosen without
-// a wgmma version written or timed: a warp's 16-row fragments are the unit
-// of the skews and of the register reuse between products. Nothing rules
-// wgmma out: it takes A (P, dS' and their transposes' fragments) from
-// registers, and its shared-memory B operands take 32- and 64-byte swizzles
-// or padded rows, so d_head 48 and 96 fit. A wgmma version, each B tile read
-// once a 64-row warpgroup, is the next step.
+// GFLOP, 73 us at the tensor cores' 989 TFLOP/s. Design
+// (tc::flash_bwd_tc_kernel), on Hopper's wgmma, TMA and mbarriers (the
+// building blocks in hopper_sm90.cuh): two warpgroups share each tile pair,
+// every product a wgmma with f32 sums, per pair:
+//   1. warpgroup h, keys 32 h ..: S = Q K^T, dP = dO V^T and the band Q
+//      E_band^T, skewed into Srel through a per-warp scratch; P = exp(s -
+//      lse), dS' = c P (dP - dsum) in f32, rounded to bf16 as the TPU
+//      kernel rounds ds, into shared tiles, and dS' scattered by distance
+//      into dsd (the skew back, 0 where the distance is negative), which
+//      feeds dQ_rel = dsd E_band and dE += dsd^T Q as plain products;
+//   2. warpgroup 0: dV += P^T dO and dQ += dS' K + dsd E_band; warpgroup 1:
+//      dK += dS'^T Q and dE; the transposed operands (P, dS', dsd, Q, dO, K,
+//      E) read MN-major through the descriptor's transpose bit.
+// Tiles land by TMA in 16-column slabs with the 32-byte swizzle wgmma
+// reads; thread 0 refills each ring slot right after the barrier that ends
+// its last reader. A block sweeps groups of key tiles of one (b, h) (two
+// up to d_head 48, their f32 dK and dV kept in shared memory between
+// pairs); two blocks share a (b, h) on alternate groups, or one where B *
+// H alone fills 7/8 of the SMs, each with its own f32 dQ and dE partials:
+// a query tile's dQ, and each 64-distance dE block, stays in registers
+// until the group is done with it, so a partial row is read and written
+// once a group. Measured
+// before this design (scripts/torch_flash_bench.py, NVIDIA H100 80GB HBM3 at
+// 700 W), the whole mma.sync call took 0.9731 ms at B 8: dsum 0.0243, the
+// main kernel 0.8868 (128 registers, 24 bytes of spill at d_head 48), the
+// dQ and dE reductions 0.0345 and 0.0287; in a first wgmma version, taking
+// away the partial rows' reads and writes (each pair's then) saved 0.26 ms
+// of 0.76, which led to the groups. dsum reads 16-byte units, 8 lanes a
+// row; the dQ reduction 4 values a thread.
 //
 // f32 (the checks' path, held to 1e-4 of each gradient's scale): CUDA
 // cores, because TF32 products keep about three decimal digits. A block of
@@ -75,6 +76,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper_sm90.cuh"
 
 namespace {
 
@@ -364,6 +367,35 @@ __global__ void dsum_kernel(const T* __restrict__ dout, const T* __restrict__ o,
   if (lane == 0) dsum[row] = acc;
 }
 
+// The same for bf16 rows of a multiple of 8 values (16-byte units): 8
+// lanes a row, each summing 16-byte units 64 values apart, so a warp reads
+// 4 whole rows at once.
+__global__ void dsum_vec_kernel(const __nv_bfloat16* __restrict__ dout,
+                                   const __nv_bfloat16* __restrict__ o, float* __restrict__ dsum,
+                                   int rows, int dh) {
+  const size_t at = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t row = at >> 3;
+  const int sub = (int)(at & 7);
+  float acc = 0.f;
+  if (row < (size_t)rows) {
+    const uint4* a = reinterpret_cast<const uint4*>(dout + row * dh);
+    const uint4* b = reinterpret_cast<const uint4*>(o + row * dh);
+    for (int u = sub; u < dh / 8; u += 8) {
+      const uint4 x = a[u], y = b[u];
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        acc = fmaf(__uint_as_float(xs[w] << 16), __uint_as_float(ys[w] << 16), acc);
+        acc = fmaf(__uint_as_float(xs[w] & 0xffff0000u), __uint_as_float(ys[w] & 0xffff0000u),
+                   acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 4; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (sub == 0 && row < (size_t)rows) dsum[row] = acc;
+}
+
 
 // ---------------------------------------------------------------------------
 // the bf16 path: tensor cores
@@ -371,464 +403,530 @@ __global__ void dsum_kernel(const T* __restrict__ dout, const T* __restrict__ o,
 
 namespace tc {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int NWARP = 8;
-constexpr int NTH = 32 * NWARP;
-constexpr int SPLIT = 2;      // blocks a (b, h): block s takes key tiles s, s + SPLIT, ...
-constexpr int EB = BQ + BK;   // band rows staged per tile pair (the last one unused)
-constexpr int PS = BK + 8;    // bf16 row stride of the P and dS' tiles
-constexpr int DS = EB + 8;    // bf16 row stride of the distance-domain dS' tile
-constexpr int WB = 48;        // band rows a warp multiplies in phase A: its 47 distances
-constexpr int WBS = WB + 8;   // row stride of a warp's band scratch (floats)
+using namespace sm90;
+
+constexpr int BQ = 64;              // query rows per tile
+constexpr int BK = 64;              // keys per tile
+constexpr int EB = BQ + BK;         // band rows staged per tile pair (the first one unused)
+constexpr int NCW = 8;              // warps: two warpgroups
+constexpr int NTH = 32 * NCW;
+constexpr int MAX_SPLIT = 2;        // blocks a (b, h), at most (the scratch has room for 2)
+constexpr int WB = 48;              // band columns a warp reads in phase A: its 47 distances
+constexpr int WBS = WB + 8;         // row stride of a warp's band scratch (floats)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
 struct Layout {
-  static constexpr int RS = DH + 8;   // bf16 row stride: an odd number of 16-byte units
-  static constexpr int CPR = DH / 8;  // 16-byte chunks a row
-  static constexpr int STAGES = DH <= 32 ? 2 : 1;  // the ring: two stages where they fit
-  static constexpr int KV_BYTES = 2 * BK * RS * 2 + BK * 4;               // K, V, live
-  static constexpr int ST_BYTES = 2 * BQ * RS * 2 + 2 * BQ * 4;  // Q, dO, lse, dsum
-  static constexpr int NSLOT = 2 * STAGES;  // E chunks of 64 rows: two a pair in work
-  static constexpr int ST_AT = STAGES * KV_BYTES;
-  static constexpr int E_AT = ST_AT + STAGES * ST_BYTES;
-  static constexpr int P_AT = E_AT + NSLOT * 64 * RS * 2;
-  static constexpr int DSD_AT = P_AT + 2 * BQ * PS * 2;
-  static constexpr int SCR_AT = DSD_AT + BQ * DS * 2;
-  static constexpr int TOTAL = SCR_AT + NWARP * 16 * WBS * 4;
-  // two blocks an SM (the SM's 228 KB, 1 KB of it per block reserved)
-  static constexpr int MIN_BLOCKS = 2 * (TOTAL + 1024) <= 233472 ? 2 : 1;
+  static constexpr int G = DH <= 48 ? 2 : 1;   // key tiles a block sweeps the query tiles with
+  static constexpr int TILE = BQ * DH * 2;     // a 64-row bf16 tile in slabs: Q, dO, K or V
+  static constexpr int SLAB = TILE / (DH / 16);  // = 2048: its slab stride
+  static constexpr int E_TILE = EB * DH * 2;   // the E band, slab stride 4096
+  static constexpr int ST = 2 * TILE + E_TILE;  // a pair's stage: Q, dO, the E band
+  static constexpr int KV = 2 * G * TILE;       // a group's K, V of each key tile
+  static constexpr int NST = 2;                 // the pair ring
+  static constexpr int NKV = DH <= 96 ? 2 : 1;  // the group ring, where it fits
+  static constexpr int KV_AT = NST * ST;
+  static constexpr int P_AT = KV_AT + NKV * KV;  // P, then dS': [64 q][64 k] in slabs
+  static constexpr int DSD_AT = P_AT + 2 * 8192;  // dS' by distance: [64 q][128 v] in slabs
+  static constexpr int SCR_AT = DSD_AT + 16384;
+  // G = 2: each key tile's f32 dV (warpgroup 0) and dK (1), between pairs
+  static constexpr int ACC_AT = SCR_AT + NCW * 16 * WBS * 4;
+  static constexpr int BAR_AT = ACC_AT + (G == 2 ? G * 2 * BK * DH * 4 : 0);
+  static constexpr int TOTAL = BAR_AT + 8 * (NST + NKV) + 1024;  // + room to align to 1024
+  static_assert(TOTAL <= 232448, "a block's shared memory");
+  static_assert(TILE % 1024 == 0 && ST % 1024 == 0 && SCR_AT % 1024 == 0, "aligned slabs");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 (or 4) bytes global -> shared, zeros where !ok (no byte is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+struct Maps {
+  CUtensorMap q, k, v, d, e;  // q, k, v, dO: [B*H][T][dh]; e: [max_seq][dh], in slabs
+};
 
-// acc[n] += A (16 x 16, fragments a) times the 16 x (8 NH) slab of a
-// row-major [k][n] shared tile at `b` (row stride rs, first k row and
-// column already applied), read transposed by ldmatrix: lane rows
-// (lane & 7) + 8 ((lane >> 3) & 1), 8-column groups by lane >> 4
-template <int NH>
-__device__ __forceinline__ void mma_kn(float (*acc)[4], const uint32_t* a,
-                                       const __nv_bfloat16* b, int rs, int lane) {
-  const __nv_bfloat16* row = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * rs;
-#pragma unroll
-  for (int n = 0; n + 1 < NH; n += 2) {
-    uint32_t bf[4];
-    ldsm_x4_t(bf, row + 8 * n + (lane >> 4) * 8);
-    mma(acc[n], a, bf[0], bf[1]);
-    mma(acc[n + 1], a, bf[2], bf[3]);
-  }
-  if constexpr (NH % 2 == 1) {
-    uint32_t bf[2];
-    ldsm_x2_t(bf, row + 8 * (NH - 1));
-    mma(acc[NH - 1], a, bf[0], bf[1]);
-  }
-}
-
-// Block s of the SPLIT a (b, h) sweeps key tiles s, s + SPLIT, ... and,
-// inside, the query tiles that see them (see the note at the top), with 8
-// warps. Per tile pair:
-//   phase A, warp (rows 16 (w % 4), keys 32 (w / 4)): S = Q K^T, the band
-//     Q E_band^T over its 48 distances and dP = dO V^T on the tensor cores;
-//     the band skewed into Srel through a per-warp scratch; P = exp(s -
-//     lse), dS' = c P (dP - dsum) in f32, both rounded to bf16 into shared
-//     tiles, and dS' also scattered by distance into dsd[i][i - j + BK - 1]
-//     (0 where the distance is negative); entries no key reaches stay 0;
-//   phase B, warp (16-row block w / 2, channel half w % 2): dV += P^T dO and
-//     dK += dS'^T Q (registers, the key tile's own), dQ += dS' K + dsd E_band
-//     (f32 scratch, this block's own), dE += dsd^T Q (two 16-distance
-//     blocks, f32 partial by distance, this block's own; the upper block
-//     carried in registers to the next query tile, whose lower block it is).
+// Block s of the nsplit a (b, h) sweeps groups s, s + nsplit, ... of G
+// consecutive key tiles (G = 2 up to d_head 48, where shared memory holds
+// both key tiles' f32 dK and dV between pairs, else 1) and, inside, the
+// query tiles that
+// see them, as the TPU's sequential grid did; a query tile meets the
+// group's key tiles one after the other (pairs whose keys all lie past its
+// rows under the causal mask are skipped). Thread 0 is also the producer:
+// it copies each group's K and V into a ring of NKV, and each pair's Q, dO
+// and E band (128 rows, row v at distance dist0 + 127 - v, zero where
+// negative) into a ring of NST, by TMA, each slot's arrival counted by an
+// mbarrier; it refills a slot right after the barrier that ends the slot's
+// last reader. (A ninth, producer warp would put three warps on one of the
+// SM's four schedulers and cap every thread at 168 registers.) The 8 warps
+// are two warpgroups; warp w of a warpgroup owns rows 16 w .. 16 w + 15 of
+// each of its 64-row accumulators. Per tile pair:
+//   phase A, warpgroup h (keys 32 h ..): S = Q K_h^T, dP = dO V_h^T (m64n32)
+//     and the band Q E^T over the 96 rows its keys reach (m64n96), by wgmma
+//     from shared memory; the band skewed into Srel through a per-warp
+//     scratch; P = exp(s - lse), dS' = c P (dP - dsum) in f32, both rounded
+//     to bf16 into shared tiles, and dS' also scattered by distance into dsd
+//     [i][64 - i + j] (0 where the distance is negative); entries no key
+//     reaches stay 0;
+//   phase B, warpgroup 0: dV += P^T dO (P read MN-major) and dQ += dS' K +
+//     dsd E_band, in registers across the group; warpgroup 1: dK += dS'^T Q
+//     and dE += dsd^T Q over the band's two 64-row halves (dsd read
+//     MN-major), into registers that carry each 64-distance block until no
+//     later pair of the group reaches it.
+// Once a query tile has met the group, warpgroup 0 adds its dQ to this
+// block's f32 dQ partial and warpgroup 1 its finished dE block to this
+// block's f32 dE partial (by distance): each partial row is read and
+// written once a group, not once a pair. A partial row's first write in
+// the block (its first group) stores without reading; rows the block never
+// reaches are zeroed first.
 template <int DH>
-__global__ void __launch_bounds__(NTH, Layout<DH>::MIN_BLOCKS)
-flash_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ e,
-                    const uint8_t* __restrict__ pad, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(NTH, 1)
+flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ pad,
                     const float* __restrict__ lse, const float* __restrict__ dsum,
-                    __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, float* __restrict__ dq_acc,
-                    float* __restrict__ de_part, int H, int T_len, int max_seq, int causal,
-                    float scale, float scale_log2) {
+                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                    float* __restrict__ dq_acc, float* __restrict__ de_part, int H, int T_len,
+                    int max_seq, int causal, float scale, float scale_log2, int nsplit) {
   using L = Layout<DH>;
-  constexpr int RS = L::RS, CPR = L::CPR, KS = DH / 16, NH = DH / 16;  // NH: n-tiles a half
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int G = L::G, NST = L::NST, NKV = L::NKV, KS = DH / 16, SLAB = L::SLAB, R = DH / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_AT);
+  uint64_t* kv_full = full + NST;
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_index();
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x / SPLIT, sp = blockIdx.x % SPLIT, b = bh / H;
-  const size_t base = (size_t)bh * T_len * DH, rbase = (size_t)bh * T_len;
-  const size_t part = ((size_t)sp * (gridDim.x / SPLIT) + bh) * T_len * DH;  // this block's
+  const int bh = blockIdx.x / nsplit, sp = blockIdx.x % nsplit, b = bh / H;
+  const size_t base_q = (size_t)bh * T_len * DH, rbase = (size_t)bh * T_len;
+  const size_t part = ((size_t)sp * (gridDim.x / nsplit) + bh) * T_len * DH;  // this block's
   float* dqa = dq_acc + part;   // [T][DH]
   float* dep = de_part + part;  // [T][DH], row = distance
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + L::P_AT);  // P [BQ][PS]
-  __nv_bfloat16* dss = ps + BQ * PS;                                      // dS' [BQ][PS]
-  __nv_bfloat16* dsd = reinterpret_cast<__nv_bfloat16*>(smem + L::DSD_AT);  // [BQ][DS]
-  float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
-  auto kv_buf = [&](int i) { return reinterpret_cast<__nv_bfloat16*>(smem + i * L::KV_BYTES); };
-  auto st_buf = [&](int s) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + L::ST_AT + s * L::ST_BYTES);
-  };
-
   const int n_tiles = (T_len + BK - 1) / BK;
-  auto first_q = [&](int kt) { return causal ? kt : 0; };
-  // dQ rows no pair of this block reaches (query tiles above its first key
-  // tile, or all when it has none) are zero in its partial
-  const int dq_zero = sp >= n_tiles ? T_len : min(T_len, first_q(sp) * BQ);
-  for (int x = tid; x < BQ * DS; x += NTH) dsd[x] = __float2bfloat16(0.f);
-  for (int x = tid; x < T_len * DH; x += NTH) dep[x] = 0.f;
-  for (int x = tid; x < dq_zero * DH; x += NTH) dqa[x] = 0.f;
-  if (sp >= n_tiles) return;
-  // The E band of a pair (row u at distance q0 - k0 - (BK - 1) + u, zero
-  // where negative) is two chunks of 64 rows in a ring of NSLOT: the next
-  // query tile's band starts 64 distances on, so its lower chunk is this
-  // pair's upper one and only its upper chunk is copied (both at a key
-  // tile's first pair). Chunk c sits in slot c % NSLOT.
-  static_assert(BQ == 64 && BK == 64, "the band moves one 64-row chunk a query tile");
-  __nv_bfloat16* e_ring = reinterpret_cast<__nv_bfloat16*>(smem + L::E_AT);
-  auto e_slot = [&](int c) { return e_ring + (c % L::NSLOT) * 64 * RS; };
-  int n_chunks = 0;  // chunks copied so far
-  auto load_chunk = [&](int c, int dist_first) {
-    __nv_bfloat16* dst = e_slot(c);
-    for (int x = tid; x < 64 * CPR; x += NTH) {
-      const int u = x / CPR, cc = x - u * CPR;
-      const int dist = dist_first + u;
-      const bool ok = dist >= 0 && dist < max_seq;
-      cp_async16(dst + u * RS + cc * 8, e + (size_t)(ok ? max_seq - 1 - dist : 0) * DH + cc * 8,
-                 ok);
-    }
+  auto first_q = [&](int grp) { return causal ? grp * G : 0; };  // a group's first query tile
+  // whether key tile u of group grp meets query tile qt
+  auto meets = [&](int grp, int qt, int u) {
+    const int kt = grp * G + u;
+    return kt < n_tiles && !(causal && kt > qt);
   };
-  // pair (kt, qt) into ring stage s: at a key tile's first pair its K, V and
-  // key flags; always Q, dO, lse, dsum and the band's new chunks; (lo, hi)
-  // come back as the band's chunks, given the last pair's upper one in hi
-  auto load = [&](int kt, int qt, int s, int& lo, int& hi) {
-    const int k0 = kt * BK, q0 = qt * BQ;
-    const int dist0 = q0 - k0 - (BK - 1);
-    if (qt == first_q(kt)) {
-      lo = n_chunks++;
-      load_chunk(lo, dist0);
-    } else {
-      lo = hi;
-    }
-    hi = n_chunks++;
-    load_chunk(hi, dist0 + 64);
-    if (qt == first_q(kt)) {
-      __nv_bfloat16* ks = kv_buf(kt / SPLIT % L::STAGES);
-      __nv_bfloat16* vs = ks + BK * RS;
-      float* live = reinterpret_cast<float*>(vs + BK * RS);
-      for (int x = tid; x < BK * CPR; x += NTH) {
-        const int j = x / CPR, c = x - j * CPR;
-        const bool ok = k0 + j < T_len;
-        const size_t at = base + (size_t)(ok ? k0 + j : 0) * DH + c * 8;
-        cp_async16(ks + j * RS + c * 8, k + at, ok);
-        cp_async16(vs + j * RS + c * 8, v + at, ok);
+
+  // zeros: dsd's entries no key reaches; the dQ rows (query tiles before
+  // the block's first group's first) and dE distances (past those its first
+  // group reaches) the block never writes; everything when it has no group
+  {
+    uint32_t* dsd_w = reinterpret_cast<uint32_t*>(smem + L::DSD_AT);
+    for (int x = tid; x < 16384 / 4; x += NTH) dsd_w[x] = 0u;
+    const bool none = sp * G >= n_tiles;
+    const int dq_zero = none ? T_len : min(T_len, first_q(sp) * BQ);
+    const int de_from = none ? 0 : min(T_len, (n_tiles - sp * G) * BK + 1);
+    for (int x = tid; x < dq_zero * DH; x += NTH) dqa[x] = 0.f;
+    for (int x = de_from * DH + tid; x < T_len * DH; x += NTH) dep[x] = 0.f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < NKV; ++s) mbar_init(&kv_full[s], 1);
+    mbar_init_fence();
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (sp * G >= n_tiles) return;
+
+  // the producer's place in the pair sequence (thread 0's alone): the next
+  // pair to copy (group c_g, query tile c_qt, its key tile G - 1 - c_uu: a
+  // query tile meets the group's key tiles from the last down), and how many
+  // pairs and groups were copied
+  int c_g = sp, c_qt = first_q(sp), c_uu = 0, n_pairs = 0, n_kv = 0;
+  auto settle = [&]() {  // on to the first pair from here that exists
+    while (c_g * G < n_tiles && !meets(c_g, c_qt, G - 1 - c_uu)) {
+      if (++c_uu == G) {
+        c_uu = 0;
+        if (++c_qt == n_tiles) c_qt = first_q(c_g += nsplit);
       }
-      for (int j = tid; j < BK; j += NTH)
-        live[j] = (k0 + j < T_len && !(pad != nullptr && pad[(size_t)b * T_len + k0 + j])) ? 1.f
-                                                                                           : 0.f;
     }
-    __nv_bfloat16* qs = st_buf(s);
-    __nv_bfloat16* dos = qs + BQ * RS;
-    float* lse_s = reinterpret_cast<float*>(dos + BQ * RS);
-    for (int x = tid; x < BQ * CPR; x += NTH) {
-      const int r = x / CPR, c = x - r * CPR;
-      const bool ok = q0 + r < T_len;
-      const size_t at = base + (size_t)(ok ? q0 + r : 0) * DH + c * 8;
-      cp_async16(qs + r * RS + c * 8, q + at, ok);
-      cp_async16(dos + r * RS + c * 8, dout + at, ok);
-    }
-    for (int r = tid; r < BQ; r += NTH) {
-      const bool ok = q0 + r < T_len;
-      const size_t at = rbase + (ok ? q0 + r : 0);
-      cp_async4(lse_s + r, lse + at, ok);
-      cp_async4(lse_s + BQ + r, dsum + at, ok);
-    }
-    cp_commit();
   };
-
-  float dva[NH][4], dka[NH][4];  // dV, dK of keys 16 (w / 2).., channel half w % 2
-  float ecarry[NH][4];           // dE of the upper distance block, for the next pair
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) dva[n][x] = dka[n][x] = ecarry[n][x] = 0.f;
-  const int ra = 16 * (warp & 3), ka = 32 * (warp >> 2), ub = ra - ka + 32;  // phase A
-  const int mq = warp >> 1, c0 = (warp & 1) * (DH / 2);                        // phase B
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;  // A row-major
-  const int brow = (lane & 7) + (lane >> 4) * 8, bcol = ((lane >> 3) & 1) * 8;  // B, A^T
-
-  int kt = sp, qt = first_q(sp), nk = kt, nq = qt;
-  auto next = [&](int& a, int& c) {
-    if (++c == n_tiles) c = first_q(a += SPLIT);
-  };
-  next(nk, nq);
-  int lo = 0, hi = 0, nlo = 0, nhi = 0;  // this pair's band chunks, and the next pair's
-  load(kt, qt, 0, lo, hi);
-  for (int pair = 0;; ++pair) {
-    const int s = pair % L::STAGES;
-    const bool more = nk < n_tiles;
-    cp_wait<0>();
-    __syncthreads();  // this pair's tiles have landed; every warp is done with the last pair
-    // the next pair into the other stage, whose last reader was the last pair
-    nhi = hi;
-    if (L::STAGES > 1 && more) load(nk, nq, (pair + 1) % L::STAGES, nlo, nhi);
-    const int k0 = kt * BK, q0 = qt * BQ, dist0 = q0 - k0 - (BK - 1);
-    const __nv_bfloat16* ks = kv_buf(kt / SPLIT % L::STAGES);
-    const __nv_bfloat16* vs = ks + BK * RS;
-    const float* live = reinterpret_cast<const float*>(vs + BK * RS);
-    const __nv_bfloat16* qs = st_buf(s);
-    const __nv_bfloat16* dos = qs + BQ * RS;
-    const float* lse_s = reinterpret_cast<const float*>(dos + BQ * RS);
-    const float* dsum_s = lse_s + BQ;
-    const __nv_bfloat16* elo = e_slot(lo);
-    const __nv_bfloat16* ehi = e_slot(hi);
-    // band row r (a 16-row group never straddles the chunks)
-    auto erow = [&](int r) { return (r < 64 ? elo : ehi) + (r & 63) * RS; };
-
-    // ---- phase A
-    {
-      float sacc[4][4], bacc[WB / 8][4], dpacc[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) sacc[n][x] = dpacc[n][x] = 0.f;
-#pragma unroll
-      for (int n = 0; n < WB / 8; ++n)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) bacc[n][x] = 0.f;
-#pragma unroll
-      for (int st = 0; st < KS; ++st) {
-        uint32_t qa[4], da[4];
-        ldsm_x4(qa, qs + (ra + lrow) * RS + st * 16 + lcol);
-        ldsm_x4(da, dos + (ra + lrow) * RS + st * 16 + lcol);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bf[4];
-          ldsm_x4(bf, ks + (ka + np * 16 + brow) * RS + st * 16 + bcol);
-          mma(sacc[2 * np], qa, bf[0], bf[1]);
-          mma(sacc[2 * np + 1], qa, bf[2], bf[3]);
-          ldsm_x4(bf, vs + (ka + np * 16 + brow) * RS + st * 16 + bcol);
-          mma(dpacc[2 * np], da, bf[0], bf[1]);
-          mma(dpacc[2 * np + 1], da, bf[2], bf[3]);
+  settle();
+  // copy every pair whose slot is free: pairs_done pairs and groups_done
+  // groups have been consumed
+  auto produce = [&](int pairs_done, int groups_done) {
+    while (c_g * G < n_tiles && n_pairs < pairs_done + NST) {
+      const int gi = (c_g - sp) / nsplit, kt0 = c_g * G;
+      if (n_kv == gi) {  // the pair opens a group: its K and V first
+        if (gi >= groups_done + NKV) return;
+        const int ks = gi % NKV, nt = min(G, n_tiles - kt0);
+        unsigned char* kv = smem + L::KV_AT + ks * L::KV;
+        mbar_expect_tx(&kv_full[ks], nt * 2 * L::TILE);
+        for (int u = 0; u < nt; ++u) {
+          tma_load(kv + 2 * u * L::TILE, &maps.k, 0, (kt0 + u) * BK, 0, bh, &kv_full[ks]);
+          tma_load(kv + (2 * u + 1) * L::TILE, &maps.v, 0, (kt0 + u) * BK, 0, bh, &kv_full[ks]);
         }
-#pragma unroll
-        for (int np = 0; np < WB / 16; ++np) {
-          uint32_t bf[4];
-          ldsm_x4(bf, erow(ub + np * 16 + brow) + st * 16 + bcol);
-          mma(bacc[2 * np], qa, bf[0], bf[1]);
-          mma(bacc[2 * np + 1], qa, bf[2], bf[3]);
-        }
+        ++n_kv;
       }
-#pragma unroll
-      for (int n = 0; n < WB / 8; ++n) {
-        *reinterpret_cast<float2*>(scr + g * WBS + 8 * n + 2 * t) =
-            make_float2(bacc[n][0], bacc[n][1]);
-        *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * n + 2 * t) =
-            make_float2(bacc[n][2], bacc[n][3]);
+      const int kt = kt0 + G - 1 - c_uu;
+      const int s = n_pairs % NST, q0 = c_qt * BQ, dist0 = q0 - kt * BK - (BK - 1);
+      unsigned char* st = smem + s * L::ST;
+      mbar_expect_tx(&full[s], L::ST);
+      tma_load(st, &maps.q, 0, q0, 0, bh, &full[s]);
+      tma_load(st + L::TILE, &maps.d, 0, q0, 0, bh, &full[s]);
+      tma_load(st + 2 * L::TILE, &maps.e, 0, max_seq - EB - dist0, 0, 0, &full[s]);
+      ++n_pairs;
+      if (++c_uu == G) {
+        c_uu = 0;
+        if (++c_qt == n_tiles) c_qt = first_q(c_g += nsplit);
       }
-      __syncwarp();
+      settle();
+    }
+  };
+  if (tid == 0) produce(0, 0);
+
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup (phase A: keys 32 wg ..); warp in it
+  const uint32_t p_t = base + L::P_AT, ds_t = p_t + 8192, dsd_t = base + L::DSD_AT;
+  unsigned char* p_s = smem + L::P_AT;
+  unsigned char* ds_s = p_s + 8192;
+  unsigned char* dsd_s = smem + L::DSD_AT;
+  float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
+  // warpgroup 0: dV of the pair's key tile, 1: dK (rows = keys); with G = 2
+  // read from and written back to shared memory around each pair's
+  // products (a thread's own values, in a layout without bank conflicts)
+  float acc[R];
+  float4* acc_s = reinterpret_cast<float4*>(smem + L::ACC_AT) + (tid & 127);
+  auto acc_at = [&](int u, int x4) -> float4& {
+    return acc_s[((u * 2 + wg) * (R / 4) + x4) * 128];
+  };
+  // warpgroup 0: ec[0] is the query tile's dQ over the group. Warpgroup 1:
+  // dE blocks in flight. At a query tile with first band distance D = q0 -
+  // k0 - 63 (k0: the group's first key), the pair with key tile u adds its
+  // band rows 64.. to the 64 distances from D - 64 u (block -u) and rows
+  // 0..63 to those from D - 64 (u - 1) (block 1 - u); block p's row rl is
+  // distance D + 64 p + 63 - rl. A query tile meets the key tiles from the
+  // last down: block -(G - 1) is finished after the first pair, then its
+  // registers take block 1. Between query tiles ec[j] holds block -(G - 1)
+  // + j; in a query tile (G = 2), ec[0] holds block -1 then block 1 and
+  // ec[1] block 0; G = 1 takes block 1 into en.
+  static_assert(G <= 2, "the dE block rotation is written for groups of 1 or 2");
+  float ec[G][R], en[G == 1 ? R : 1];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+  for (int x = 0; x < R; ++x) acc[x] = 0.f;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = g + 8 * h, il = ra + r, i = q0 + il, c = 8 * n + 2 * t, jj = ka + c;
-          float p[2], ds[2];
+  for (int u = 0; u < G; ++u)
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            // the skew: Srel of (row r, key c + x) is band column r - (c + x) + 31
-            const float sc = sacc[n][2 * h + x] + scr[r * WBS + r - c - x + 31];
-            const bool ok = i < T_len && live[jj + x] != 0.f && !(causal && k0 + jj + x > i);
-            p[x] = ok ? exp2f(sc * scale_log2 - lse_s[il] * LOG2E) : 0.f;
-            ds[x] = p[x] * (dpacc[n][2 * h + x] - dsum_s[il]) * scale;
+    for (int x = 0; x < R; ++x) ec[u][x] = 0.f;
+  if (G == 2)
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+#pragma unroll
+      for (int x4 = 0; x4 < R / 4; ++x4) acc_at(u, x4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  // key tile kt0 + u's dK (warpgroup 1) or dV (0) from acc, cast to bf16
+  int kt0 = 0;  // the group's first key tile
+  auto store_out = [&](int u) {
+    __nv_bfloat16* out = wg == 0 ? dv : dk;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = (kt0 + u) * BK + 16 * wq + g + 8 * hh;
+      if (key < T_len) {
+        __nv_bfloat16* row = out + base_q + (size_t)key * DH + 2 * t;
+#pragma unroll
+        for (int c = 0; c < DH / 8; ++c)
+          *reinterpret_cast<uint32_t*>(row + 8 * c) =
+              pack_bf16(acc[4 * c + 2 * hh], acc[4 * c + 2 * hh + 1]);
+      }
+    }
+  };
+
+  // row rl (0..63) of this thread's accumulator rows: 16 wq + g + 8 hh.
+  // load_rows: dst = the partial's rows row0 + step * rl (0 in the block's
+  // first group, or outside [0, T)); add_rows: those rows = old + add
+  auto load_rows = [&](float* dst, const float* src, int row0, int step, bool first) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + step * (16 * wq + g + 8 * hh);
+      const bool ok = !first && row >= 0 && row < T_len;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c) {
+        const float2 x = ok ? *reinterpret_cast<const float2*>(src + (size_t)row * DH + 8 * c +
+                                                               2 * t)
+                            : make_float2(0.f, 0.f);
+        dst[4 * c + 2 * hh] = x.x;
+        dst[4 * c + 2 * hh + 1] = x.y;
+      }
+    }
+  };
+  auto add_rows = [&](float* dst, const float* add, const float* old, int row0, int step) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + step * (16 * wq + g + 8 * hh);
+      if (row < 0 || row >= T_len) continue;
+      float* at = dst + (size_t)row * DH + 2 * t;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c)
+        *reinterpret_cast<float2*>(at + 8 * c) =
+            make_float2(old[4 * c + 2 * hh] + add[4 * c + 2 * hh],
+                        old[4 * c + 2 * hh + 1] + add[4 * c + 2 * hh + 1]);
+    }
+  };
+
+  int pi = 0, gi = 0;
+  for (int grp = sp; grp * G < n_tiles; grp += nsplit, ++gi) {
+    const int ks = gi % NKV, k0 = grp * G * BK;
+    kt0 = grp * G;
+    const bool first = gi == 0;  // the block's first group: partial rows not yet written
+    const uint32_t kv_t = base + L::KV_AT + ks * L::KV;
+    uint32_t live[G];  // key 32 wg + x of key tile u is live at bit x of live[u]
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int key = k0 + u * BK + 32 * wg + lane;
+      live[u] = __ballot_sync(0xffffffffu,
+                              key < T_len && !(pad != nullptr && pad[(size_t)b * T_len + key]));
+    }
+    // lse (in log2 units) and dsum of this thread's rows of query tile qt:
+    // read one query tile ahead, so their latency passes under its pairs
+    float lse_n[2], dsum_n[2];
+    auto load_rowstats = [&](int qt) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = qt * BQ + 16 * wq + g + 8 * hh;
+        lse_n[hh] = i < T_len ? lse[rbase + i] * LOG2E : 0.f;
+        dsum_n[hh] = i < T_len ? dsum[rbase + i] : 0.f;
+      }
+    };
+    load_rowstats(first_q(grp));
+    mbar_wait(&kv_full[ks], (gi / NKV) & 1);
+    for (int qt = first_q(grp); qt < n_tiles; ++qt) {
+      const int q0 = qt * BQ, D = q0 - k0 - (BK - 1);
+      const float lse_r[2] = {lse_n[0], lse_n[1]}, dsum_r[2] = {dsum_n[0], dsum_n[1]};
+      if (qt + 1 < n_tiles) load_rowstats(qt + 1);
+      if (wg == 0) {
+#pragma unroll
+        for (int x = 0; x < R; ++x) ec[0][x] = 0.f;
+      }
+      float old[R];  // the partial rows the query tile finishes, read ahead
+      const int fin = D - (G - 1) * BK + 63;  // warpgroup 1: block -(G - 1), row rl at fin - rl
+#pragma unroll
+      for (int uu = 0; uu < G; ++uu) {
+        const int u = G - 1 - uu;  // the key tiles from the last down
+        if (!meets(grp, qt, u)) continue;
+        const int kt = grp * G + u, s = pi % NST;
+        const bool top = uu == 0 || !meets(grp, qt, u + 1);  // the query tile's first pair
+        const uint32_t q_t = base + s * L::ST, d_t = q_t + L::TILE, e_t = q_t + 2 * L::TILE;
+        const uint32_t k_t = kv_t + 2 * u * L::TILE, v_t = k_t + L::TILE;
+        mbar_wait(&full[s], (pi / NST) & 1);
+
+        // ---- phase A
+        {
+          float sacc[16], pacc[16], bacc[48];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            const uint64_t da = desc_k(q_t + kk * SLAB);
+            mma_ss<32, 0, 0>(sacc, da, desc_k(k_t + 1024 * wg + kk * SLAB), kk > 0);
+            mma_ss<32, 0, 0>(pacc, desc_k(d_t + kk * SLAB), desc_k(v_t + 1024 * wg + kk * SLAB),
+                             kk > 0);
+            mma_ss<96, 0, 0>(bacc, da, desc_k(e_t + 1024 * wg + kk * 2 * SLAB), kk > 0);
           }
-          *reinterpret_cast<uint32_t*>(ps + il * PS + jj) = pack_bf16(p[0], p[1]);
-          const uint32_t dsb = pack_bf16(ds[0], ds[1]);
-          *reinterpret_cast<uint32_t*>(dss + il * PS + jj) = dsb;
-          const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
+          wg_commit();
+          wg_wait0();
+          fence_regs<16>(sacc);
+          fence_regs<16>(pacc);
+          fence_regs<48>(bacc);
+          // the skew: band column (from row 32 wg) of row r, key 32 wg + j is
+          // 64 - (16 wq + r) + j; the warp keeps columns 48 - 16 wq .. 95 -
+          // 16 wq (chunks 6 - 2 wq ..), so it reads scratch column 16 - r + j
+#pragma unroll
+          for (int c = 0; c < 12; ++c) {
+            const int cc = c - (6 - 2 * wq);
+            if (cc >= 0 && cc < WB / 8) {
+              *reinterpret_cast<float2*>(scr + g * WBS + 8 * cc + 2 * t) =
+                  make_float2(bacc[4 * c], bacc[4 * c + 1]);
+              *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * cc + 2 * t) =
+                  make_float2(bacc[4 * c + 2], bacc[4 * c + 3]);
+            }
+          }
+          __syncwarp();
           const __nv_bfloat16 zero = __float2bfloat16(0.f);
-          const int u = il - jj + BK - 1;  // key jj + x sits at u - x
-          dsd[il * DS + u] = dist0 + u >= 0 ? d2.x : zero;
-          dsd[il * DS + u - 1] = dist0 + u - 1 >= 0 ? d2.y : zero;
+          const int kb = kt * BK;  // the key tile's first key
+          // whether any of the warp's pairs is masked: a row past T, a dead
+          // key, or a key past a row under the causal mask
+          const bool masked = q0 + 16 * wq + 15 >= T_len || live[u] != 0xffffffffu ||
+                              (causal && kb + 32 * wg + 31 > q0 + 16 * wq);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = g + 8 * hh, il = 16 * wq + r, i = q0 + il;
+              const int jl = 8 * n + 2 * t, j = 32 * wg + jl;
+              float p[2], ds[2];
+#pragma unroll
+              for (int x = 0; x < 2; ++x) {
+                const float sc = sacc[4 * n + 2 * hh + x] + scr[r * WBS + 16 - r + jl + x];
+                const bool ok = !masked || (i < T_len && ((live[u] >> (jl + x)) & 1) &&
+                                            !(causal && kb + j + x > i));
+                p[x] = ok ? exp2f(sc * scale_log2 - lse_r[hh]) : 0.f;
+                ds[x] = p[x] * (pacc[4 * n + 2 * hh + x] - dsum_r[hh]) * scale;
+              }
+              const uint32_t at = (j >> 4) * 2048 + sw32(il, j & 15);
+              *reinterpret_cast<uint32_t*>(p_s + at) = pack_bf16(p[0], p[1]);
+              const uint32_t dsb = pack_bf16(ds[0], ds[1]);
+              *reinterpret_cast<uint32_t*>(ds_s + at) = dsb;
+              const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
+              // distance (q0 + il) - (kb + j + x) sits at band column 64 - il + j + x
+              const int v = 64 - il + j, dist = i - (kb + j);
+              *reinterpret_cast<__nv_bfloat16*>(dsd_s + (v >> 4) * 2048 + sw32(il, v & 15)) =
+                  dist >= 0 ? d2.x : zero;
+              *reinterpret_cast<__nv_bfloat16*>(dsd_s + ((v + 1) >> 4) * 2048 +
+                                                sw32(il, (v + 1) & 15)) =
+                  dist - 1 >= 0 ? d2.y : zero;
+            }
         }
-    }
-    __syncthreads();
+        fence_async_smem();
+        named_barrier(1, 32 * NCW);  // P, dS' and dsd are in place
 
-    // ---- phase B. The dQ and dE partials this warp adds to are loaded
-    // first, so their latency passes under the products. The upper dE block
-    // (distances 16 (mq + 4)..) is the next pair's lower block (the band
-    // moves 64 distances a query tile), so it goes on in registers (ecarry)
-    // and reaches the partial once, at the key tile's last pair.
-    const bool last = qt == n_tiles - 1;
-    float2 qold[2][NH], eold[2][2][NH];
+        // ---- phase B. The partial rows the query tile finishes are read
+        // under products, so their latency passes there (not at d_head
+        // 128, where the registers are not there).
+        if (G == 2)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = q0 + 16 * mq + g + 8 * h;
-#pragma unroll
-      for (int n = 0; n < NH; ++n)
-        qold[h][n] =  // a query tile's first pair is with key tile sp
-            kt > sp && i < T_len
-                ? *reinterpret_cast<const float2*>(dqa + (size_t)i * DH + c0 + 8 * n + 2 * t)
-                : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int hb = 0; hb < 2; ++hb) {
-        const int dist = dist0 + 16 * (mq + 4 * hb) + g + 8 * h;
-#pragma unroll
-        for (int n = 0; n < NH; ++n)
-          eold[hb][h][n] =
-              (hb == 0 || last) && dist >= 0 && dist < T_len
-                  ? *reinterpret_cast<const float2*>(dep + (size_t)dist * DH + c0 + 8 * n + 2 * t)
-                  : make_float2(0.f, 0.f);
-      }
-    }
-#pragma unroll
-    for (int kq = 0; kq < BQ / 16; ++kq) {  // dV += P^T dO, dK += dS'^T Q
-      uint32_t pa[4], sa[4];
-      ldsm_x4_t(pa, ps + (16 * kq + brow) * PS + 16 * mq + bcol);
-      ldsm_x4_t(sa, dss + (16 * kq + brow) * PS + 16 * mq + bcol);
-      mma_kn<NH>(dva, pa, dos + 16 * kq * RS + c0, RS, lane);
-      mma_kn<NH>(dka, sa, qs + 16 * kq * RS + c0, RS, lane);
-    }
-    {  // dQ += dS' K + dsd E_band, rows 16 mq..: dsd row i is nonzero at u in [i, i + BK - 1]
-      float qacc[NH][4];
-#pragma unroll
-      for (int n = 0; n < NH; ++n)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) qacc[n][x] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, dss + (16 * mq + lrow) * PS + 16 * kk + lcol);
-        mma_kn<NH>(qacc, a, ks + 16 * kk * RS + c0, RS, lane);
-      }
-#pragma unroll
-      for (int ku = mq; ku <= mq + BK / 16; ++ku) {
-        uint32_t a[4];
-        ldsm_x4(a, dsd + (16 * mq + lrow) * DS + 16 * ku + lcol);
-        mma_kn<NH>(qacc, a, erow(16 * ku) + c0, RS, lane);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = q0 + 16 * mq + g + 8 * h;
-        if (i >= T_len) continue;
-#pragma unroll
-        for (int n = 0; n < NH; ++n)
-          *reinterpret_cast<float2*>(dqa + (size_t)i * DH + c0 + 8 * n + 2 * t) =
-              make_float2(qold[h][n].x + qacc[n][2 * h], qold[h][n].y + qacc[n][2 * h + 1]);
-      }
-    }
-#pragma unroll
-    for (int hb = 0; hb < 2; ++hb) {  // dE += dsd^T Q, distances 16 ublk..
-      const int ublk = mq + 4 * hb;
-      float eacc[NH][4];
-#pragma unroll
-      for (int n = 0; n < NH; ++n)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) eacc[n][x] = hb == 0 ? ecarry[n][x] : 0.f;
-      // rows i reach u in [i, i + BK - 1]: query steps ublk - 4 .. ublk
-      for (int kq = max(0, ublk - BK / 16); kq <= min(BQ / 16 - 1, ublk); ++kq) {
-        uint32_t a[4];
-        ldsm_x4_t(a, dsd + (16 * kq + brow) * DS + 16 * ublk + bcol);
-        mma_kn<NH>(eacc, a, qs + 16 * kq * RS + c0, RS, lane);
-      }
-#pragma unroll
-      for (int n = 0; n < NH; ++n)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) ecarry[n][x] = hb == 1 && !last ? eacc[n][x] : 0.f;
-      if (hb == 1 && !last) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int dist = dist0 + 16 * ublk + g + 8 * h;
-        if (dist < 0 || dist >= T_len) continue;
-#pragma unroll
-        for (int n = 0; n < NH; ++n)
-          *reinterpret_cast<float2*>(dep + (size_t)dist * DH + c0 + 8 * n + 2 * t) =
-              make_float2(eold[hb][h][n].x + eacc[n][2 * h], eold[hb][h][n].y + eacc[n][2 * h + 1]);
-      }
-    }
-
-    if (qt == n_tiles - 1) {  // the key tile's last pair: its dK and dV
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int key = k0 + 16 * mq + g + 8 * h;
-#pragma unroll
-        for (int n = 0; n < NH; ++n) {
-          if (key < T_len) {
-            const size_t at = base + (size_t)key * DH + c0 + 8 * n + 2 * t;
-            *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(dka[n][2 * h], dka[n][2 * h + 1]);
-            *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dva[n][2 * h], dva[n][2 * h + 1]);
+          for (int x4 = 0; x4 < R / 4; ++x4) {
+            const float4 v = acc_at(u, x4);
+            acc[4 * x4] = v.x;
+            acc[4 * x4 + 1] = v.y;
+            acc[4 * x4 + 2] = v.z;
+            acc[4 * x4 + 3] = v.w;
           }
-          dka[n][2 * h] = dka[n][2 * h + 1] = dva[n][2 * h] = dva[n][2 * h + 1] = 0.f;
+        if (wg == 0) {
+          if (u == 0 && DH <= 96) load_rows(old, dqa, q0, 1, first);
+          wg_fence();
+#pragma unroll
+          for (int kq = 0; kq < BQ / 16; ++kq)  // dV += P^T dO
+            mma_ss<DH, 1, 1>(acc, desc_mn(p_t + 512 * kq, 2048), desc_mn(d_t + 512 * kq, SLAB));
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)  // dQ += dS' K
+            mma_ss<DH, 0, 1>(ec[0], desc_k(ds_t + 2048 * kk), desc_mn(k_t + 512 * kk, SLAB));
+#pragma unroll
+          for (int kv = 0; kv < EB / 16; ++kv)  // + dsd E_band
+            mma_ss<DH, 0, 1>(ec[0], desc_k(dsd_t + 2048 * kv), desc_mn(e_t + 512 * kv, 2 * SLAB));
+          wg_commit();
+          wg_wait0();
+          fence_regs<R>(acc);
+          fence_regs<R>(ec[0]);
+        } else {
+          if (top && (G == 2 || DH <= 96)) load_rows(old, dep, fin, -1, first);
+          if (G == 2 && top && u == 0) add_rows(dep, ec[0], old, fin, -1);  // block -1 had no pair
+          // band rows 64..127 to block -u; rows 0..63 to block 1 - u, which
+          // is block 1 at u = 0: en (G = 1), or ec[0], block -1's registers
+          // once that is written (G = 2)
+          float* lo = ec[G - 1 - u];
+          float* hi = u == 0 ? (G == 1 ? en : ec[0]) : ec[G - u];
+          wg_fence();
+#pragma unroll
+          for (int kq = 0; kq < BQ / 16; ++kq) {
+            const uint64_t dq_ = desc_mn(q_t + 512 * kq, SLAB);
+            mma_ss<DH, 1, 1>(acc, desc_mn(ds_t + 512 * kq, 2048), dq_);  // dK += dS'^T Q
+            mma_ss<DH, 1, 1>(lo, desc_mn(dsd_t + 8192 + 512 * kq, 2048), dq_);
+            mma_ss<DH, 1, 1>(hi, desc_mn(dsd_t + 512 * kq, 2048), dq_, u > 0 || kq > 0);
+          }
+          wg_commit();
+          wg_wait0();
+          fence_regs<R>(acc);
+          fence_regs<R>(lo);
+          fence_regs<R>(hi);
+          if (G == 2 && top && u == 1) add_rows(dep, ec[0], old, fin, -1);  // block -1 is done
+        }
+        if (G == 2)  // back to shared memory (zeros for the next group)
+#pragma unroll
+          for (int x4 = 0; x4 < R / 4; ++x4)
+            acc_at(u, x4) = qt == n_tiles - 1 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                           : make_float4(acc[4 * x4], acc[4 * x4 + 1],
+                                                         acc[4 * x4 + 2], acc[4 * x4 + 3]);
+        if (qt == n_tiles - 1) {  // the key tile's last query tile: its dK or dV out
+          store_out(u);
+#pragma unroll
+          for (int x = 0; x < R; ++x) acc[x] = 0.f;
+        }
+        named_barrier(1, 32 * NCW);  // every product of the pair is done with its tiles
+        ++pi;
+        if (tid == 0) produce(pi, gi + (qt == n_tiles - 1 && u == 0));
+      }
+      // the query tile has met the group
+      if (wg == 0) {
+        if (DH > 96) load_rows(old, dqa, q0, 1, first);
+        add_rows(dqa, ec[0], old, q0, 1);
+      } else if (G == 1) {
+        if (DH > 96) load_rows(old, dep, fin, -1, first);
+        add_rows(dep, ec[0], old, fin, -1);
+#pragma unroll
+        for (int x = 0; x < R; ++x) ec[0][x] = en[x];
+      } else {  // blocks 0 and 1 move down to -1 and 0
+#pragma unroll
+        for (int x = 0; x < R; ++x) {
+          const float y = ec[0][x];
+          ec[0][x] = ec[G - 1][x];
+          ec[G - 1][x] = y;
         }
       }
     }
-    if (!more) break;
-    kt = nk;
-    qt = nq;
-    next(nk, nq);
-    if (L::STAGES == 1) {
-      __syncthreads();  // every warp is done with the one stage
-      load(kt, qt, 0, lo, hi);
-    } else {
-      lo = nlo;
-      hi = nhi;
+    // the group's end: the dE blocks still in flight (block -(G - 1) + j
+    // of the query tile past the last)
+    if (wg == 1) {
+      const int D = n_tiles * BQ - k0 - (BK - 1);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        float prev[R];
+        const int row0 = D + (j - (G - 1)) * BK + 63;
+        load_rows(prev, dep, row0, -1, first);
+        add_rows(dep, ec[j], prev, row0, -1);
+#pragma unroll
+        for (int x = 0; x < R; ++x) ec[j][x] = 0.f;
+      }
     }
   }
 }
-
-// dQ = the SPLIT blocks' partials summed in block order, cast once
+// dQ = the nsplit blocks' partials summed in block order, cast once; 4
+// values a thread (n is a multiple of 16)
 __global__ void dq_reduce_kernel(const float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq,
-                                 size_t n) {
-  const size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+                                 size_t n, int nsplit) {
+  const size_t x = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (x >= n) return;
-  float acc = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int s = 0; s < SPLIT; ++s) acc += dq_acc[s * n + x];
-  dq[x] = __float2bfloat16(acc);
+  for (int s = 0; s < MAX_SPLIT; ++s) {
+    if (s == nsplit) break;
+    const float4 v = *reinterpret_cast<const float4*>(dq_acc + s * n + x);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  *reinterpret_cast<uint2*>(dq + x) = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+}
+
+// Blocks a (b, h): one where the (b, h) alone nearly fill the card (at
+// least 7/8 of its SMs, one block an SM), so each partial has one block
+// and the reductions read half as much; else two, on alternate groups.
+inline int split_for(int B, int H) {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return MAX_SPLIT;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms[dev] = 132;
+  return B * H >= sms[dev] - sms[dev] / 8 ? 1 : MAX_SPLIT;
+}
+
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
+                   const void* dout, const void* lse, const void* dsum, void* dk, void* dv,
+                   void* dq_acc, void* de_part, int B, int H, int T_len, int max_seq, int causal,
+                   float scale, int nsplit, cudaStream_t stream) {
+  Maps maps;
+  cudaError_t err;
+  if ((err = sm90_host::slab_map(&maps.q, q, B * H, T_len, DH, BQ)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.k, k, B * H, T_len, DH, BK)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.v, v, B * H, T_len, DH, BK)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.d, dout, B * H, T_len, DH, BQ)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.e, e, 1, max_seq, DH, EB)) != cudaSuccess)
+    return err;
+  auto kernel = flash_bwd_tc_kernel<DH>;
+  const int smem = Layout<DH>::TOTAL;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * H * nsplit, NTH, smem, stream>>>(
+      maps, static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), static_cast<float*>(dq_acc), static_cast<float*>(de_part),
+      H, T_len, max_seq, causal, scale, scale * LOG2E, nsplit);
+  return cudaGetLastError();
 }
 
 }  // namespace tc
@@ -839,6 +937,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
                    void* dv, void* de, void* dq_acc, void* de_part, int B, int H, int T_len,
                    int max_seq, int causal, float scale, cudaStream_t stream) {
   cudaError_t err;
+  int parts = B * H;  // dE partials to sum: one per (b, h) in f32, nsplit in bf16
   if constexpr (std::is_same<T, float>::value) {
     auto kernel = flash_rel_attn_bwd_kernel<DH>;
     const size_t smem = smem_bytes<DH>();
@@ -852,27 +951,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
         static_cast<float*>(dv), static_cast<float*>(dq_acc), static_cast<float*>(de_part), H,
         T_len, max_seq, causal, scale);
   } else {
-    using B16 = __nv_bfloat16;
-    auto kernel = tc::flash_bwd_tc_kernel<DH>;
-    const int smem = tc::Layout<DH>::TOTAL;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<B * H * tc::SPLIT, tc::NTH, smem, stream>>>(
-        static_cast<const B16*>(q), static_cast<const B16*>(k), static_cast<const B16*>(v),
-        static_cast<const B16*>(e), static_cast<const uint8_t*>(pad), static_cast<const B16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<B16*>(dq),
-        static_cast<B16*>(dk), static_cast<B16*>(dv), static_cast<float*>(dq_acc),
-        static_cast<float*>(de_part), H, T_len, max_seq, causal, scale, scale * tc::LOG2E);
-    err = cudaGetLastError();
+    const int nsplit = tc::split_for(B, H);
+    err = tc::launch<DH>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq_acc, de_part, B, H, T_len,
+                         max_seq, causal, scale, nsplit, stream);
     if (err != cudaSuccess) return err;
     const size_t n = (size_t)B * H * T_len * DH;
-    tc::dq_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        static_cast<const float*>(dq_acc), static_cast<B16*>(dq), n);
+    tc::dq_reduce_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
+        static_cast<const float*>(dq_acc), static_cast<__nv_bfloat16*>(dq), n, nsplit);
+    parts *= nsplit;
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // the bf16 path's partials: SPLIT per (b, h)
-  const int parts = std::is_same<T, float>::value ? B * H : B * H * tc::SPLIT;
   const int n = max_seq * DH, threads = 256;
   de_reduce_kernel<T><<<(n + threads - 1) / threads, threads, 0, stream>>>(
       static_cast<const float*>(de_part), static_cast<T*>(de), parts, T_len, max_seq, DH);
@@ -909,7 +998,8 @@ extern "C" {
 // float32, 1 = bfloat16 (q, k, v, e, dout, dq, dk, dv, de); lse and dsum are
 // f32 [B, H, T]; pad may be null. dq_acc is f32 scratch [2, B, H, T, dh] and
 // de_part f32 scratch [2*B*H, T, dh] (the f32 path uses their first halves,
-// the bf16 path one half per block of a (b, h)); the kernels fill both.
+// the bf16 path one half per block of a (b, h), one or two blocks); the
+// kernels fill what they use.
 // scale is c = 1/sqrt(d_head) of the caller's heads, which may have fewer
 // columns than dh (zero columns padded up to an instantiated dh add nothing).
 // Launches on `stream` and does not synchronise.
@@ -941,6 +1031,10 @@ int flash_rel_attn_dsum(const void* dout, const void* o, void* dsum, int rows, i
     dsum_kernel<float><<<blocks, threads, 0, s>>>(static_cast<const float*>(dout),
                                                   static_cast<const float*>(o),
                                                   static_cast<float*>(dsum), rows, dh);
+  else if (dtype == 1 && dh % 8 == 0 && ((uintptr_t)dout | (uintptr_t)o) % 16 == 0)
+    dsum_vec_kernel<<<(unsigned)(((size_t)rows * 8 + threads - 1) / threads), threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(o),
+        static_cast<float*>(dsum), rows, dh);
   else if (dtype == 1)
     dsum_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(o),

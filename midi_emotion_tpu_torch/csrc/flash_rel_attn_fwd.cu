@@ -23,36 +23,37 @@
 // bf16 (the main path: every prefill and training forward). Bound on the
 // H100: operations. At B 4, H 16, T 1216, dh 48 it needs about 13.6 GFLOP
 // (QK^T, the relative term and PV over the visible pairs), 13.7 us at the
-// tensor cores' 989 TFLOP/s, against 3 MB of inputs and outputs. The design
-// puts every product on the tensor cores (mma.sync m16n8k16, bf16 operands,
-// f32 sums), as the TPU kernel puts them on the MXU:
-//   * a block of 4 warps takes 64 query rows; each warp owns 16 rows end to
-//     end, so the softmax state, the skew and P never leave the warp;
-//   * per 64-key tile: S = Q K^T, and the band Q E_band^T over the 80 band
-//     rows (distances) its 16 rows reach, as tensor-core products; the band
-//     is skewed into Srel through a per-warp shared scratch (row r, key j
-//     reads band column r - j + 63); band rows of negative distance are
-//     zero, so Srel is 0 above the diagonal, which the non-causal
-//     (regression) model needs;
-//   * online softmax in f32 (exp2 with log2(e) folded into the scale), then
-//     P rounded to bf16 straight from the score fragments into the A
-//     operand of P V (the TPU kernel casts P to the input dtype the same
-//     way), with an f32 accumulator;
-//   * K, V and the E band land by cp.async in a two-stage ring, the next
-//     key tile's copies under this tile's products; the band moves 64
-//     distances a key tile, so E lives in a ring of 64-row chunks and a
-//     tile copies one new chunk. The query tile lands in the band scratch
-//     (it is read into registers once), so three blocks fit an SM at
-//     d_head <= 48 (12 warps: one block's barriers pass under the others'
-//     products), two at 64, one at 96 and 128. Rows are padded by 16 bytes
-//     so ldmatrix reads are free of bank conflicts.
-// mma.sync and not wgmma, chosen without a wgmma version written or timed:
-// a warp's 16 rows are the unit of the skew, the softmax and the P-to-
-// operand reuse, which mma.sync keeps inside one warp. Nothing rules wgmma
-// out: it takes A (Q, P) from registers, and its shared-memory B operands
-// take 32- and 64-byte swizzles or padded rows, so d_head 48 and 96 fit. A
-// wgmma version, each B tile read once a 64-row warpgroup instead of by
-// every warp's ldmatrix, is the next step.
+// tensor cores' 989 TFLOP/s, against 3 MB of inputs and outputs. Design
+// (tc::flash_fwd_tc_kernel), on what Hopper added; the building blocks
+// (wgmma, TMA, mbarriers) are in hopper_sm90.cuh:
+//   * a block is one consumer warpgroup on 64 query rows and one producer
+//     warp. The warpgroup's wgmma accumulators hold the 64 rows, warp w
+//     rows 16 w .. 16 w + 15, in the layout of mma.sync's fragments, so the
+//     skew, the online softmax and P stay inside the warp;
+//   * one producer lane copies the query tile, then each key tile's K and
+//     V into a two-stage ring and the E band's next 64-row chunk into a
+//     ring of three (the band moves 64 distances a key tile, so a tile
+//     copies one new chunk), by TMA, each stage guarded by a full and an
+//     empty mbarrier. Tiles land in 16-column slabs with TMA's 32-byte
+//     swizzle, which wgmma reads K-major or MN-major (a 96-byte row of
+//     d_head 48 is three slabs); rows past T, and E rows of negative
+//     distance, land as zeros, so Srel is 0 above the diagonal, which the
+//     non-causal (regression) model needs;
+//   * per key tile: S = Q K^T (m64n64) and the band Q E_band^T (two
+//     m64n64, a chunk each) from shared memory; the band skewed into Srel
+//     through a per-warp scratch (row r, key j reads band column 64 - r +
+//     j); the online softmax in f32 (exp2 with log2(e) folded into the
+//     scale), masks applied only by warps whose rows one reaches; P rounded
+//     to bf16 straight from the score registers into wgmma's A fragments
+//     (the TPU kernel casts P to the input dtype the same way) and O += P V
+//     with V read MN-major;
+//   * two blocks an SM up to d_head 64, one at 96 and 128. The wgmma sit in
+//     no branch the compiler sees as divergent and no accumulator is
+//     written while one is in flight, so ptxas does not serialize them.
+// Measured before this design, the mma.sync kernel it replaces took 0.1255
+// ms at B 4 and 0.2203 ms at B 8, ptxas giving it 168 registers and 32
+// bytes of spill at d_head 48 (scripts/torch_flash_bench.py, NVIDIA H100
+// 80GB HBM3 at 700 W).
 //
 // f32 (the checks' path, held to 1e-4): CUDA cores, because TF32 tensor-core
 // products keep about three decimal digits and cannot meet that. One block
@@ -67,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_sm90.cuh"
 
 namespace {
 
@@ -251,226 +254,162 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
 
 namespace tc {
 
-constexpr int BQ = 64;              // query rows per block: 4 warps of 16
+using namespace sm90;
+
+constexpr int BQ = 64;              // query rows per block: one warpgroup's wgmma tile
 constexpr int BK = 64;              // keys per tile
-constexpr int NWARP = BQ / 16;
-constexpr int NTH = 32 * NWARP;
-constexpr int WB = 80;              // band rows a warp multiplies: its rows' 79 distances
+constexpr int EB = BQ + BK;         // band rows staged per key tile (the first one unused)
+constexpr int NCW = 4;              // consumer warps: one warpgroup
+constexpr int NTH = 32 * (NCW + 1); // + the producer warp
+constexpr int WB = 80;              // band columns a warp reads: its rows' 79 distances
 constexpr int WBS = WB + 8;         // row stride of a warp's band scratch (floats)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int DH>
 struct Layout {
-  static constexpr int STAGES = 2;   // the next key tile lands while this one computes
-  static constexpr int RS = DH + 8;  // bf16 row stride: an odd number of 16-byte units
-  static constexpr int CPR = DH / 8;  // 16-byte chunks a row
-  // a ring stage: K [BK][RS], V [BK][RS] bf16, live [BK] f32
-  static constexpr int STAGE_BYTES = 2 * BK * RS * 2 + BK * 4;
-  // the E band: chunks of 64 rows [64][RS] bf16, two a tile in work
-  static constexpr int NSLOT = STAGES + 1;
-  static constexpr int E_BYTES = NSLOT * 64 * RS * 2;
-  // the band scratch; the query tile [BQ][RS] bf16 lands there first, and
-  // is read into registers before any warp writes its scratch
-  static constexpr int SCRATCH_BYTES = NWARP * 16 * WBS * 4;
-  static_assert(BQ * RS * 2 <= SCRATCH_BYTES, "the query tile fits the scratch");
-  static constexpr int TOTAL = STAGES * STAGE_BYTES + E_BYTES + SCRATCH_BYTES;
-  // blocks an SM that the SM's 228 KB (1 KB of it per block reserved)
-  // holds, at most 3 (12 warps, each block's copies and barriers under the
-  // others' products): 3 at d_head <= 48, 2 at 64, 1 at 96 and 128
-  static constexpr int MIN_BLOCKS = 233472 / (TOTAL + 1024) < 3 ? 233472 / (TOTAL + 1024) : 3;
+  static constexpr int NST = 2;             // the K, V ring: the next key tile lands under this one
+  static constexpr int NE = NST + 1;        // the E ring, in chunks of 64 rows
+  static constexpr int TILE = BQ * DH * 2;  // a 64-row bf16 tile in slabs: Q, K, V or an E chunk
+  static constexpr int STAGE = 2 * TILE;    // K, V
+  static constexpr int ST_AT = TILE;        // Q first
+  static constexpr int E_AT = ST_AT + NST * STAGE;
+  static constexpr int SCR_AT = E_AT + NE * TILE;
+  static constexpr int BAR_AT = SCR_AT + NCW * 16 * WBS * 4;
+  static constexpr int TOTAL = BAR_AT + 8 * (2 * NST + 1) + 1024;  // + room to align to 1024
+  // blocks an SM's 228 KB hold (1 KB a block reserved), at most 2
+  static constexpr int MIN_BLOCKS = 233472 / (TOTAL + 1024) < 2 ? 1 : 2;
+  static_assert(TILE % 1024 == 0 && STAGE % 1024 == 0, "slabs stay 1024-byte aligned");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared, zeros where !ok (no byte is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+struct Maps {
+  CUtensorMap q, k, v, e;  // q, k, v: [B*H][T][dh], e: [max_seq][dh], in slabs
+};
 
-// Fragment coordinates (g = lane / 4, t = lane % 4): an f32 accumulator tile
-// c[n][e] holds row g + 8 (e / 2), column 8 n + 2 t + e % 2 of the warp's 16
-// rows.
+// One block: a 64-row query tile of one (b, h), the heaviest tiles first.
+// Warp 4 is the producer: one lane copies the query tile, then each key
+// tile's K, V and E band by TMA into a ring of NST stages, each guarded by a
+// full and an empty mbarrier. Warps 0-3 are one consumer warpgroup; warp w
+// owns rows 16 w .. 16 w + 15 of every 64-row accumulator, so the skew, the
+// online softmax and P stay inside the warp, as in the mma.sync design this
+// replaces. Per key tile: S = Q K^T (m64n64) and the band Q E_band^T
+// (m64n128) by wgmma from shared memory; the band (row v at distance dist0 +
+// 127 - v, zero where negative) skewed into Srel through a per-warp scratch;
+// the online softmax in f32; P rounded to bf16 into wgmma A fragments; O +=
+// P V (m64 n dh, A from registers, V read MN-major).
 template <int DH>
 __global__ void __launch_bounds__(NTH, Layout<DH>::MIN_BLOCKS)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ e,
-                    const uint8_t* __restrict__ pad, __nv_bfloat16* __restrict__ o,
-                    float* __restrict__ lse, int H, int T_len, int max_seq, int causal,
-                    float scale_log2) {
+flash_fwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ pad,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int T_len,
+                    int max_seq, int causal, float scale_log2) {
   using L = Layout<DH>;
-  constexpr int RS = L::RS, CPR = L::CPR, KS = DH / 16, STAGES = L::STAGES;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ring = smem;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int NST = L::NST, KS = DH / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_AT);
+  uint64_t* empty = full + NST;
+  uint64_t* qbar = empty + NST;
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_index();
   const int g = lane >> 2, t = lane & 3;
-  __nv_bfloat16* e_ring = reinterpret_cast<__nv_bfloat16*>(ring + STAGES * L::STAGE_BYTES);
-  float* scr_all = reinterpret_cast<float*>(ring + STAGES * L::STAGE_BYTES + L::E_BYTES);
-  float* scr = scr_all + warp * 16 * WBS;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(scr_all);  // until the first tile's products
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tile first
   const int bh = blockIdx.y, b = bh / H;
-  const size_t base = (size_t)bh * T_len * DH;
   const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
   const int n_kt = (k_end + BK - 1) / BK;
+  auto stage = [&](int s) { return L::ST_AT + s * L::STAGE; };  // K, then V
+  auto chunk = [&](int c) { return L::E_AT + (c % L::NE) * L::TILE; };
+  // E chunk c: rows from e0 + 64 c. The band of key tile kt (row v at
+  // distance dist0 + 127 - v) is E rows max_seq - EB - dist0 + v = e0 + 64
+  // kt + v: chunks kt and kt + 1; rows past either end of E, negative
+  // distances, land as zeros
+  const int e0 = max_seq - EB - (q0 - (BK - 1));
 
-  auto stage = [&](int s) { return reinterpret_cast<__nv_bfloat16*>(ring + s * L::STAGE_BYTES); };
-  // The E band of a tile (row u at distance q0 - k0 - (BK - 1) + u, zero
-  // where negative) is two chunks of 64 rows in a ring of NSLOT: the next
-  // key tile's band starts 64 distances lower, so its upper chunk is this
-  // tile's lower one and only its lower chunk is copied (both at the first
-  // tile). Chunk c sits in slot c % NSLOT.
-  static_assert(BQ == 64 && BK == 64, "the band moves one 64-row chunk a key tile");
-  auto e_slot = [&](int c) { return e_ring + (c % L::NSLOT) * 64 * RS; };
-  int n_chunks = 0;  // chunks copied so far
-  auto load_chunk = [&](int c, int dist_first) {
-    __nv_bfloat16* dst = e_slot(c);
-    for (int x = tid; x < 64 * CPR; x += NTH) {
-      const int u = x / CPR, cc = x - u * CPR;
-      const int dist = dist_first + u;
-      const bool ok = dist >= 0 && dist < max_seq;
-      cp_async16(dst + u * RS + cc * 8, e + (size_t)(ok ? max_seq - 1 - dist : 0) * DH + cc * 8,
-                 ok);
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCW);
     }
-  };
-  // key tile kt into ring stage s: K, V, the key flags and the band's new
-  // chunks; (lo, hi) come back as the band's chunks, given the last tile's
-  // lower one in lo
-  auto load_tile = [&](int kt, int s, int& lo, int& hi) {
-    const int k0 = kt * BK, dist0 = q0 - k0 - (BK - 1);
-    if (kt == 0) {
-      hi = n_chunks++;
-      load_chunk(hi, dist0 + 64);
-    } else {
-      hi = lo;
-    }
-    lo = n_chunks++;
-    load_chunk(lo, dist0);
-    __nv_bfloat16* ks = stage(s);
-    __nv_bfloat16* vs = ks + BK * RS;
-    float* live = reinterpret_cast<float*>(vs + BK * RS);
-    for (int x = tid; x < BK * CPR; x += NTH) {
-      const int j = x / CPR, c = x - j * CPR;
-      const bool ok = k0 + j < T_len;
-      const size_t at = base + (size_t)(ok ? k0 + j : 0) * DH + c * 8;
-      cp_async16(ks + j * RS + c * 8, k + at, ok);
-      cp_async16(vs + j * RS + c * 8, v + at, ok);
-    }
-    for (int j = tid; j < BK; j += NTH)
-      live[j] =
-          (k0 + j < T_len && !(pad != nullptr && pad[(size_t)b * T_len + k0 + j])) ? 1.f : 0.f;
-    cp_commit();
-  };
-
-  for (int x = tid; x < BQ * CPR; x += NTH) {  // the query tile, with the first key tile
-    const int r = x / CPR, c = x - r * CPR;
-    const bool ok = q0 + r < T_len;
-    cp_async16(qs + r * RS + c * 8, q + base + (size_t)(ok ? q0 + r : 0) * DH + c * 8, ok);
+    mbar_init(qbar, 1);
+    mbar_init_fence();
   }
-  int lo = 0, hi = 0, nlo = 0, nhi = 0;  // this tile's band chunks, and the next tile's
-  load_tile(0, 0, lo, hi);
+  __syncthreads();
 
-  uint32_t qa[KS][4];  // this warp's 16 query rows as A fragments
-  float oacc[DH / 8][4];
+  if (warp == NCW) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(qbar, L::TILE);
+      tma_load(smem, &maps.q, 0, q0, 0, bh, qbar);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % NST, k0 = kt * BK;
+        if (kt >= NST) mbar_wait(&empty[s], (kt / NST - 1) & 1);
+        // K, V and the band's new chunk (both chunks for the first tile);
+        // the chunk's slot last held chunk kt - 2, which tile kt - 2 was
+        // the last to read
+        mbar_expect_tx(&full[s], (kt == 0 ? 4 : 3) * L::TILE);
+        unsigned char* st = smem + stage(s);
+        tma_load(st, &maps.k, 0, k0, 0, bh, &full[s]);
+        tma_load(st + L::TILE, &maps.v, 0, k0, 0, bh, &full[s]);
+        if (kt == 0) tma_load(smem + chunk(0), &maps.e, 0, e0, 0, 0, &full[s]);
+        tma_load(smem + chunk(kt + 1), &maps.e, 0, e0 + 64 * (kt + 1), 0, 0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
+  const int ub = 16 * warp;  // the warp's first row
+  float oacc[DH / 2];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) oacc[n][x] = 0.f;
+  for (int x = 0; x < DH / 2; ++x) oacc[x] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8 (log2 units)
-  const int ub = 16 * warp;  // the warp's first band row
+  mbar_wait(qbar, 0);
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {
-      nlo = lo;
-      load_tile(kt + 1, (kt + 1) % STAGES, nlo, nhi);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
+    const int s = kt % NST, k0 = kt * BK;
+    // key j of the tile is live at bit j % 32 of live[j / 32]
+    uint32_t live[2];
 #pragma unroll
-      for (int s = 0; s < KS; ++s)
-        ldsm_x4(qa[s], qs + (ub + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + s * 16 +
-                           (lane >> 4) * 8);
-      __syncthreads();  // every warp holds its rows before the scratch is written over them
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = k0 + 32 * hf + lane;
+      live[hf] = __ballot_sync(0xffffffffu,
+                               key < T_len && !(pad != nullptr && pad[(size_t)b * T_len + key]));
     }
-    const __nv_bfloat16* ks = stage(kt % STAGES);
-    const __nv_bfloat16* vs = ks + BK * RS;
-    const float* live = reinterpret_cast<const float*>(vs + BK * RS);
-    const __nv_bfloat16* elo = e_slot(lo);
-    const __nv_bfloat16* ehi = e_slot(hi);
-    const int k0 = kt * BK;
+    // masks this warp's rows need: the causal one where a key of the tile
+    // passes its first row, the key one where a key is dead
+    const bool masked = (causal && k0 + BK - 1 > q0 + ub) || (live[0] & live[1]) != 0xffffffffu;
+    const uint32_t st = base + stage(s);
+    mbar_wait(&full[s], (kt / NST) & 1);
 
-    // S = Q K^T and band = Q E_band^T (rows ub .. ub + WB - 1)
-    float sacc[BK / 8][4], bacc[WB / 8][4];
+    // S = Q K^T and band = Q E_band^T, band rows 0..63 and 64..127 from
+    // chunks kt and kt + 1 (the first k16 step overwrites)
+    float sacc[BK / 2], bacc[2][BK / 2];
+    const uint32_t c_lo = base + chunk(kt), c_hi = base + chunk(kt + 1);
+    wg_fence();
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) sacc[n][x] = 0.f;
-#pragma unroll
-    for (int n = 0; n < WB / 8; ++n)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) bacc[n][x] = 0.f;
-    const int brow = (lane & 7) + (lane >> 4) * 8, bcol = ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t bf[4];
-        ldsm_x4(bf, ks + (np * 16 + brow) * RS + s * 16 + bcol);
-        mma(sacc[2 * np], qa[s], bf[0], bf[1]);
-        mma(sacc[2 * np + 1], qa[s], bf[2], bf[3]);
-      }
-#pragma unroll
-      for (int np = 0; np < WB / 16; ++np) {
-        uint32_t bf[4];
-        const int r = ub + np * 16;  // a 16-row group never straddles the chunks
-        ldsm_x4(bf, (r < 64 ? elo : ehi) + ((r & 63) + brow) * RS + s * 16 + bcol);
-        mma(bacc[2 * np], qa[s], bf[0], bf[1]);
-        mma(bacc[2 * np + 1], qa[s], bf[2], bf[3]);
-      }
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint64_t da = desc_k(base + kk * L::TILE / KS);
+      mma_ss<BK, 0, 0>(sacc, da, desc_k(st + kk * L::TILE / KS), kk > 0);
+      mma_ss<BK, 0, 0>(bacc[0], da, desc_k(c_lo + kk * L::TILE / KS), kk > 0);
+      mma_ss<BK, 0, 0>(bacc[1], da, desc_k(c_hi + kk * L::TILE / KS), kk > 0);
     }
-    // the skew: Srel[r][j] = band[r][r - j + BK - 1]
+    wg_commit();
+    wg_wait0();
+    fence_regs<BK / 2>(sacc);
+    fence_regs<BK / 2>(bacc[0]);
+    fence_regs<BK / 2>(bacc[1]);
+
+    // the skew: Srel[r][j] = band[r][64 - (ub + r) + j]. The warp keeps
+    // band columns 48 - ub .. 127 - ub (chunks 6 - 2 w .. 15 - 2 w), so row
+    // r, key j reads its scratch column 16 - r + j
 #pragma unroll
-    for (int n = 0; n < WB / 8; ++n) {
-      *reinterpret_cast<float2*>(scr + g * WBS + 8 * n + 2 * t) =
-          make_float2(bacc[n][0], bacc[n][1]);
-      *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * n + 2 * t) =
-          make_float2(bacc[n][2], bacc[n][3]);
+    for (int c = 0; c < EB / 8; ++c) {
+      const int cc = c - (6 - 2 * warp);
+      if (cc >= 0 && cc < WB / 8) {
+        const float* bc = bacc[c / 8] + 4 * (c % 8);
+        *reinterpret_cast<float2*>(scr + g * WBS + 8 * cc + 2 * t) = make_float2(bc[0], bc[1]);
+        *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * cc + 2 * t) =
+            make_float2(bc[2], bc[3]);
+      }
     }
     __syncwarp();
     float mx[2] = {m[0], m[1]};
@@ -480,74 +419,69 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       for (int x = 0; x < 4; ++x) {
         const int r = g + 8 * (x >> 1), j = 8 * n + 2 * t + (x & 1);
         const int i = q0 + ub + r;
-        float sc = (sacc[n][x] + scr[r * WBS + r - j + BK - 1]) * scale_log2;
-        if (live[j] == 0.f || (causal && k0 + j > i)) sc = -INFINITY;
-        sacc[n][x] = sc;
+        float sc = (sacc[4 * n + x] + scr[r * WBS + 16 - r + j]) * scale_log2;
+        if (masked && (!((live[j >> 5] >> (j & 31)) & 1) || (causal && k0 + j > i)))
+          sc = -INFINITY;
+        sacc[4 * n + x] = sc;
         mx[x >> 1] = fmaxf(mx[x >> 1], sc);
       }
     __syncwarp();  // the scratch is read before the next tile writes it
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
     }
     float mu[2], alpha[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mu[h] = mx[h] == -INFINITY ? 0.f : mx[h];  // a row with no visible key yet
-      alpha[h] = exp2f(m[h] - mu[h]);
-      m[h] = mx[h];
-      l[h] *= alpha[h];
+    for (int hh = 0; hh < 2; ++hh) {
+      mu[hh] = mx[hh] == -INFINITY ? 0.f : mx[hh];  // a row with no visible key yet
+      alpha[hh] = exp2f(m[hh] - mu[hh]);
+      m[hh] = mx[hh];
+      l[hh] *= alpha[hh];
     }
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) oacc[n][x] *= alpha[x >> 1];
-    uint32_t pa[BK / 16][4];  // P as bf16 A fragments
+    for (int x = 0; x < DH / 2; ++x) oacc[x] *= alpha[(x >> 1) & 1];
+    uint32_t pa[BK / 16][4];  // P as bf16 A fragments, one set per k16 step
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
       float p[4];
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        p[x] = exp2f(sacc[n][x] - mu[x >> 1]);
+        p[x] = exp2f(sacc[4 * n + x] - mu[x >> 1]);
         l[x >> 1] += p[x];
       }
       pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
       pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
     }
-    // O += P V
+    // O += P V: V [keys][dh] read MN-major (a k16 step is 16 key rows)
+    wg_fence();
 #pragma unroll
-    for (int s = 0; s < BK / 16; ++s)
-#pragma unroll
-      for (int np = 0; np < DH / 16; ++np) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, vs + (s * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + np * 16 +
-                          (lane >> 4) * 8);
-        mma(oacc[2 * np], pa[s], bf[0], bf[1]);
-        mma(oacc[2 * np + 1], pa[s], bf[2], bf[3]);
-      }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-    lo = nlo;
-    hi = nhi;
+    for (int kk = 0; kk < BK / 16; ++kk)
+      mma_rs<DH, 1>(oacc, pa[kk], desc_mn(st + L::TILE + kk * 512, L::TILE / KS));
+    wg_commit();
+    wg_wait0();
+    fence_regs<DH / 2>(oacc);
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
   }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
   }
+  const size_t obase = (size_t)bh * T_len * DH;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = q0 + ub + g + 8 * h;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = q0 + ub + g + 8 * hh;
     if (i >= T_len) continue;
-    const bool any = l[h] > 0.f;
-    const float inv = any ? 1.f / l[h] : 0.f;
-    __nv_bfloat16* orow = o + base + (size_t)i * DH;
+    const bool any = l[hh] > 0.f;
+    const float inv = any ? 1.f / l[hh] : 0.f;
+    __nv_bfloat16* orow = o + obase + (size_t)i * DH;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
-          pack_bf16(oacc[n][2 * h] * inv, oacc[n][2 * h + 1] * inv);
-    if (t == 0) lse[(size_t)bh * T_len + i] = any ? m[h] * LN2 + logf(l[h]) : 1e30f;
+    for (int c = 0; c < DH / 8; ++c)
+      *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t) =
+          pack_bf16(oacc[4 * c + 2 * hh] * inv, oacc[4 * c + 2 * hh + 1] * inv);
+    if (t == 0) lse[(size_t)bh * T_len + i] = any ? m[hh] * LN2 + logf(l[hh]) : 1e30f;
   }
 }
 
@@ -555,16 +489,21 @@ template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    void* o, void* lse, int B, int H, int T_len, int max_seq, int causal,
                    float scale, cudaStream_t stream) {
+  Maps maps;
+  cudaError_t err;
+  if ((err = sm90_host::slab_map(&maps.q, q, B * H, T_len, DH, BQ)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.k, k, B * H, T_len, DH, BK)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.v, v, B * H, T_len, DH, BK)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.e, e, 1, max_seq, DH, BK)) != cudaSuccess)
+    return err;
   auto kernel = flash_fwd_tc_kernel<DH>;
   const int smem = Layout<DH>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NTH, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(e),
-      static_cast<const uint8_t*>(pad), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      H, T_len, max_seq, causal, LOG2E * scale);
+  kernel<<<grid, NTH, smem, stream>>>(maps, static_cast<const uint8_t*>(pad),
+                                      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+                                      H, T_len, max_seq, causal, LOG2E * scale);
   return cudaGetLastError();
 }
 

@@ -48,17 +48,16 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: the file name carries a hash of
-    the source and the flags, so an edited source never loads a stale
-    build."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    the source, every header in ``csrc/`` and the flags, so an edited
+    source or header never loads a stale build."""
+    digest = hashlib.sha256()
+    for src in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-# csrc/<name>.cu; each includes no header of this repository, so its own
-# bytes are all that library_path needs to hash
+# csrc/<name>.cu; the flash kernels 1 and 4 include csrc/hopper_sm90.cuh
 CUDA_SOURCES = ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "flash_rel_attn_bwd_kv",
                 "flash_rel_attn_bwd_q", "decode_attn_stacked")
 

@@ -53,14 +53,21 @@ Source note for the forward kernel (``csrc/flash_rel_attn_fwd.cu``):
   * replaces ``pallas_attention.py::_flash_kernel`` (launched by
     ``_flash_fwd_impl`` through ``flash_relative_attention``);
   * bf16, the main path: bound by operations (QK^T, the relative term and
-    PV on the tensor cores); every product is an ``mma.sync`` m16n8k16 with
-    f32 sums (wgmma fits too but was not tried; the source says why it is
-    the next step): per 64-key tile S = Q K^T and the band Q E_band^T, the band
+    PV, about 13.6 GFLOP at B 4, H 16, T 1216, d_head 48: 0.0137 ms at the
+    H100's 989 TFLOP/s). Design: Hopper's warpgroup products (``wgmma``)
+    on tiles that TMA copies into shared memory under ``mbarrier``s (the
+    building blocks in ``csrc/hopper_sm90.cuh``): a block is one
+    warpgroup on 64 query rows, warp w owning rows 16 w.. of every
+    accumulator, so the skew, the online softmax and P stay in the warp;
+    per 64-key tile S = Q K^T and the band Q E_band^T by wgmma, the band
     skewed into Srel through shared memory (band rows of negative distance
-    are zero, so Srel is 0 above the diagonal), an online softmax in f32, P
-    rounded to bf16 into the A operand of P V, as the TPU kernel casts P;
-    K, V and the E band of the next tile land by cp.async while the current
-    one computes;
+    land as zeros, so Srel is 0 above the diagonal), an online softmax in
+    f32, P rounded to bf16 into wgmma's register operand for P V, as the
+    TPU kernel casts P; K, V and the E band's next 64-row chunk land by TMA
+    while the current tile computes, two blocks an SM up to d_head 64.
+    Measured before the redesign, the ``mma.sync`` kernel it replaces took
+    0.1255 ms at B 4 and 0.2203 at B 8 (``scripts/torch_flash_bench.py``,
+    NVIDIA H100 80GB HBM3 at 700 W);
   * f32, the checks' path (held to 1e-4, which TF32 products cannot meet):
     the CUDA cores, a thread a query row, Srel folded into the score dot as
     q.(k + E), shared-memory traffic and occupancy bound it;
@@ -74,17 +81,27 @@ Source note for the merged backward kernel (``csrc/flash_rel_attn_bwd.cu``):
   * replaces ``pallas_attention.py::_bwd_merged_kernel`` (the default
     ``BWD_IMPL="merged"``, launched by ``_bwd_merged_call``);
   * both dtypes: a block sweeps key tiles of one (b, h) and, inside, query
-    tiles, as the TPU's sequential grid did, so each dQ (an f32 scratch)
+    tiles, as the TPU's sequential grid did, so each dQ (an f32 partial)
     and dE (an f32 partial by distance) has one owning block and the
     reductions sum them in a fixed order: no atomics, deterministic sums,
     nothing summed in bf16;
-  * bf16, the training path: bound by operations; all nine products of a
-    tile pair (S, the band, dP, dV, dK, dQ by key and by distance, dE) are
-    ``mma.sync`` m16n8k16 (wgmma not tried) with f32 sums over 8 warps; dS' is rounded to
-    bf16 as the TPU kernel rounds ds and scattered into the distance domain
-    through shared memory, where dQ_rel and dE are plain products; two
-    blocks share a (b, h) on alternate key tiles (two an SM at d_head <= 48),
-    each with its own dQ and dE partials;
+  * bf16, the training path: bound by operations (the nine products over
+    the visible pairs, about 72 GFLOP at B 8: 0.0733 ms). Design: all nine
+    products of a tile pair (S, the band, dP, dV, dK, dQ by key and by
+    distance, dE) are ``wgmma`` with f32 sums over two warpgroups, their
+    tiles copied by TMA under ``mbarrier``s; dS' is rounded to bf16 as the
+    TPU kernel rounds ds and scattered into the distance domain through
+    shared memory, where dQ_rel and dE are plain products, the transposed
+    ones reading P, dS' and the distance tile MN-major; a block sweeps
+    groups of key tiles (two up to d_head 48, their f32 dK and dV kept in
+    shared memory between pairs) with its own dQ and dE partials, which a
+    group's query tile reads and writes once; two blocks share a (b, h),
+    or one where B * H fills 7/8 of the SMs. Measured before the redesign,
+    the whole ``mma.sync`` call took 0.9731 ms at B 8, of which the main
+    kernel 0.8868, ``dsum`` 0.0243 and the dQ and dE reductions 0.0345
+    and 0.0287; taking the f32 partial reads and writes out of a first
+    wgmma version saved 0.26 ms of its 0.76, which led to the groups
+    (``scripts/torch_flash_bench.py``, same card);
   * f32, the checks' path: CUDA-core f32 FMAs fed from shared memory.
 
 Source note for the other decompositions' kernels (details in their

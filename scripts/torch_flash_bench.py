@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Check and time the port's flash attention kernels 1 and 4 on one card.
+
+    python3 scripts/torch_flash_bench.py                 # this checkout
+    python3 scripts/torch_flash_bench.py --roots A B B A --check --train
+
+Each root is a checkout of this repository (an unpacked ``git archive`` of
+another commit, say). For each root in the order given, a fresh process
+builds that root's ``csrc/flash_rel_attn_{fwd,bwd}.cu`` into its own
+``build/kernels/`` and imports its ``midi_emotion_tpu_torch``. With
+``--check`` it first holds kernels 1 and 4 against their plain twins with
+``chip_smoke.py``'s checks and tolerances (this checkout's), at the shapes
+those kernels are built for. It then times, as CUPTI device ms
+(``chip_smoke.device_ms``), in bf16 at H 16, T 1216, d_head 48, causal,
+with a pad tail:
+  * kernel 1 (``flash_rel_attention``'s forward) at B 4 and B 8;
+  * kernel 4 (``flash_rel_attention_bwd``, the merged backward) at B 8, the
+    whole call and each of its launches apart (``chip_smoke.BWD_LAUNCHES``:
+    ``dsum``, the main kernel, the dQ reduction and the dE reduction).
+With ``--train``, also the default (merged) train step of the flagship at
+B 8, T 1216, bf16, dropout 0.1 (``chip_smoke.py``'s CLI arguments, on its
+synthetic shards): after 2 warm-up steps, 3 steps under the profiler,
+their device ms a step (every CUDA kernel's time summed), the wall ms a
+step and the busy share, and kernels 1 and 4's ms a step.
+Each process prints one JSON line; the calling process prints them all, then a
+table by root, with the card's name and power limit. Roots are run in
+turn, so putting a parent between two runs of a change (A B B A) shows the
+card's drift. Writes nothing outside each root's ``build/``.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def train_step(torch, cs, root, steps=3):
+    """The merged train step's device ms, wall ms and kernels 1 and 4's ms,
+    a step, on the flagship (see the module docstring)."""
+    import tempfile
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from midi_emotion_tpu_torch.cli import train_cli
+
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        shards, features = cs.write_dataset(tmp)
+        runner = train_cli.main([
+            "--data_folder", shards, "--feature_file", features,
+            "--conditioning", "continuous_concat", "--batch_size", str(cs.TRAIN_B),
+            "--tgt_len", str(cs.TRAIN_T), "--dtype", "bf16", "--dropout", "0.1",
+            "--num_workers", "0", "--log_step", "1000", "--eval_step", "1000",
+            "--max_eval_step", "1", "--gen_step", "1000000", "--seed", "1", "--device", "cuda",
+            "--work_dir", os.path.join(tmp, "run"), "--max_step", "1"])
+        it = runner.train_dataset.epochs(cs.TRAIN_B)
+        batches = [runner._to_device(runner._microbatches(it)) for _ in range(2 + steps)]
+        gen = torch.Generator().manual_seed(cs.SEED)
+        for b in batches[:2]:
+            float(runner._train_fn(b, 2e-5, gen)["loss"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches[2:]:
+                float(runner._train_fn(b, 2e-5, gen)["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    per_step = lambda es: sum(e.self_device_time_total for e in es) / 1e3 / steps
+    device = per_step(events)
+    k4 = per_step([e for e in events if any(only in e.key for _, only in cs.BWD_LAUNCHES)])
+    k1 = per_step([e for e in events if "flash_fwd_tc_kernel" in e.key])
+    return {"step_device_ms": device, "step_wall_ms": wall * 1e3 / steps,
+            "step_busy": device / (wall * 1e3 / steps), "step_k4_ms": k4, "step_k1_ms": k1}
+
+
+def worker(root, check, train):
+    import importlib.util
+
+    sys.path.insert(0, root)  # the package comes from root
+    import torch
+
+    # this checkout's checks, whatever chip_smoke.py root holds
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from midi_emotion_tpu_torch.kernels.build import build_all, library_path
+    from midi_emotion_tpu_torch.ops.flash_attention import (
+        flash_rel_attention, flash_rel_attention_bwd)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all(("flash_rel_attn_fwd", "flash_rel_attn_bwd"))
+    for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd"):
+        cs.print_ptxas(library_path(name), name)
+        cs.print_sass_mma(library_path(name), name)
+    bf16 = torch.bfloat16
+    if check:
+        for T in (1, 63, 64, 65, 333, 1216):
+            cs.check_flash(torch, 2, 4, T, 48, bf16, True, 2e-2, 1e-3)
+            cs.check_flash_bwd(torch, 2, 4, T, 48, bf16, True, 2e-2)
+        cs.check_flash(torch, 2, 4, 200, 48, bf16, False, 2e-2, 1e-3)
+        cs.check_flash_bwd(torch, 2, 4, 200, 48, bf16, False, 2e-2)
+        for dh in (16, 32, 40, 64, 96, 128):
+            cs.check_flash(torch, 2, 4, 333, dh, bf16, True, 2e-2, 1e-3)
+            cs.check_flash_bwd(torch, 2, 4, 333, dh, bf16, True, 2e-2)
+        cs.check_flash(torch, 4, 16, 1216, 48, bf16, True, 2e-2, 1e-3)
+        cs.check_flash_bwd(torch, 8, 16, 1216, 48, bf16, True, 2e-2)
+    out = {"root": root}
+    for B in (4, 8):
+        q, k, v, e, pad = cs._flash_inputs(torch, B, 16, 1216, 48, bf16)
+        out[f"fwd_B{B}"] = cs.device_ms(torch, lambda: flash_rel_attention(q, k, v, e, True, pad))
+    q, k, v, e, pad = cs._flash_inputs(torch, 8, 16, 1216, 48, bf16)
+    o, lse = flash_rel_attention(q, k, v, e, True, pad)
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(bf16)
+    call = lambda: flash_rel_attention_bwd(q, k, v, e, True, pad, o, lse, do)
+    out["bwd_B8"] = cs.device_ms(torch, call, iters=10, per_call=4)
+    for label, only in cs.BWD_LAUNCHES:
+        out[f"bwd_B8_{label}"] = cs.device_ms(torch, call, iters=10, only=only)
+    if train:
+        del q, k, v, e, pad, o, lse, do
+        torch.cuda.empty_cache()
+        out.update(train_step(torch, cs, root))
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--roots", nargs="*", default=[HERE])
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        return worker(args.worker, args.check, args.train)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "no card"
+    print(card, flush=True)
+    rows = []
+    for root in args.roots:
+        root = os.path.abspath(root)
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker", root]
+        flags = [f"--{f}" for f in ("check", "train") if getattr(args, f)]
+        proc = subprocess.run(cmd + flags, cwd=root, capture_output=True, text=True, timeout=1800)
+        print(proc.stdout[-20000:], proc.stderr[-4000:], sep="\n", flush=True)
+        if proc.returncode != 0:
+            sys.exit(f"torch_flash_bench: {root} failed ({proc.returncode})")
+        rows += [json.loads(line[7:]) for line in proc.stdout.splitlines()
+                 if line.startswith("RESULT ")]
+    keys = [k for k in rows[0] if k != "root"]
+    print(f"device ms (CUPTI) on {card}:")
+    print("root | " + " | ".join(keys))
+    for r in rows:
+        print(f"{r['root']} | " + " | ".join(f"{r[k]:.4f}" for k in keys))
+
+
+if __name__ == "__main__":
+    main()

@@ -141,6 +141,44 @@ def test_flash_bwd_kernel_matches_twin_bf16_head_shapes(cuda, dh, T, causal):
         assert got[0][1, :, 0].eq(0).all()
 
 
+def _check_wgmma_kernels(q, k, v, e, causal, pad):
+    """Kernels 1 and 4 in bf16 against their twins (the bf16 tolerances),
+    the fully masked row's O = 0, lse = 1e30 and dQ = 0 where causal, and
+    a second launch of each on the same inputs bitwise the first."""
+    o, lse = _assert_fwd_bf16(q, k, v, e, causal, pad)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(q.dtype)
+    got = flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    want = flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do)
+    _assert_grads_bf16(("dq", "dk", "dv", "de"), got, want)
+    if causal:
+        assert o[1, :, 0].eq(0).all() and lse[1, :, 0].eq(1e30).all()
+        assert got[0][1, :, 0].eq(0).all()
+    o2, lse2 = flash_rel_attention(q, k, v, e, causal, pad)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    again = flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128, 40])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 333, 1216])
+def test_wgmma_flash_kernels_bf16_causal(cuda, dh, T):
+    """The wgmma kernels 1 and 4 (tiles by TMA) at every d_head they are
+    built for and 40 (padded to 48), T around the 64-row tiles up to the
+    flagship's, a pad tail and a fully masked row."""
+    _check_wgmma_kernels(*_qkve(2, 2, T, dh, 2048, torch.bfloat16, seed=7), True,
+                         _pad(2, T, cuda))
+
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128, 40])
+def test_wgmma_flash_kernels_bf16_non_causal(cuda, dh):
+    """The same, non-causal at T 200: every key tile of a row, the relative
+    term 0 above the diagonal."""
+    _check_wgmma_kernels(*_qkve(2, 2, 200, dh, 2048, torch.bfloat16, seed=8), False,
+                         _pad(2, 200, cuda))
+
+
 @pytest.mark.parametrize("dh", [16, 48, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dsum_kernel_matches_torch(cuda, dtype, dh):
