@@ -28,6 +28,13 @@ Phases, each fatal on failure:
      a missing kernel 7, 8 or 9; time kernel 9 on its two grids; hold each
      backward decomposition (split, fused/column, fused/dist) against the
      merged kernel, and time the whole split call beside SDPA's backward;
+     past d_head 128: kernels 1 and 4 at 160, 192, 224 and 256 (160 and 224
+     through the padding) in f32 and bf16, kernel 13 at 192 and 256 in its
+     four modes, the three timed at the flagship's width with 3 heads of
+     256 beside SDPA and the bound (kernel 1 at B 4 and 8, kernel 4's call
+     at B 8, kernel 13 at L 20, B 64, W 1408), and the d_head limits (272
+     refused by kernels 1, 4 and 13; 144 by kernels 5-9 under split and
+     fused, with no launch);
      kernels 3 and 12 also at a ragged shape ([9729, 99]), and their row
      pass timed apart from the dgamma/dbeta reduction; then one small f32
      train step through the kernels against the same step on the CPU
@@ -73,6 +80,15 @@ Phases, each fatal on failure:
      ring's per-step function driven over 4 chunks of 304 in one process
      (B 2, H 16, T 1216) against kernel 1's output and kernel 4's
      gradients, in f32 and bf16;
+ 5d. the flagship's width with 3 heads of 256 (--n_head 3, 153 598 191
+     parameters: each layer's E is max_seq x d_head): 2 CLI steps (B 8, T
+     1216, bf16, dropout 0.1), then 2 warm-up and 5 timed (train
+     tokens/sec, device ms a step); its work dir served by
+     Sampler at B 64, window 1216, a 600-token prompt and 128 new tokens
+     through the native, int8 and bf16 caches (sampled tokens/sec each); a
+     4-layer --n_head 4 (d_head 192) model trained 3 steps and served from
+     the int8 cache; a 4-layer --n_head 3 model trained 2 steps at B 2 in
+     f32;
   6. serve a 2-layer d_head-40 model (d_model 640, random weights): its
      stacked int8 and bf16 decode steps against its native ones, then
      Sampler.generate through each stacked cache; serve the trained work
@@ -89,8 +105,9 @@ Phases, each fatal on failure:
      and int8): device-busy share and the top kernels per step.
 Each path (the dropout-0.1 training run with its resume, the dropout-0
 run, the three decomposition runs, phase 5b's five, phase 5c's three remat
-runs and each mesh rank's run, the d_head-40 model's generation, each
-generation run) runs with every
+runs and each mesh rank's run, phase 5d's three training runs and four
+generation runs, the d_head-40 model's generation, each generation run)
+runs with every
 kernel launch counter set to 0 just before it and read just after; the
 script fails if a kernel of that path was never launched, or if a
 decomposition run or the MIDI_EMOTION_FLASH_BWD=xla run launched the
@@ -246,7 +263,10 @@ def _flash_inputs(torch, B, H, T, dh, dtype):
     return q, k, v, e, pad
 
 
-def check_flash(torch, B, H, T, dh, dtype, causal, tol_o, tol_lse, timed=False):
+def check_flash(torch, B, H, T, dh, dtype, causal, tol_o, tol_lse, timed=False, rel=False):
+    """Kernel 1 against its twin: O within tol_o (times 1 + max |O| with
+    ``rel``), lse within tol_lse, and the fully masked row's O = 0, lse =
+    1e30; with ``timed``, its times beside SDPA's and the bound."""
     from midi_emotion_tpu_torch.ops.flash_attention import (
         flash_rel_attention, flash_rel_attention_plain)
 
@@ -258,6 +278,8 @@ def check_flash(torch, B, H, T, dh, dtype, causal, tol_o, tol_lse, timed=False):
         fail(f"flash {dtype} B={B} T={T}: non-finite output")
     err_o = (o.float() - ro.float()).abs().max().item()
     err_lse = (lse - rlse).abs().max().item()
+    if rel:
+        tol_o *= 1 + ro.float().abs().max().item()
     name = f"flash fwd {dtype_name(dtype)} B={B} H={H} T={T} dh={dh} causal={causal}"
     print(f"{name}: max|dO|={err_o:.3e} (tol {tol_o}) max|dlse|={err_lse:.3e} (tol {tol_lse})")
     if not (err_o <= tol_o and err_lse <= tol_lse):
@@ -706,7 +728,10 @@ DECODE = dict(L=20, B=64, W=1408, H=16, dh=48, S=8)
 # a width above 1024 (two head groups of 5), and d_head 40, which the cache
 # lays out at 48 columns a head
 DECODE_SHAPES = (dict(L=2, B=4, W=256, H=8, dh=96, S=8), dict(L=2, B=4, W=256, H=8, dh=128, S=8),
-                 dict(L=2, B=4, W=256, H=10, dh=128, S=8), dict(L=2, B=4, W=256, H=16, dh=40, S=8))
+                 dict(L=2, B=4, W=256, H=10, dh=128, S=8), dict(L=2, B=4, W=256, H=16, dh=40, S=8),
+                 dict(L=2, B=4, W=256, H=4, dh=192, S=8), dict(L=2, B=4, W=256, H=3, dh=256, S=8))
+# the flagship's serving cache at its width with 3 heads of 256 (--n_head 3)
+DECODE_WIDE = dict(DECODE, H=3, dh=256)
 
 
 def _decode_cache(torch, quant, seed, shape=DECODE):
@@ -799,13 +824,13 @@ def check_decode(torch, quant, timed=False, shape=DECODE,
     print(f"{name}: lengths {lengths[0]}..{lengths[-1]}, p_cnt 0/3/7/8: max err unstaged "
           f"{worst['unstaged']:.3e}, staged {worst['staged']:.3e} (P unit max|V|/127 = "
           f"{vmax / 127:.3e}), m/l {worst['m/l']:.3e}; stage writes exact")
-    if shape is not DECODE:
+    if not timed:
         return None
 
     # timed: staged, length 1216 (the window), 4 rows in the stage
     length, p_cnt = 1216, 4
-    e_rows = da.expand_e_rows(e, length + p_cnt + 1, W)
-    e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1)
+    e_rows = da.expand_e_rows(e, length + p_cnt + 1, W, dh_to=dh_k)
+    e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1, dh_to=dh_k)
     stage = pend.clone()
     item = 1 if quant else 2
     n_bytes = (B * length * 2 * D * item + (B * 2 * H * length * 2 if quant else 0)
@@ -947,6 +972,7 @@ def timed_training(torch, runner, n_warmup=2, n_timed=5):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events)
+    device_ms_step = device_us / 1e3 / 2
     print(f"train step profile (2 steps, {prof_secs * 1e3 / 2:.2f} ms/step wall under the "
           f"profiler): device busy {device_us / 1e3 / 2:.2f} ms/step "
           f"({100 * device_us / 1e6 / prof_secs:.1f}% of wall)")
@@ -958,7 +984,7 @@ def timed_training(torch, runner, n_warmup=2, n_timed=5):
     print(f"  {sum(e.self_device_time_total for e in ln) / 1e3 / 2:9.3f} ms/step in the "
           f"LayerNorm backward (kernel 12 or 3: its row pass and col_sum, "
           f"x{sum(e.count for e in ln) // 2})")
-    return tps, secs / n_timed, per_step, losses
+    return tps, secs / n_timed, per_step, losses, device_ms_step
 
 
 # ---------------------------------------------------------------------------
@@ -1644,6 +1670,210 @@ def parallel_phase(torch, tmp, train_args, card):
 
 
 # ---------------------------------------------------------------------------
+# d_head past 128 (phase 3's wide heads, phase 5d)
+# ---------------------------------------------------------------------------
+
+# kernels 1 and 4 are built for d_head 192 and 256 (two column halves, a
+# block each); 160 and 224 reach them through the padding
+WIDE_DHS = (160, 192, 224, 256)
+
+
+def _raises_d_head(fn, what, match):
+    """fn() must raise a ValueError whose message holds ``match``."""
+    try:
+        fn()
+    except ValueError as exc:
+        if match not in str(exc):
+            fail(f"{what}: ValueError without {match!r}: {exc}")
+        return str(exc)
+    fail(f"{what}: no ValueError")
+
+
+def check_head_limits(torch):
+    """Past d_head 256 kernels 1, 4 and 13 raise a ValueError naming it;
+    past 128 kernels 5-9 do under MIDI_EMOTION_BWD=split and fused (each
+    wrapper, and the backward before any launch), naming the variables,
+    while kernels 1 and 4 take 144 (at 192)."""
+    from midi_emotion_tpu_torch.ops import decode_attention as da
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    q, k, v, e, pad = _flash_inputs(torch, 2, 2, 64, 272, bf16)
+    lse = torch.zeros((2, 2, 64), device="cuda")
+    seen = [_raises_d_head(lambda: fa.flash_rel_attention(q, k, v, e, True, pad),
+                           "kernel 1 at d_head 272", "got 272"),
+            _raises_d_head(lambda: fa.flash_rel_attention_bwd(q, k, v, e, True, pad, q, lse, q),
+                           "kernel 4 at d_head 272", "got 272")]
+    kv, sc, _, e48, _, _, _ = _decode_cache(torch, True, SEED, dict(L=1, B=2, W=128, H=2, dh=48,
+                                                                    S=8))
+    seen.append(_raises_d_head(
+        lambda: da.decode_attn_cached(torch.randn((2, 2, 272), device="cuda"), kv, sc, 0,
+                                      da.expand_e_rows(e48, 11, 128), 10),
+        "kernel 13 at d_head 272", "got 272"))
+    q, k, v, e, pad = _flash_inputs(torch, 2, 2, 64, 144, bf16)
+    o, lse = fa.flash_rel_attention(q, k, v, e, True, pad)  # kernel 1 at 192
+    fa.flash_rel_attention_bwd(q, k, v, e, True, pad, o, lse, o)  # kernel 4 at 192
+    dsum = torch.zeros_like(lse)
+    torch.cuda.synchronize()
+    before = read_counts()
+    for impl, dqde in DECOMPOSITIONS:
+        with bwd_decomposition(impl, dqde):
+            seen.append(_raises_d_head(
+                lambda: fa.flash_rel_attention_bwd(q, k, v, e, True, pad, o, lse, o),
+                f"MIDI_EMOTION_BWD={impl} DQDE={dqde} backward at d_head 144",
+                f"MIDI_EMOTION_BWD={impl}"))
+            for kernel in DECOMPOSITIONS[impl, dqde]:
+                wrapper = getattr(fa, BWD_KERNELS[kernel][0])
+                seen.append(_raises_d_head(
+                    lambda: wrapper(q, k, v, e, True, pad, lse, dsum, o),
+                    f"{kernel} at d_head 144", "d_head <= 128, got 144"))
+    if read_counts() != before:
+        fail(f"a refused d_head launched a kernel: {before} -> {read_counts()}")
+    print(f"d_head limits: kernels 1, 4 and 13 refuse 272, kernels 5-9 refuse 144 "
+          f"({len(seen)} ValueErrors, no launch), e.g. {seen[0]!r}; {seen[-1]!r}")
+
+
+def wide_flagship_kernels(torch, card):
+    """Kernels 1, 4 and 13 timed at the flagship's width with 3 heads of
+    256 beside SDPA and the bound: kernel 1 at B 4 and 8, H 3, T 1216;
+    kernel 4's whole call at B 8 (and its launches apart); kernel 13 staged
+    at L 20, B 64, W 1408, int8 and bf16. Returns {kernel: its numbers}."""
+    bf16 = torch.bfloat16
+    out = {"flash_rel_attn_fwd": check_flash(torch, 4, 3, TRAIN_T, 256, bf16, True, 2e-2, 1e-3,
+                                             timed=True, rel=True)}
+    b8 = check_flash(torch, TRAIN_B, 3, TRAIN_T, 256, bf16, True, 2e-2, 1e-3, timed=True,
+                     rel=True)
+    out["flash_rel_attn_fwd"]["train_shape"] = {"B": TRAIN_B, **b8}
+    torch.cuda.empty_cache()
+    out["flash_rel_attn_bwd"] = check_flash_bwd(torch, TRAIN_B, 3, TRAIN_T, 256, bf16, True, 2e-2,
+                                                timed=True, launches=True)
+    torch.cuda.empty_cache()
+    lengths = (0, 1, 129, 700, 1216, 1400)  # the other shapes hold the rest at d_head 256
+    int8 = check_decode(torch, True, timed=True, shape=DECODE_WIDE, lengths=lengths)
+    int8["bf16"] = check_decode(torch, False, timed=True, shape=DECODE_WIDE, lengths=lengths)
+    out["decode_attn_stacked"] = int8
+    for name, m in out.items():
+        m["shape"] = {"H": 3, "dh": 256, **({"L": 20, "B": 64, "W": 1408} if "decode" in name
+                                            else {"B": 4 if "fwd" in name else TRAIN_B,
+                                                  "T": TRAIN_T})}
+    k1, k4 = out["flash_rel_attn_fwd"], out["flash_rel_attn_bwd"]
+    print(f"wide heads (d_model 768, 3 heads of 256), device ms on {card}: kernel 1 B 4 "
+          f"{k1['ms']:.4f} (SDPA {k1['library_ms']:.4f}, bound {k1['bound_ms']:.4f}), B 8 "
+          f"{b8['ms']:.4f} (SDPA {b8['library_ms']:.4f}); kernel 4 call B 8 {k4['ms']:.4f} "
+          f"(SDPA backward {k4['library_ms']:.4f}, bound {k4['bound_ms']:.4f}); kernel 13 int8 "
+          f"{int8['ms']:.4f} "
+          f"(bound {int8['bound_ms']:.4f}), bf16 {int8['bf16']['ms']:.4f} (SDPA "
+          f"{int8['bf16']['library_ms']:.4f}, bound {int8['bf16']['bound_ms']:.4f})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_heads_phase(torch, tmp, vocab, train_args, card):
+    """Phase 5d, the flagship's width past d_head 128, each part fatal: the
+    20-layer model at --n_head 3 (d_head 256) trained through the CLI (2
+    steps, then 2 warm-up and 5 timed by timed_training: tokens/sec, device
+    ms a step),
+    served from its work dir at B 64, window 1216 (a 600-token prompt, 128
+    sampled tokens) through the native, int8 and bf16 caches (sampled
+    tokens/sec each); a 4-layer --n_head 4 (d_head 192) model trained 3
+    steps and served from the int8 cache; a 4-layer --n_head 3 model
+    trained 2 steps at B 2 in f32. Returns the launch counts of its paths."""
+    from midi_emotion_tpu_torch.cli import train_cli
+    from midi_emotion_tpu_torch.convert import load_model_dir
+    from midi_emotion_tpu_torch.generation.sampler import Sampler
+    from midi_emotion_tpu_torch.ops.sampling import SamplingParams
+
+    t_phase = time.perf_counter()
+    train_kernels = ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "dropout", "dal_fwd", "dal_bwd")
+    serve_kernels = ("flash_rel_attn_fwd", "ln_fwd")
+    counts = []
+
+    def train(label, work, extra, steps):
+        c, runner = run_path(f"train ({label})", train_kernels, lambda: train_cli.main(
+            train_args + extra + ["--work_dir", os.path.join(tmp, work), "--max_step", str(steps),
+                                  "--log_step", "1"]))
+        losses = train_losses(runner.args.work_dir)
+        print(f"train CLI ({label}): logged losses {losses}")
+        if runner.train_step_num != steps or len(losses) != steps or not all(np.isfinite(losses)):
+            fail(f"{label}: the run did not take its {steps} steps with finite losses")
+        counts.append(c)
+        return runner
+
+    runner = train("d_model 768, 3 heads of 256", "wide", ["--n_head", "3"], 2)
+    mcfg = runner.model.config
+    if mcfg.n_head != 3:
+        fail(f"the wide run built {mcfg.n_head} heads")
+    n_params = sum(p.numel() for p in runner.model.parameters())
+    tps, secs, per_step, losses, dev_ms = timed_training(torch, runner)
+    print(f"wide train ({mcfg.n_layer} layers, d_model {mcfg.d_model}, {mcfg.n_head} heads of "
+          f"{mcfg.d_model // mcfg.n_head}, {n_params} parameters): "
+          f"{tps:.1f} tokens/sec ({secs * 1e3:.2f} ms/step over 5 steps after 2 warm-up), "
+          f"{dev_ms:.2f} device ms/step (profiled), losses {losses}, kernel launches per step "
+          f"{per_step} on {card}")
+    if per_step["flash_rel_attn_fwd"] <= 0 or per_step["flash_rel_attn_bwd"] <= 0:
+        fail("the wide train steps did not launch kernels 1 and 4")
+    work = runner.args.work_dir
+    del runner
+    torch.cuda.empty_cache()
+
+    model = load_model_dir(work, torch.bfloat16, "cuda")[1]
+    B, prompt, new = 64, 600, 128
+    ids = np.flatnonzero(~vocab.special_mask())
+    primer = np.random.RandomState(SEED).choice(ids, size=(B, prompt)).astype(np.int32)
+    primer[:, 0] = vocab.start_id
+    cond = np.tile(np.array([[0.8, -0.5]], np.float32), (B, 1))
+    # gen_len counts the primer's last token: prompt + new ids come back
+    sp = SamplingParams(gen_len=new + 1, max_input_len=1216, top_p=0.7, seed=1)
+    rates = {}
+    for kv_dtype in ("native", "int8", "bf16"):
+        def serve():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            song = Sampler(model, vocab, sp, kv_dtype=kv_dtype).generate(
+                primer, continuous_conditions=cond)
+            torch.cuda.synchronize()
+            return song, time.perf_counter() - t0
+
+        c, (song, secs) = run_path(
+            f"generation (3 heads of 256, {kv_dtype} cache, B {B})",
+            serve_kernels + (() if kv_dtype == "native" else ("decode_attn_stacked",)), serve)
+        counts.append(c)
+        if song.shape != (B, prompt + new) or vocab.special_mask()[song[:, prompt:]].any():
+            fail(f"wide model, {kv_dtype} cache: bad sampled ids {song.shape}")
+        rates[kv_dtype] = B * new / secs
+        print(f"wide serve ({kv_dtype} cache): {rates[kv_dtype]:.1f} sampled tokens/sec (B {B}, "
+              f"{prompt}-token prompt, {new} new, window 1216, bf16, {secs:.2f} s) on {card}")
+    del model
+    torch.cuda.empty_cache()
+
+    runner = train("4 layers, 4 heads of 192", "wide_192", ["--n_head", "4", "--n_layer", "4"], 3)
+    model = load_model_dir(runner.args.work_dir, torch.bfloat16, "cuda")[1]
+    del runner
+    sp4 = SamplingParams(gen_len=300, max_input_len=256, top_p=0.7, seed=2)
+
+    def serve4():
+        return Sampler(model, vocab, sp4, kv_dtype="int8").generate(
+            np.full((4, 1), vocab.start_id, np.int32), continuous_conditions=cond[:4])
+
+    c, song = run_path("generation (4 heads of 192, int8 cache)",
+                       serve_kernels + ("decode_attn_stacked",), serve4)
+    counts.append(c)
+    if song.shape != (4, 300) or vocab.special_mask()[song[:, 1:]].any():
+        fail(f"d_head 192 model, int8 cache: bad sampled ids {song.shape}")
+    print("d_head 192 model: sampled 4 x 300 valid ids through the int8 cache")
+    del model
+    torch.cuda.empty_cache()
+    train("4 layers, 3 heads of 256, f32, B 2", "wide_f32", ["--n_head", "3", "--n_layer", "4",
+                                                             "--dtype", "f32", "--batch_size", "2"],
+          2)
+    torch.cuda.empty_cache()
+    print(f"phase 5d (d_head past 128): {time.perf_counter() - t_phase:.1f} s; wide train "
+          f"tokens/sec {tps:.1f}, {dev_ms:.2f} device ms/step; sampled tokens/sec native "
+          f"{rates['native']:.1f}, int8 {rates['int8']:.1f}, bf16 {rates['bf16']:.1f} on {card}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timed generation
 # ---------------------------------------------------------------------------
 
@@ -1990,6 +2220,17 @@ def main():
         check_flash(torch, 2, H, 1216, dh, torch.bfloat16, True, 2e-2, 1e-3, timed=True)
         check_flash_bwd(torch, 2, H, 1216, dh, torch.float32, True, 1e-4, timed=True)
         check_flash_bwd(torch, 2, H, 1216, dh, torch.bfloat16, True, 2e-2, timed=True)
+    # past d_head 128: kernels 1 and 4 at 160, 192, 224 and 256 (160 and 224
+    # through the padding), ragged T with a pad tail and a fully masked row;
+    # each output within 1e-4 (f32) or 2e-2 (bf16) of 1 + its scale
+    for dh in WIDE_DHS:
+        for dtype, tol_o, tol_lse in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 1e-3)):
+            check_flash(torch, 2, 2, 333, dh, dtype, True, tol_o, tol_lse, rel=True)
+            check_flash_bwd(torch, 2, 2, 333, dh, dtype, True, tol_o)
+    check_flash(torch, 2, 2, 200, 256, torch.bfloat16, False, 2e-2, 1e-3, rel=True)
+    check_flash_bwd(torch, 2, 2, 200, 256, torch.bfloat16, False, 2e-2)
+    wide = wide_flagship_kernels(torch, card)
+    check_head_limits(torch)
     bwd_kernels = {}
     for kernel in BWD_KERNELS:  # the other decompositions' kernels, same tolerances
         check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48, torch.float32, True, 1e-4)
@@ -2102,13 +2343,13 @@ def main():
         trained = resumed.args.work_dir
         merged_losses = train_losses(first.args.work_dir)
         del first
-        tps, step_secs, per_step, timed_losses = timed_training(torch, resumed)
+        tps, step_secs, per_step, timed_losses, _ = timed_training(torch, resumed)
         print(f"train tokens/sec: {tps:.1f} (B={TRAIN_B}, T={TRAIN_T}, bf16, dropout 0.1, "
               f"{step_secs * 1e3:.2f} ms/step over 5 steps after 2 warm-up) on {card}")
         print(f"kernel launches per train step: {per_step}")
         for impl, dqde in DECOMPOSITIONS:  # the same runner, timed in turn in this call
             with bwd_decomposition(impl, dqde):
-                d_tps, d_secs, d_per_step, _ = timed_training(torch, resumed)
+                d_tps, d_secs, d_per_step, _, _ = timed_training(torch, resumed)
             print(f"train tokens/sec, MIDI_EMOTION_BWD={impl} DQDE={dqde}: {d_tps:.1f} "
                   f"({d_secs * 1e3:.2f} ms/step over 5 steps after 2 warm-up) on {card}; "
                   f"kernel launches per step {d_per_step}")
@@ -2163,6 +2404,9 @@ def main():
         # phase 5c ------------------------------------------------------
         parallel_counts = parallel_phase(torch, tmp, train_args, card)
         torch.cuda.empty_cache()
+
+        # phase 5d ------------------------------------------------------
+        wide_counts = wide_heads_phase(torch, tmp, vocab, train_args, card)
 
         # phase 6 -------------------------------------------------------
         padded_counts = serve_padded_heads(torch, vocab)
@@ -2241,8 +2485,8 @@ def main():
                 "flash_rel_attn_bwd": flash_bwd, **bwd_kernels, "dropout": dropout,
                 "dal_fwd": dal_fwd, "dal_bwd": dal_bwd, "decode_attn_stacked": decode_int8}
     paths = (train_counts, drop0_counts, *decomposition_counts, *native_counts,
-             *parallel_counts, padded_counts, serve_counts, int8_counts, unstaged_counts,
-             exact_counts)
+             *parallel_counts, *wide_counts, padded_counts, serve_counts, int8_counts,
+             unstaged_counts, exact_counts)
     kernels = []
     for name, route, source, replaces in KERNELS:
         m = measured[name]
@@ -2251,7 +2495,8 @@ def main():
             launches=sum(c[name] for c in paths), max_abs_err=m["max_abs_err"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
             library_ms=m["library_ms"],
-            **{key: m[key] for key in ("train_shape", "launch_ms") if key in m}))
+            **{key: m[key] for key in ("train_shape", "launch_ms") if key in m},
+            **({"wide_heads": wide[name]} if name in wide else {})))
     print(f"total {time.perf_counter() - t_start:.1f} s; train tokens/sec {tps:.1f}; headline "
           f"sampled tokens/sec native {headline['native']:.1f}, int8 {headline['int8']:.1f}, "
           f"bf16 {headline['bf16']:.1f} on {card}")

@@ -71,7 +71,7 @@
 //     ring stage (32 rows of the group's K or V half) at the size the 1024
 //     channel design has, so two or more stages fit at any width; a loop over
 //     groups inside one CTA would instead re-run the window once a group with
-//     the SMs split fewer ways. d_head 96 and 128 E rows (192 and 256 bytes)
+//     the SMs split fewer ways. d_head 96 to 256 E rows (192 to 512 bytes)
 //     are copied unswizzled.
 
 #include <cooperative_groups.h>
@@ -80,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -312,7 +314,9 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
   const int hg0 = blockIdx.z * H, Dt = p.Ht * DH;  // its first head; the model's width
   constexpr int ITEM = QUANT ? 1 : 2;
   constexpr int KS = QUANT ? 32 : 16;  // channels per score k-step (32 bytes)
-  constexpr int NKS = 8 * DH / KS;     // k-steps over 8 heads' channels
+  // bit s of a unit's masks for each of its 4 * DH / KS k-steps: 64 bits
+  // past 32 k-steps (bf16 at d_head 192 and 256)
+  using Mask = typename std::conditional<(4 * DH / KS > 32), unsigned long long, uint32_t>::type;
   const Layout lo = layout(H, DH, bw, p.per, p.ns, p.S, QUANT);
   const int lsf = lo.lstride / 4;  // logits row stride in floats
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lo.bar);  // [ns] the tile has landed
@@ -452,14 +456,14 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
   }
   // bit s of bm[par][w]: word w (0, or 16 bytes on) of score k-step s of a
   // unit of 4 heads at column 4 par of its 8 belongs to this lane's B column
-  uint32_t bm[2][2] = {{0u, 0u}, {0u, 0u}};
+  Mask bm[2][2] = {{0u, 0u}, {0u, 0u}};
 #pragma unroll
   for (int par = 0; par < 2; ++par)
 #pragma unroll
     for (int w = 0; w < 2; ++w)
 #pragma unroll
       for (int s = 0; s < 4 * DH / KS; ++s)
-        bm[par][w] |= (uint32_t)(4 * par + (KS * s + w * KS / 2 + (4 / ITEM) * t) / DH == g) << s;
+        bm[par][w] |= (Mask)(4 * par + (KS * s + w * KS / 2 + (4 / ITEM) * t) / DH == g) << s;
 
   // scores and bias of one K tile, and the block maxima. Unit u (one warp):
   // 16 keys (key group kg) by 4 heads (4 hq..4 hq + 3), over those heads'
@@ -478,7 +482,7 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_stacked_kernel(const __grid
       const int kg = u % (TK / 16), hq = u / (TK / 16), h4 = 4 * hq, h8 = h4 / 8 * 8;
       const int nh = min(4, H - h4), hn = h8 + g;  // hn: this lane's B column
       const bool col = hn >= h4 && hn < h4 + nh;
-      const uint32_t m0 = col ? bm[hq & 1][0] : 0u, m1 = col ? bm[hq & 1][1] : 0u;
+      const Mask m0 = col ? bm[hq & 1][0] : 0u, m1 = col ? bm[hq & 1][1] : 0u;
       const int r0 = kg * 16 + g, x_lo = h4 * DH * ITEM;  // A rows r0, r0 + 8; first byte
       const unsigned char* qb =
           (QUANT ? reinterpret_cast<const unsigned char*>(q8_s + h4 * DH)
@@ -1027,6 +1031,8 @@ cudaError_t dispatch_dh(const Params& p, int dh, cudaStream_t stream) {
     case 64: return launch<64, QUANT, S>(p, stream);
     case 96: return launch<96, QUANT, S>(p, stream);
     case 128: return launch<128, QUANT, S>(p, stream);
+    case 192: return launch<192, QUANT, S>(p, stream);
+    case 256: return launch<256, QUANT, S>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

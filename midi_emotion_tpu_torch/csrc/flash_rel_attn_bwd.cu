@@ -50,7 +50,13 @@
 // H alone fills 7/8 of the SMs, each with its own f32 dQ and dE partials:
 // a query tile's dQ, and each 64-distance dE block, stays in registers
 // until the group is done with it, so a partial row is read and written
-// once a group. Measured
+// once a group. At d_head 192 and 256 a 64 x d_head f32 accumulator would
+// pass a thread's registers, so the products over d_head (S, dP, the band)
+// run whole in each of two blocks (grid y) and each computes the columns
+// of one half of dV, dQ, dK and dE (m64n96 or m64n128 products reading
+// that half's slabs of dO, K, E and Q); the pair ring has one stage, and
+// at 256 the skew's scratch lies in the E band's other half, which phase
+// A alone reads (a barrier after its products). Measured
 // before this design (scripts/torch_flash_bench.py, NVIDIA H100 80GB HBM3 at
 // 700 W), the whole mma.sync call took 0.9731 ms at B 8: dsum 0.0243, the
 // main kernel 0.8868 (128 registers, 24 bytes of spill at d_head 48), the
@@ -61,8 +67,8 @@
 //
 // f32 (the checks' path, held to 1e-4 of each gradient's scale): CUDA
 // cores, because TF32 products keep about three decimal digits. A block of
-// 4 threads a row (256 at 64-row tiles, 128 at d_head 128, whose 32-row tiles
-// keep the f32 staging inside 227 KB) stages K, V, Q, dO and the band of
+// 4 threads a row (256 at 64-row tiles, 128 from d_head 128, whose 32-row
+// tiles keep the f32 staging inside 227 KB) stages K, V, Q, dO and the band of
 // BQ + BK - 1 E rows (zero for negative distances) in shared memory as f32,
 // then runs four phases with its threads remapped: A, thread = (query row,
 // BK/4 keys): P, dP and dS' into shared tiles; B, thread = (key row, dh/4
@@ -81,7 +87,7 @@
 
 namespace {
 
-// Tile sides by d_head: 64 rows, or 32 at d_head 128, where 64-row f32 tiles
+// Tile sides by d_head: 64 rows, or 32 from d_head 128, where 64-row f32 tiles
 // would pass the 232,448 bytes of shared memory a block may use. The threads
 // follow the tile: 4 a row.
 template <int DH>
@@ -415,26 +421,36 @@ constexpr int WB = 48;              // band columns a warp reads in phase A: its
 constexpr int WBS = WB + 8;         // row stride of a warp's band scratch (floats)
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DH>
+// DV: the gradient columns a block computes (the grid's y index picks which
+// DV of the DH): DH itself up to d_head 128, DH / 2 at 192 and 256, where a
+// 64 x DH f32 accumulator would pass a thread's registers.
+template <int DH, int DV>
 struct Layout {
+  static_assert(DH % DV == 0 && DV <= 128, "column chunks of at most 128");
   static constexpr int G = DH <= 48 ? 2 : 1;   // key tiles a block sweeps the query tiles with
   static constexpr int TILE = BQ * DH * 2;     // a 64-row bf16 tile in slabs: Q, dO, K or V
   static constexpr int SLAB = TILE / (DH / 16);  // = 2048: its slab stride
   static constexpr int E_TILE = EB * DH * 2;   // the E band, slab stride 4096
   static constexpr int ST = 2 * TILE + E_TILE;  // a pair's stage: Q, dO, the E band
   static constexpr int KV = 2 * G * TILE;       // a group's K, V of each key tile
-  static constexpr int NST = 2;                 // the pair ring
+  static constexpr int NST = DV < DH ? 1 : 2;   // the pair ring, where two stages fit
   static constexpr int NKV = DH <= 96 ? 2 : 1;  // the group ring, where it fits
+  // at d_head 256 the skew's scratch takes the E band's columns this block
+  // does not own, which phase A alone reads (the rest would pass 227 KB)
+  static constexpr bool SCR_IN_E = DH > 192;
   static constexpr int KV_AT = NST * ST;
   static constexpr int P_AT = KV_AT + NKV * KV;  // P, then dS': [64 q][64 k] in slabs
   static constexpr int DSD_AT = P_AT + 2 * 8192;  // dS' by distance: [64 q][128 v] in slabs
   static constexpr int SCR_AT = DSD_AT + 16384;
   // G = 2: each key tile's f32 dV (warpgroup 0) and dK (1), between pairs
-  static constexpr int ACC_AT = SCR_AT + NCW * 16 * WBS * 4;
+  static constexpr int ACC_AT = SCR_AT + (SCR_IN_E ? 0 : NCW * 16 * WBS * 4);
   static constexpr int BAR_AT = ACC_AT + (G == 2 ? G * 2 * BK * DH * 4 : 0);
   static constexpr int TOTAL = BAR_AT + 8 * (NST + NKV) + 1024;  // + room to align to 1024
   static_assert(TOTAL <= 232448, "a block's shared memory");
   static_assert(TILE % 1024 == 0 && ST % 1024 == 0 && SCR_AT % 1024 == 0, "aligned slabs");
+  static_assert(!SCR_IN_E || (NST == 1 && DH == 2 * DV &&
+                              (DH - DV) / 16 * 2 * SLAB >= NCW * 16 * WBS * 4),
+                "the other half of the one stage's E band holds the scratch");
 };
 
 struct Maps {
@@ -474,15 +490,18 @@ struct Maps {
 // written once a group, not once a pair. A partial row's first write in
 // the block (its first group) stores without reading; rows the block never
 // reaches are zeroed first.
-template <int DH>
+template <int DH, int DV>
 __global__ void __launch_bounds__(NTH, 1)
 flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ pad,
                     const float* __restrict__ lse, const float* __restrict__ dsum,
                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                     float* __restrict__ dq_acc, float* __restrict__ de_part, int H, int T_len,
                     int max_seq, int causal, float scale, float scale_log2, int nsplit) {
-  using L = Layout<DH>;
-  constexpr int G = L::G, NST = L::NST, NKV = L::NKV, KS = DH / 16, SLAB = L::SLAB, R = DH / 2;
+  using L = Layout<DH, DV>;
+  constexpr int G = L::G, NST = L::NST, NKV = L::NKV, KS = DH / 16, SLAB = L::SLAB, R = DV / 2;
+  // this block's columns c0 .. c0 + DV - 1 of dK, dV, dQ and dE: from slab
+  // cs of Q, dO, K and E (the products over d_head read every slab)
+  const int c0 = blockIdx.y * DV, cs = c0 / 16;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
@@ -512,8 +531,14 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
     const bool none = sp * G >= n_tiles;
     const int dq_zero = none ? T_len : min(T_len, first_q(sp) * BQ);
     const int de_from = none ? 0 : min(T_len, (n_tiles - sp * G) * BK + 1);
-    for (int x = tid; x < dq_zero * DH; x += NTH) dqa[x] = 0.f;
-    for (int x = de_from * DH + tid; x < T_len * DH; x += NTH) dep[x] = 0.f;
+    if constexpr (DV == DH) {
+      for (int x = tid; x < dq_zero * DH; x += NTH) dqa[x] = 0.f;
+      for (int x = de_from * DH + tid; x < T_len * DH; x += NTH) dep[x] = 0.f;
+    } else {  // the block's own columns: the other chunks' blocks write the rest
+      for (int x = tid; x < dq_zero * DV; x += NTH) dqa[x / DV * DH + c0 + x % DV] = 0.f;
+      for (int x = de_from * DV + tid; x < T_len * DV; x += NTH)
+        dep[x / DV * DH + c0 + x % DV] = 0.f;
+    }
   }
   if (tid == 0) {
     for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1);
@@ -576,7 +601,10 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
   unsigned char* p_s = smem + L::P_AT;
   unsigned char* ds_s = p_s + 8192;
   unsigned char* dsd_s = smem + L::DSD_AT;
-  float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
+  float* scr = reinterpret_cast<float*>(
+                   smem + (L::SCR_IN_E ? 2 * L::TILE + ((DH - DV) - c0) / 16 * 2 * SLAB
+                                       : L::SCR_AT)) +
+               warp * 16 * WBS;
   // warpgroup 0: dV of the pair's key tile, 1: dK (rows = keys); with G = 2
   // read from and written back to shared memory around each pair's
   // products (a thread's own values, in a layout without bank conflicts)
@@ -616,9 +644,9 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
     for (int hh = 0; hh < 2; ++hh) {
       const int key = (kt0 + u) * BK + 16 * wq + g + 8 * hh;
       if (key < T_len) {
-        __nv_bfloat16* row = out + base_q + (size_t)key * DH + 2 * t;
+        __nv_bfloat16* row = out + base_q + (size_t)key * DH + c0 + 2 * t;
 #pragma unroll
-        for (int c = 0; c < DH / 8; ++c)
+        for (int c = 0; c < DV / 8; ++c)
           *reinterpret_cast<uint32_t*>(row + 8 * c) =
               pack_bf16(acc[4 * c + 2 * hh], acc[4 * c + 2 * hh + 1]);
       }
@@ -634,9 +662,9 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
       const int row = row0 + step * (16 * wq + g + 8 * hh);
       const bool ok = !first && row >= 0 && row < T_len;
 #pragma unroll
-      for (int c = 0; c < DH / 8; ++c) {
-        const float2 x = ok ? *reinterpret_cast<const float2*>(src + (size_t)row * DH + 8 * c +
-                                                               2 * t)
+      for (int c = 0; c < DV / 8; ++c) {
+        const float2 x = ok ? *reinterpret_cast<const float2*>(src + (size_t)row * DH + c0 +
+                                                               8 * c + 2 * t)
                             : make_float2(0.f, 0.f);
         dst[4 * c + 2 * hh] = x.x;
         dst[4 * c + 2 * hh + 1] = x.y;
@@ -648,9 +676,9 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
     for (int hh = 0; hh < 2; ++hh) {
       const int row = row0 + step * (16 * wq + g + 8 * hh);
       if (row < 0 || row >= T_len) continue;
-      float* at = dst + (size_t)row * DH + 2 * t;
+      float* at = dst + (size_t)row * DH + c0 + 2 * t;
 #pragma unroll
-      for (int c = 0; c < DH / 8; ++c)
+      for (int c = 0; c < DV / 8; ++c)
         *reinterpret_cast<float2*>(at + 8 * c) =
             make_float2(old[4 * c + 2 * hh] + add[4 * c + 2 * hh],
                         old[4 * c + 2 * hh + 1] + add[4 * c + 2 * hh + 1]);
@@ -720,6 +748,9 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
           fence_regs<16>(sacc);
           fence_regs<16>(pacc);
           fence_regs<48>(bacc);
+          // the scratch in E's unowned columns: both warpgroups' band
+          // products are done reading them
+          if (L::SCR_IN_E) named_barrier(1, 32 * NCW);
           // the skew: band column (from row 32 wg) of row r, key 32 wg + j is
           // 64 - (16 wq + r) + j; the warp keeps columns 48 - 16 wq .. 95 -
           // 16 wq (chunks 6 - 2 wq ..), so it reads scratch column 16 - r + j
@@ -789,13 +820,16 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
           wg_fence();
 #pragma unroll
           for (int kq = 0; kq < BQ / 16; ++kq)  // dV += P^T dO
-            mma_ss<DH, 1, 1>(acc, desc_mn(p_t + 512 * kq, 2048), desc_mn(d_t + 512 * kq, SLAB));
+            mma_ss<DV, 1, 1>(acc, desc_mn(p_t + 512 * kq, 2048),
+                             desc_mn(d_t + cs * SLAB + 512 * kq, SLAB));
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk)  // dQ += dS' K
-            mma_ss<DH, 0, 1>(ec[0], desc_k(ds_t + 2048 * kk), desc_mn(k_t + 512 * kk, SLAB));
+            mma_ss<DV, 0, 1>(ec[0], desc_k(ds_t + 2048 * kk),
+                             desc_mn(k_t + cs * SLAB + 512 * kk, SLAB));
 #pragma unroll
           for (int kv = 0; kv < EB / 16; ++kv)  // + dsd E_band
-            mma_ss<DH, 0, 1>(ec[0], desc_k(dsd_t + 2048 * kv), desc_mn(e_t + 512 * kv, 2 * SLAB));
+            mma_ss<DV, 0, 1>(ec[0], desc_k(dsd_t + 2048 * kv),
+                             desc_mn(e_t + cs * 2 * SLAB + 512 * kv, 2 * SLAB));
           wg_commit();
           wg_wait0();
           fence_regs<R>(acc);
@@ -811,10 +845,10 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
           wg_fence();
 #pragma unroll
           for (int kq = 0; kq < BQ / 16; ++kq) {
-            const uint64_t dq_ = desc_mn(q_t + 512 * kq, SLAB);
-            mma_ss<DH, 1, 1>(acc, desc_mn(ds_t + 512 * kq, 2048), dq_);  // dK += dS'^T Q
-            mma_ss<DH, 1, 1>(lo, desc_mn(dsd_t + 8192 + 512 * kq, 2048), dq_);
-            mma_ss<DH, 1, 1>(hi, desc_mn(dsd_t + 512 * kq, 2048), dq_, u > 0 || kq > 0);
+            const uint64_t dq_ = desc_mn(q_t + cs * SLAB + 512 * kq, SLAB);
+            mma_ss<DV, 1, 1>(acc, desc_mn(ds_t + 512 * kq, 2048), dq_);  // dK += dS'^T Q
+            mma_ss<DV, 1, 1>(lo, desc_mn(dsd_t + 8192 + 512 * kq, 2048), dq_);
+            mma_ss<DV, 1, 1>(hi, desc_mn(dsd_t + 512 * kq, 2048), dq_, u > 0 || kq > 0);
           }
           wg_commit();
           wg_wait0();
@@ -904,7 +938,7 @@ inline int split_for(int B, int H) {
   return B * H >= sms[dev] - sms[dev] / 8 ? 1 : MAX_SPLIT;
 }
 
-template <int DH>
+template <int DH, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    const void* dout, const void* lse, const void* dsum, void* dk, void* dv,
                    void* dq_acc, void* de_part, int B, int H, int T_len, int max_seq, int causal,
@@ -917,11 +951,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
       (err = sm90_host::slab_map(&maps.d, dout, B * H, T_len, DH, BQ)) != cudaSuccess ||
       (err = sm90_host::slab_map(&maps.e, e, 1, max_seq, DH, EB)) != cudaSuccess)
     return err;
-  auto kernel = flash_bwd_tc_kernel<DH>;
-  const int smem = Layout<DH>::TOTAL;
+  auto kernel = flash_bwd_tc_kernel<DH, DV>;
+  const int smem = Layout<DH, DV>::TOTAL;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * H * nsplit, NTH, smem, stream>>>(
+  kernel<<<dim3(B * H * nsplit, DH / DV), NTH, smem, stream>>>(
       maps, static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
       static_cast<const float*>(dsum), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), static_cast<float*>(dq_acc), static_cast<float*>(de_part),
@@ -951,9 +985,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
         static_cast<float*>(dv), static_cast<float*>(dq_acc), static_cast<float*>(de_part), H,
         T_len, max_seq, causal, scale);
   } else {
-    const int nsplit = tc::split_for(B, H);
-    err = tc::launch<DH>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq_acc, de_part, B, H, T_len,
-                         max_seq, causal, scale, nsplit, stream);
+    // past d_head 128, two blocks a (b, h) and split, on the column halves
+    constexpr int DV = DH > 128 ? DH / 2 : DH;
+    const int nsplit = tc::split_for(B, H * (DH / DV));
+    err = tc::launch<DH, DV>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq_acc, de_part, B, H,
+                             T_len, max_seq, causal, scale, nsplit, stream);
     if (err != cudaSuccess) return err;
     const size_t n = (size_t)B * H * T_len * DH;
     tc::dq_reduce_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
@@ -985,6 +1021,8 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
     FLASH_BWD_CASE(64)
     FLASH_BWD_CASE(96)
     FLASH_BWD_CASE(128)
+    FLASH_BWD_CASE(192)
+    FLASH_BWD_CASE(256)
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_BWD_CASE

@@ -49,7 +49,15 @@
 //     with V read MN-major;
 //   * two blocks an SM up to d_head 64, one at 96 and 128. The wgmma sit in
 //     no branch the compiler sees as divergent and no accumulator is
-//     written while one is in flight, so ptxas does not serialize them.
+//     written while one is in flight, so ptxas does not serialize them;
+//   * d_head 192 and 256: O's 64 x d_head f32 accumulator would pass a
+//     thread's registers and the tiles a block's shared memory, so two
+//     blocks share a query tile (grid z), each computing O's columns of
+//     one half (m64n96 or m64n128 P V from a V tile of those columns) after
+//     the whole score side (S, the band and the softmax, over every
+//     16-column slab of d_head, as the narrower heads do); the first
+//     writes lse. At 256 the K, V ring has one stage (Q, K, V and the E
+//     ring of two 64-row chunks take 160 KB), at 192 two.
 // Measured before this design, the mma.sync kernel it replaces took 0.1255
 // ms at B 4 and 0.2203 ms at B 8, ptxas giving it 168 registers and 32
 // bytes of spill at d_head 48 (scripts/torch_flash_bench.py, NVIDIA H100
@@ -61,8 +69,9 @@
 // scaled) and its f32 accumulator in registers; K, V and the band of BQ +
 // BK - 1 E rows staged in shared memory as f32 per 64-key tile; since q.k +
 // q.E = q.(k + E), each score costs dh FMAs. Shared-memory traffic and the
-// 64-thread blocks bound it; at d_head 128 its two 128-float rows pass the
-// 255 registers a thread may hold and spill (correct, slower).
+// 64-thread blocks bound it; from d_head 128 its two d_head-float rows pass
+// the 255 registers a thread may hold and spill (correct, slower). At
+// d_head 256 a key tile is 32 keys, so its K, V and band fit 227 KB.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -74,16 +83,18 @@
 namespace {
 
 constexpr int BQ = 64;             // query rows per block = threads per block
-constexpr int BK = 64;             // keys per shared-memory tile
-constexpr int BAND = BQ + BK - 1;  // distinct distances i - j in one tile pair
 constexpr int CHUNK = 16;          // scores held in registers at once
-static_assert(BK % CHUNK == 0, "a chunk never crosses a tile");
 
+// keys per shared-memory tile: 64, or 32 at d_head 256, whose 64-key K, V
+// and band tiles would pass the 232,448 bytes a block may use
+template <int DH>
+__host__ __device__ constexpr int key_tile() { return DH > 192 ? 32 : 64; }
 template <int DH>
 __host__ __device__ constexpr int e_stride() { return DH + 4; }  // 16-byte aligned, conflict-free rows
 
 template <int DH>
 __host__ __device__ constexpr size_t smem_bytes() {
+  constexpr int BK = key_tile<DH>(), BAND = BQ + BK - 1;  // BAND: distances i - j in a tile pair
   return (size_t)(2 * BK * DH + BAND * e_stride<DH>()) * sizeof(float) + BK;
 }
 
@@ -95,7 +106,8 @@ flash_rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__
                           float* __restrict__ lse, int H, int T_len, int max_seq,
                           int causal, float scale) {
   static_assert(DH % 4 == 0, "rows are read as float4");
-  constexpr int ES = e_stride<DH>();
+  constexpr int BK = key_tile<DH>(), BAND = BQ + BK - 1, ES = e_stride<DH>();
+  static_assert(BK % CHUNK == 0, "a chunk never crosses a tile");
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // [BK][DH]
   float* vs = ks + BK * DH;                      // [BK][DH]
@@ -243,6 +255,10 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
       return launch<96>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
     case 128:
       return launch<128>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
+    case 192:
+      return launch<192>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
+    case 256:
+      return launch<256>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -266,12 +282,19 @@ constexpr int WBS = WB + 8;         // row stride of a warp's band scratch (floa
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int DH>
+// DV: the output columns a block computes (the grid's z index picks which
+// DV of the DH): DH itself up to d_head 128, DH / 2 at 192 and 256, where
+// O's 64 x DH f32 accumulator would pass a thread's registers.
+template <int DH, int DV>
 struct Layout {
-  static constexpr int NST = 2;             // the K, V ring: the next key tile lands under this one
+  static_assert(DH % DV == 0 && DV <= 128, "column chunks of at most 128");
+  // the K, V ring: the next key tile lands under this one, where two
+  // stages fit (at d_head 256 Q, K, V and the E ring take 160 KB a stage)
+  static constexpr int NST = DH > 192 ? 1 : 2;
   static constexpr int NE = NST + 1;        // the E ring, in chunks of 64 rows
-  static constexpr int TILE = BQ * DH * 2;  // a 64-row bf16 tile in slabs: Q, K, V or an E chunk
-  static constexpr int STAGE = 2 * TILE;    // K, V
+  static constexpr int TILE = BQ * DH * 2;  // a 64-row bf16 tile in slabs: Q, K or an E chunk
+  static constexpr int VT = BK * DV * 2;    // the V tile: this block's DV columns
+  static constexpr int STAGE = TILE + VT;   // K, V
   static constexpr int ST_AT = TILE;        // Q first
   static constexpr int E_AT = ST_AT + NST * STAGE;
   static constexpr int SCR_AT = E_AT + NE * TILE;
@@ -280,6 +303,7 @@ struct Layout {
   // blocks an SM's 228 KB hold (1 KB a block reserved), at most 2
   static constexpr int MIN_BLOCKS = 233472 / (TOTAL + 1024) < 2 ? 1 : 2;
   static_assert(TILE % 1024 == 0 && STAGE % 1024 == 0, "slabs stay 1024-byte aligned");
+  static_assert(TOTAL <= 232448, "a block's shared memory");
 };
 
 struct Maps {
@@ -296,13 +320,17 @@ struct Maps {
 // (m64n128) by wgmma from shared memory; the band (row v at distance dist0 +
 // 127 - v, zero where negative) skewed into Srel through a per-warp scratch;
 // the online softmax in f32; P rounded to bf16 into wgmma A fragments; O +=
-// P V (m64 n dh, A from registers, V read MN-major).
-template <int DH>
-__global__ void __launch_bounds__(NTH, Layout<DH>::MIN_BLOCKS)
+// P V (m64 n DV, A from registers, V read MN-major). Past d_head 128 a
+// block computes O's columns DV z .. DV z + DV - 1 (z = blockIdx.z): the
+// score side (S, the band, the softmax) runs over the whole d_head in
+// each of the DH / DV blocks of a query tile, and only the first writes
+// lse.
+template <int DH, int DV>
+__global__ void __launch_bounds__(NTH, (Layout<DH, DV>::MIN_BLOCKS))
 flash_fwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ pad,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int T_len,
                     int max_seq, int causal, float scale_log2) {
-  using L = Layout<DH>;
+  using L = Layout<DH, DV>;
   constexpr int NST = L::NST, KS = DH / 16;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -345,10 +373,10 @@ flash_fwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
         // K, V and the band's new chunk (both chunks for the first tile);
         // the chunk's slot last held chunk kt - 2, which tile kt - 2 was
         // the last to read
-        mbar_expect_tx(&full[s], (kt == 0 ? 4 : 3) * L::TILE);
+        mbar_expect_tx(&full[s], (kt == 0 ? 3 : 2) * L::TILE + L::VT);
         unsigned char* st = smem + stage(s);
         tma_load(st, &maps.k, 0, k0, 0, bh, &full[s]);
-        tma_load(st + L::TILE, &maps.v, 0, k0, 0, bh, &full[s]);
+        tma_load(st + L::TILE, &maps.v, 0, k0, blockIdx.z * (DV / 16), bh, &full[s]);
         if (kt == 0) tma_load(smem + chunk(0), &maps.e, 0, e0, 0, 0, &full[s]);
         tma_load(smem + chunk(kt + 1), &maps.e, 0, e0 + 64 * (kt + 1), 0, 0, &full[s]);
       }
@@ -358,9 +386,9 @@ flash_fwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
 
   float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
   const int ub = 16 * warp;  // the warp's first row
-  float oacc[DH / 2];
+  float oacc[DV / 2];
 #pragma unroll
-  for (int x = 0; x < DH / 2; ++x) oacc[x] = 0.f;
+  for (int x = 0; x < DV / 2; ++x) oacc[x] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8 (log2 units)
   mbar_wait(qbar, 0);
 
@@ -440,7 +468,7 @@ flash_fwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
       l[hh] *= alpha[hh];
     }
 #pragma unroll
-    for (int x = 0; x < DH / 2; ++x) oacc[x] *= alpha[(x >> 1) & 1];
+    for (int x = 0; x < DV / 2; ++x) oacc[x] *= alpha[(x >> 1) & 1];
     uint32_t pa[BK / 16][4];  // P as bf16 A fragments, one set per k16 step
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
@@ -457,10 +485,10 @@ flash_fwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      mma_rs<DH, 1>(oacc, pa[kk], desc_mn(st + L::TILE + kk * 512, L::TILE / KS));
+      mma_rs<DV, 1>(oacc, pa[kk], desc_mn(st + L::TILE + kk * 512, L::TILE / KS));
     wg_commit();
     wg_wait0();
-    fence_regs<DH / 2>(oacc);
+    fence_regs<DV / 2>(oacc);
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
   }
 
@@ -476,16 +504,17 @@ flash_fwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
     if (i >= T_len) continue;
     const bool any = l[hh] > 0.f;
     const float inv = any ? 1.f / l[hh] : 0.f;
-    __nv_bfloat16* orow = o + obase + (size_t)i * DH;
+    __nv_bfloat16* orow = o + obase + (size_t)i * DH + blockIdx.z * DV;
 #pragma unroll
-    for (int c = 0; c < DH / 8; ++c)
+    for (int c = 0; c < DV / 8; ++c)
       *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t) =
           pack_bf16(oacc[4 * c + 2 * hh] * inv, oacc[4 * c + 2 * hh + 1] * inv);
-    if (t == 0) lse[(size_t)bh * T_len + i] = any ? m[hh] * LN2 + logf(l[hh]) : 1e30f;
+    if (t == 0 && blockIdx.z == 0)
+      lse[(size_t)bh * T_len + i] = any ? m[hh] * LN2 + logf(l[hh]) : 1e30f;
   }
 }
 
-template <int DH>
+template <int DH, int DV = DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    void* o, void* lse, int B, int H, int T_len, int max_seq, int causal,
                    float scale, cudaStream_t stream) {
@@ -493,14 +522,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
   cudaError_t err;
   if ((err = sm90_host::slab_map(&maps.q, q, B * H, T_len, DH, BQ)) != cudaSuccess ||
       (err = sm90_host::slab_map(&maps.k, k, B * H, T_len, DH, BK)) != cudaSuccess ||
-      (err = sm90_host::slab_map(&maps.v, v, B * H, T_len, DH, BK)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.v, v, B * H, T_len, DH, BK, DV / 16)) != cudaSuccess ||
       (err = sm90_host::slab_map(&maps.e, e, 1, max_seq, DH, BK)) != cudaSuccess)
     return err;
-  auto kernel = flash_fwd_tc_kernel<DH>;
-  const int smem = Layout<DH>::TOTAL;
+  auto kernel = flash_fwd_tc_kernel<DH, DV>;
+  const int smem = Layout<DH, DV>::TOTAL;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T_len + BQ - 1) / BQ, B * H);
+  const dim3 grid((T_len + BQ - 1) / BQ, B * H, DH / DV);
   kernel<<<grid, NTH, smem, stream>>>(maps, static_cast<const uint8_t*>(pad),
                                       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
                                       H, T_len, max_seq, causal, LOG2E * scale);
@@ -517,6 +546,10 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
     case 64: return launch<64>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
     case 96: return launch<96>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
     case 128: return launch<128>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
+    case 192:
+      return launch<192, 96>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
+    case 256:
+      return launch<256, 128>(q, k, v, e, pad, o, lse, B, H, T_len, max_seq, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -311,15 +311,17 @@ inline EncodeTiled tensor_map_encoder() {
 
 // A bf16 tensor of `mats` contiguous [rows][dh] matrices as the 4-D map
 // {16, rows, dh / 16, mats} (strides dh * 2, 32, rows * dh * 2 bytes),
-// read in boxes {16, box_rows, dh / 16, 1}: the slab layout of hopper_sm90
-// in one copy; rows outside [0, rows) read as zeros.
+// read in boxes {16, box_rows, box_slabs, 1} (box_slabs 0: all dh / 16):
+// the slab layout of hopper_sm90 in one copy, of a whole row or of the
+// columns from slab coordinate c2 on; rows outside [0, rows) read as zeros.
 inline cudaError_t slab_map(CUtensorMap* map, const void* base, int mats, int rows, int dh,
-                            int box_rows) {
+                            int box_rows, int box_slabs = 0) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {16, (cuuint64_t)rows, (cuuint64_t)(dh / 16), (cuuint64_t)mats};
   const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, 32, (cuuint64_t)rows * dh * 2};
-  const cuuint32_t box[4] = {16, (cuuint32_t)box_rows, (cuuint32_t)(dh / 16), 1};
+  const cuuint32_t box[4] = {16, (cuuint32_t)box_rows,
+                             (cuuint32_t)(box_slabs > 0 ? box_slabs : dh / 16), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

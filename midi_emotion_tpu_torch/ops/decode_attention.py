@@ -6,7 +6,7 @@ stacked over layers with K|V merged: ``kv [L, B, W, 2D]`` int8 (with
 ``sc [L, B, 2H, W]`` bf16 per-(row, head) scales) or bf16 (no scales).
 The cache is laid out at ``dh_k = cache_dh(dh)``, the least of the
 kernel's built widths (``flash_attention.KERNEL_DHS``: 16, 32, 48, 64, 96,
-128) that holds d_head, and ``D = H * dh_k``: head h of a row holds its
+128, 192, 256) that holds d_head, and ``D = H * dh_k``: head h of a row holds its
 key at columns ``[h*dh_k, h*dh_k + dh)`` and its value at ``[D + h*dh_k,
 D + h*dh_k + dh)``; the other columns are zero. For a built d_head (the flagship's 48) dh_k = dh and nothing is
 padded. Zero columns change no score, and no int8 row scale (max|x| over a
@@ -291,7 +291,7 @@ def _check(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t) -> N
     if q_t.dim() != 3:
         raise ValueError(f"q_t must be [B, H, dh], got {tuple(q_t.shape)}")
     B, H, dh_q = q_t.shape
-    dh = cache_dh(dh_q)  # d_head <= 128, or a ValueError
+    dh = cache_dh(dh_q)  # d_head <= 256, or a ValueError
     if kv8.dim() == 4 and kv8.shape[-1] != 2 * H * dh:
         raise ValueError(f"a cache row of {kv8.shape[-1]} columns does not hold {H} heads of "
                          f"d_head {dh_q}, laid out at {dh}: it must have {2 * H * dh}")
@@ -359,7 +359,7 @@ def _kernel(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t):
 
 
 def decode_attn_cached(
-    q_t: torch.Tensor,       # [B, H, dh], any d_head up to 128
+    q_t: torch.Tensor,       # [B, H, dh], any d_head up to 256
     kv8: torch.Tensor,       # [L, B, W, 2D] int8 (or bf16) stacked cache, D = H * cache_dh(dh)
     sc: Optional[torch.Tensor],  # [L, B, 2H, W] bf16 scales, or None (bf16 cache)
     layer: int,

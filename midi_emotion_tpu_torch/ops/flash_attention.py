@@ -40,14 +40,20 @@ package (``pallas_attention.py:1733-1735``), is a small kernel of
 ``csrc/flash_rel_attn_bwd.cu`` on a CUDA tensor, so every decomposition's
 backward runs only the port's own kernels.
 
-Head shapes: every kernel here is built for d_head in ``KERNEL_DHS`` (16,
-32, 48, 64, 96, 128), in f32 and bf16, any T <= max_seq. The wrappers take
-any d_head up to 128: another one is padded with zero columns up to the
-next entry (``pad_heads``; 40 -> 48, 80 -> 96), which add nothing to any
+Head shapes: the forward and the merged backward (kernels 1 and 4) are
+built for d_head in ``KERNEL_DHS`` (16, 32, 48, 64, 96, 128, 192, 256), the
+other decompositions' kernels (5-9) for ``DECOMPOSITION_DHS`` (up to 128),
+in f32 and bf16, any T <= max_seq. The wrappers take any d_head up to
+their widest: another one is padded with zero columns up to the next entry
+(``pad_heads``; 40 -> 48, 80 -> 96, 160 -> 192), which add nothing to any
 product, the kernel is given c = 1/sqrt(true d_head), and the outputs are
-cut back. A d_head above 128 raises a ValueError that names it (the f32
-tiles would not fit shared memory). bf16 operands must be 16-byte aligned
-(the kernels copy 16-byte units); fresh and contiguous tensors are.
+cut back. A wider d_head raises a ValueError that names it: above 256
+every kernel (``padded_dh``), above 128 kernels 5-9, naming the
+``MIDI_EMOTION_BWD`` and ``MIDI_EMOTION_DQDE`` that chose them
+(``decomposition_dh``). Kernels 1 and 4 compute d_head 192 and 256 in two
+column halves, a block each (the products over d_head done in both).
+bf16 operands must be 16-byte aligned (the kernels copy 16-byte units);
+fresh and contiguous tensors are.
 
 Source note for the forward kernel (``csrc/flash_rel_attn_fwd.cu``):
   * replaces ``pallas_attention.py::_flash_kernel`` (launched by
@@ -64,7 +70,10 @@ Source note for the forward kernel (``csrc/flash_rel_attn_fwd.cu``):
     land as zeros, so Srel is 0 above the diagonal), an online softmax in
     f32, P rounded to bf16 into wgmma's register operand for P V, as the
     TPU kernel casts P; K, V and the E band's next 64-row chunk land by TMA
-    while the current tile computes, two blocks an SM up to d_head 64.
+    while the current tile computes, two blocks an SM up to d_head 64; at
+    d_head 192 and 256 two blocks share a query tile, each running the
+    whole score side and computing O's columns of one half (its registers
+    and tiles would not hold all of them), with one K, V stage at 256.
     Measured before the redesign, the ``mma.sync`` kernel it replaces took
     0.1255 ms at B 4 and 0.2203 at B 8 (``scripts/torch_flash_bench.py``,
     NVIDIA H100 80GB HBM3 at 700 W);
@@ -96,7 +105,10 @@ Source note for the merged backward kernel (``csrc/flash_rel_attn_bwd.cu``):
     groups of key tiles (two up to d_head 48, their f32 dK and dV kept in
     shared memory between pairs) with its own dQ and dE partials, which a
     group's query tile reads and writes once; two blocks share a (b, h),
-    or one where B * H fills 7/8 of the SMs. Measured before the redesign,
+    or one where B * H fills 7/8 of the SMs; at d_head 192 and 256 each
+    of two blocks runs the products over d_head whole and computes one
+    half of the gradients' columns (one pair stage, the skew's scratch at
+    256 in the E band's other half). Measured before the redesign,
     the whole ``mma.sync`` call took 0.9731 ms at B 8, of which the main
     kernel 0.8868, ``dsum`` 0.0243 and the dQ and dE reductions 0.0345
     and 0.0287; taking the f32 partial reads and writes out of a first
@@ -156,7 +168,8 @@ import torch
 
 from .attention import rel_position_bias, relative_attention
 
-KERNEL_DHS = (16, 32, 48, 64, 96, 128)
+KERNEL_DHS = (16, 32, 48, 64, 96, 128, 192, 256)  # kernels 1, 4 and the decode kernel 13
+DECOMPOSITION_DHS = KERNEL_DHS[:6]  # kernels 5-9, up to 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # variable -> (default, allowed values), as pallas_attention.py:187-190
@@ -204,11 +217,34 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
 def padded_dh(dh: int) -> int:
     """The d_head a kernel runs heads of ``dh`` columns at: the least entry
     of ``KERNEL_DHS`` that is >= dh. Raises a ValueError naming d_head
-    above 128."""
+    above 256."""
     for dh_k in KERNEL_DHS:
         if dh_k >= dh:
             return dh_k
     raise ValueError(f"the attention kernels take d_head <= {KERNEL_DHS[-1]}, got {dh}")
+
+
+# kernels 5-9: wrapper -> the variables' values that choose it
+CHOSEN_BY = {
+    "bwd_dq_de": "MIDI_EMOTION_BWD=fused MIDI_EMOTION_DQDE=column",
+    "bwd_dq_de_dist": "MIDI_EMOTION_BWD=fused MIDI_EMOTION_DQDE=dist",
+    "bwd_dkdv": "MIDI_EMOTION_BWD=fused",
+    "bwd_dkdv_dq": "MIDI_EMOTION_BWD=split",
+    "bwd_de_dqrel": "MIDI_EMOTION_BWD=split",
+}
+
+
+def decomposition_dh(dh: int, wrapper: str) -> int:
+    """``padded_dh`` for ``wrapper``, one of kernels 5-9 (``CHOSEN_BY``): a
+    ValueError naming d_head and the variables that chose the kernel above
+    128, where only the merged kernel (4) is built."""
+    dh_k = padded_dh(dh)
+    if dh_k > DECOMPOSITION_DHS[-1]:
+        raise ValueError(
+            f"{wrapper} (chosen by {CHOSEN_BY[wrapper]}) takes d_head <= "
+            f"{DECOMPOSITION_DHS[-1]}, got {dh}; MIDI_EMOTION_BWD=merged takes d_head up to "
+            f"{KERNEL_DHS[-1]}")
+    return dh_k
 
 
 def pad_heads(dh_to: int, *tensors: Optional[torch.Tensor]):
@@ -416,7 +452,7 @@ def _check(q, k, v, e, pad_keys):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be [B, H, T, dh] alike: {q.shape}, {k.shape}, {v.shape}")
     B, H, T, dh = q.shape
-    padded_dh(dh)  # d_head <= 128, or a ValueError
+    padded_dh(dh)  # d_head <= 256, or a ValueError
     if e.dim() != 2 or e.shape[1] != dh or T > e.shape[0]:
         raise ValueError(f"e must be [max_seq >= T, dh]: e {tuple(e.shape)}, T {T}")
     if pad_keys is not None:
@@ -467,6 +503,7 @@ def _cut(dh, *tensors):
 
 
 def _fwd(q, k, v, e, causal, pad_keys):
+    padded_dh(q.shape[-1])  # the card's d_head limit on either device
     if q.device.type == "cpu":
         return flash_rel_attention_plain(q, k, v, e, causal, pad_keys)
     _check(q, k, v, e, pad_keys)
@@ -535,6 +572,7 @@ def bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do, split=None):
     ``_bwd_dkdv_kernel`` (``MIDI_EMOTION_BWD=fused``). In bf16 ``split``
     blocks share a (b, h), block s taking key tiles s, s + split, ...;
     None, one block per (b, h, key tile). The f32 kernel ignores it."""
+    decomposition_dh(q.shape[-1], "bwd_dkdv")
     if q.device.type == "cpu":
         return bwd_dkdv_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     if split is None:
@@ -550,6 +588,7 @@ def bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do, split=None):
 def bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do):
     """-> (dk, dv, dq_qk): ``csrc/flash_rel_attn_bwd_kv.cu`` for the TPU's
     ``_bwd_dkdv_dq_kernel`` (``MIDI_EMOTION_BWD=split``)."""
+    decomposition_dh(q.shape[-1], "bwd_dkdv_dq")
     if q.device.type == "cpu":
         return bwd_dkdv_dq_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     dk, dv, dq_qk = _launch_bwd("flash_rel_attn_bwd_dkdv_dq", q, k, v, e, causal, pad_keys, lse,
@@ -561,6 +600,7 @@ def bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do):
 def bwd_dq_de(q, k, v, e, causal, pad_keys, lse, dsum, do):
     """-> (dq, de): ``csrc/flash_rel_attn_bwd_q.cu`` for the TPU's
     ``_bwd_dq_de_kernel`` (``MIDI_EMOTION_BWD=fused``, ``DQDE=column``)."""
+    decomposition_dh(q.shape[-1], "bwd_dq_de")
     if q.device.type == "cpu":
         return bwd_dq_de_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de", q, k, v, e, causal, pad_keys, lse, dsum, do,
@@ -572,6 +612,7 @@ def bwd_dq_de(q, k, v, e, causal, pad_keys, lse, dsum, do):
 def bwd_dq_de_dist(q, k, v, e, causal, pad_keys, lse, dsum, do):
     """-> (dq, de): ``csrc/flash_rel_attn_bwd_q.cu`` for the TPU's
     ``_bwd_dq_de_dist_kernel`` (``MIDI_EMOTION_BWD=fused``, ``DQDE=dist``)."""
+    decomposition_dh(q.shape[-1], "bwd_dq_de_dist")
     if q.device.type == "cpu":
         return bwd_dq_de_dist_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de_dist", q, k, v, e, causal, pad_keys, lse, dsum,
@@ -583,6 +624,7 @@ def bwd_dq_de_dist(q, k, v, e, causal, pad_keys, lse, dsum, do):
 def bwd_de_dqrel(q, k, v, e, causal, pad_keys, lse, dsum, do):
     """-> (dq_rel, de): ``csrc/flash_rel_attn_bwd_q.cu`` for the TPU's
     ``_bwd_de_dqrel_kernel`` (``MIDI_EMOTION_BWD=split``)."""
+    decomposition_dh(q.shape[-1], "bwd_de_dqrel")
     if q.device.type == "cpu":
         return bwd_de_dqrel_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     dq_rel, de = _launch_bwd("flash_rel_attn_bwd_de_dqrel", q, k, v, e, causal, pad_keys, lse,
@@ -616,6 +658,12 @@ def flash_rel_attention_bwd(
     impl, dqde, _ = bwd_knobs()
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_rel_attention_bwd: unsupported device {q.device}")
+    # the card's d_head limits on either device, before any launch
+    if impl == "merged":
+        padded_dh(q.shape[-1])
+    else:
+        decomposition_dh(q.shape[-1], "bwd_dkdv_dq" if impl == "split"
+                         else "bwd_dq_de_dist" if dqde == "dist" else "bwd_dq_de")
     if impl == "merged" and q.device.type == "cpu":
         return flash_rel_attention_bwd_plain(q, k, v, e, causal, pad_keys, o, lse, do)
     if q.device.type == "cuda":

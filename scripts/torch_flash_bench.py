@@ -2,7 +2,7 @@
 """Check and time the port's flash attention kernels 1 and 4 on one card.
 
     python3 scripts/torch_flash_bench.py                 # this checkout
-    python3 scripts/torch_flash_bench.py --roots A B B A --check --train
+    python3 scripts/torch_flash_bench.py --roots A B B A --check --train --decode
 
 Each root is a checkout of this repository (an unpacked ``git archive`` of
 another commit, say). For each root in the order given, a fresh process
@@ -17,6 +17,9 @@ with a pad tail:
   * kernel 4 (``flash_rel_attention_bwd``, the merged backward) at B 8, the
     whole call and each of its launches apart (``chip_smoke.BWD_LAUNCHES``:
     ``dsum``, the main kernel, the dQ reduction and the dE reduction).
+With ``--decode``, also the stacked-cache decode kernel 13 (``decode_attn_cached``,
+staged, as ``chip_smoke.check_decode`` times it: layer 13 of L 20, B 64,
+W 1408, length 1216, 4 stage rows, H 16, d_head 48), int8 and bf16.
 With ``--train``, also the default (merged) train step of the flagship at
 B 8, T 1216, bf16, dropout 0.1 (``chip_smoke.py``'s CLI arguments, on its
 synthetic shards): after 2 warm-up steps, 3 steps under the profiler,
@@ -25,7 +28,8 @@ step and the busy share, and kernels 1 and 4's ms a step.
 Each process prints one JSON line; the calling process prints them all, then a
 table by root, with the card's name and power limit. Roots are run in
 turn, so putting a parent between two runs of a change (A B B A) shows the
-card's drift. Writes nothing outside each root's ``build/``.
+card's drift; every root's kernels are built first, the roots in parallel.
+Writes nothing outside each root's ``build/``.
 """
 
 import argparse
@@ -79,7 +83,33 @@ def train_step(torch, cs, root, steps=3):
             "step_busy": device / (wall * 1e3 / steps), "step_k4_ms": k4, "step_k1_ms": k1}
 
 
-def worker(root, check, train):
+def decode_ms(torch, cs):
+    """Kernel 13, staged, at the flagship's serving shape: CUPTI device ms
+    of one call, int8 and bf16."""
+    from midi_emotion_tpu_torch.ops import decode_attention as da
+
+    out = {}
+    L, B, W, H, dh, S = (cs.DECODE[k] for k in ("L", "B", "W", "H", "dh", "S"))
+    for quant, mode in ((True, "int8"), (False, "bf16")):
+        kv, sc, q, e, pend, row, _ = cs._decode_cache(torch, quant, cs.SEED + 5)
+        length, p_cnt = 1216, 4
+        e_rows = da.expand_e_rows(e, length + p_cnt + 1, W)
+        e_pend = da.expand_e_rows(e, p_cnt + 1, S + 1)
+        out[f"decode_{mode}"] = cs.device_ms(
+            torch, lambda: da.decode_attn_cached(q, kv, sc, 13, e_rows, length, pend, e_pend,
+                                                 p_cnt, row),
+            iters=50, only="decode_attn_stacked")
+        del kv, sc, pend
+        torch.cuda.empty_cache()
+    return out
+
+
+def libraries(decode):
+    return ("flash_rel_attn_fwd", "flash_rel_attn_bwd") + (("decode_attn_stacked",) if decode
+                                                           else ())
+
+
+def worker(root, check, train, decode):
     import importlib.util
 
     sys.path.insert(0, root)  # the package comes from root
@@ -95,7 +125,7 @@ def worker(root, check, train):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_all(("flash_rel_attn_fwd", "flash_rel_attn_bwd"))
+    build_all(libraries(decode))
     for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd"):
         cs.print_ptxas(library_path(name), name)
         cs.print_sass_mma(library_path(name), name)
@@ -123,9 +153,11 @@ def worker(root, check, train):
     out["bwd_B8"] = cs.device_ms(torch, call, iters=10, per_call=4)
     for label, only in cs.BWD_LAUNCHES:
         out[f"bwd_B8_{label}"] = cs.device_ms(torch, call, iters=10, only=only)
+    del q, k, v, e, pad, o, lse, do
+    torch.cuda.empty_cache()
+    if decode:
+        out.update(decode_ms(torch, cs))
     if train:
-        del q, k, v, e, pad, o, lse, do
-        torch.cuda.empty_cache()
         out.update(train_step(torch, cs, root))
     print("RESULT " + json.dumps(out), flush=True)
 
@@ -135,19 +167,27 @@ def main():
     ap.add_argument("--roots", nargs="*", default=[HERE])
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--decode", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker, args.check, args.train)
+        return worker(args.worker, args.check, args.train, args.decode)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "no card"
     print(card, flush=True)
+    roots = [os.path.abspath(root) for root in args.roots]
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from midi_emotion_tpu_torch.kernels.build import build_all; "
+         "build_all(tuple(sys.argv[2:]))", root, *libraries(args.decode)], cwd=root)
+        for root in dict.fromkeys(roots)]
+    if any(b.wait() for b in builds):
+        sys.exit("torch_flash_bench: a build failed")
     rows = []
-    for root in args.roots:
-        root = os.path.abspath(root)
+    for root in roots:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", root]
-        flags = [f"--{f}" for f in ("check", "train") if getattr(args, f)]
+        flags = [f"--{f}" for f in ("check", "train", "decode") if getattr(args, f)]
         proc = subprocess.run(cmd + flags, cwd=root, capture_output=True, text=True, timeout=1800)
         print(proc.stdout[-20000:], proc.stderr[-4000:], sep="\n", flush=True)
         if proc.returncode != 0:

@@ -163,13 +163,14 @@ def test_twin_matches_pallas_kernel(quant, length, p_cnt):
     _twin_vs_pallas(_inputs(), (B, W, H, DH, S), quant, length, p_cnt)
 
 
-@pytest.mark.parametrize("heads,dh", [(2, 96), (2, 128), (10, 128)],
-                         ids=["dh96", "dh128", "D1280"])
+@pytest.mark.parametrize("heads,dh", [(2, 96), (2, 128), (10, 128), (3, 256), (2, 192), (2, 160)],
+                         ids=["dh96", "dh128", "D1280", "dh256", "dh192", "dh160"])
 @pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 def test_twin_matches_pallas_kernel_wide_heads(quant, heads, dh):
-    """The head shapes past the flagship's (d_head 96 and 128, and a width
-    of 1280 that the kernel runs as head groups) at one length, unstaged and
-    staged, with test_twin_matches_pallas_kernel's tolerances."""
+    """The head shapes past the flagship's (d_head 96, 128, 192 and 256, 160
+    laid out at 192, and a width of 1280 that the kernel runs as head
+    groups) at one length, unstaged and staged, with
+    test_twin_matches_pallas_kernel's tolerances."""
     dims = (2, 128, heads, dh, 4)
     x = _inputs(dh + heads, dims)
     for p_cnt in (None, 2):

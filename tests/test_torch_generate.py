@@ -82,16 +82,23 @@ def _unpad_heads(x: np.ndarray, n_groups: int, dh: int) -> np.ndarray:
 # d_head 40 (H * dh = 80): a width the decode kernel is not built for, so the
 # port's stacked cache holds each head at 48 columns
 DH40 = dict(n_head=2, d_model=80)
+# past d_head 128: one head of 256, a width the kernels are built for, and
+# two of 160, which the port's cache holds at 192 columns a head
+DH256 = dict(n_head=1, d_model=256)
+DH160 = dict(n_head=2, d_model=320)
 
 
 @pytest.mark.parametrize("kv_dtype,heads", [("int8", {}), ("bf16", {}), ("int8", DH40),
-                                            ("bf16", DH40)],
-                         ids=["int8", "bf16", "int8-dh40", "bf16-dh40"])
+                                            ("bf16", DH40), ("int8", DH256), ("bf16", DH256),
+                                            ("int8", DH160), ("bf16", DH160)],
+                         ids=["int8", "bf16", "int8-dh40", "bf16-dh40", "int8-dh256",
+                              "bf16-dh256", "int8-dh160", "bf16-dh160"])
 def test_stacked_step_logits_match_jax(kv_dtype, heads):
     """prefill_q, then one decode_step_q and one decode_step_staged from the
     prefilled cache, at the TINY config (and at d_head 40, whose cache the
-    port pads to 48 columns a head): the cache rows and the stage slot
-    equal, the logits as close as the tolerances below say."""
+    port pads to 48 columns a head, 256, and 160, padded to 192): the cache
+    rows and the stage slot equal, the logits as close as the tolerances
+    below say."""
     cfg = JaxModelConfig(mode="continuous_concat", **{**TINY, **heads})
     jmodel, params, tmodel = model_pair(cfg)
     variables = {"params": params}
@@ -122,11 +129,15 @@ def test_stacked_step_logits_match_jax(kv_dtype, heads):
         else:
             # layer 0's rows come from the same f32 embedding in both; past
             # it the two f32 forwards round an ulp apart, which can carry a
-            # value over an int8 (or bf16) rounding boundary: one unit
-            np.testing.assert_array_equal(_unpad_heads(kv[0], groups, dh), jkv[0])
+            # value over an int8 (or bf16) rounding boundary: one unit. At
+            # d_model 256 and 320 the layer-0 projections' own f32 sums
+            # round apart too (4 of 131072 bf16 values, one ulp, on this
+            # seed), so layer 0 is held to the unit as well
+            if cfg.d_model < 256:
+                np.testing.assert_array_equal(_unpad_heads(kv[0], groups, dh), jkv[0])
             unit = 1.0 if quant else 2 ** -8 * np.abs(jkv).max()
             np.testing.assert_allclose(_unpad_heads(kv, groups, dh), jkv, rtol=0, atol=unit)
-        assert kv.shape[-1] == groups * (48 if heads else dh)
+        assert kv.shape[-1] == groups * {16: 16, 40: 48, 256: 256, 160: 192}[dh]
         assert not kv.reshape(*kv.shape[:-1], groups, -1)[..., dh:].any()  # zero padding
         tce = tmodel.condition_embedding(tc)
         tpend = torch.zeros((S, cfg.n_layer, B, cache["kv"].shape[-1]), dtype=torch.bfloat16)
@@ -138,22 +149,31 @@ def test_stacked_step_logits_match_jax(kv_dtype, heads):
     # int8: q is quantized per step, and an f32 GEMM that rounds q one ulp
     # apart can move one int8 unit (on this seed: batch row 0 of the staged
     # step, 1.5e-3 of logits ~0.6); each of those flips is within int8
-    # error, 1e-2 of the logit scale. bf16 quantizes nothing: 1e-4.
+    # error, 1e-2 of the logit scale. bf16 quantizes nothing: 1e-4; at
+    # d_model 256 and 320, where some bf16 cache values round one ulp apart
+    # (above), one bf16 ulp of the logit scale (the flips moved the steps'
+    # logits by 6e-4 at d_model 256, where the bf16 cache itself is 4e-3
+    # off the native cache's logits in either package).
     for got, want in ((tl0, jl0), (tl1, jl1), (tl2, jl2)):
         want = np.asarray(want)
-        tol = 1e-2 * np.abs(want).max() if quant else 1e-4
+        tol = (1e-2 * np.abs(want).max() if quant
+               else 2 ** -8 * np.abs(want).max() if cfg.d_model >= 256 else 1e-4)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
-    np.testing.assert_array_equal(_unpad_heads(tpend.float().numpy(), groups, dh),
-                                  np.asarray(jpend.astype(jnp.float32)))
+    stage = _unpad_heads(tpend.float().numpy(), groups, dh)
+    jstage = np.asarray(jpend.astype(jnp.float32))
+    if cfg.d_model < 256:
+        np.testing.assert_array_equal(stage, jstage)
+    else:  # the written row's bf16 values, one ulp apart as the cache rows above
+        np.testing.assert_allclose(stage, jstage, rtol=0, atol=2 ** -8 * np.abs(jstage).max())
 
 
-def _stacked_sampler_case(heads):
+def _stacked_sampler_case(heads, kv_dtype="int8"):
     cfg = JaxModelConfig(mode="continuous_concat", **{**TINY, "n_layer": 1, "n_head": 2,
                                                       "max_seq": 128, **heads})
     jmodel, params, tmodel = model_pair(cfg)
     B, gen_len = 2, 24
     sp = dict(gen_len=gen_len, max_input_len=12, top_p=0.9, penalty_coeff=0.5)
-    kw = dict(kv_dtype="int8", stage_steps=4, slide_hop=2)
+    kw = dict(kv_dtype=kv_dtype, stage_steps=4, slide_hop=2)
     primer = np.full((B, 1), DEFAULT_VOCAB.start_id, np.int32)
     cond = np.array([[0.8, -0.4], [-0.6, 0.2]], np.float32)
     u = np.random.default_rng(0).uniform(size=(gen_len - 1, B)).astype(np.float32)
@@ -185,6 +205,15 @@ def test_stacked_sampler_matches_jax_at_padded_d_head():
     columns, zero past 40; token-identical to the JAX sampler, whose cache
     is 40 wide."""
     _stacked_sampler_case(DH40)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("heads", [DH256, DH160], ids=["dh256", "dh160"])
+def test_stacked_sampler_matches_jax_at_wide_d_head(heads, kv_dtype):
+    """The same past d_head 128, through the int8 and the bf16 cache: one
+    head of 256, and two of 160, which the port's cache, stage and E rows
+    hold at 192 columns, zero past 160; token-identical to the JAX sampler."""
+    _stacked_sampler_case(heads, kv_dtype)
 
 
 @pytest.mark.parametrize("varying", [False, True])

@@ -200,8 +200,8 @@ def test_flash_wrapper_guards_and_counter(cuda):
         flash_rel_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, e)
     with pytest.raises(TypeError):
         flash_rel_attention(q, k.double(), v, e)
-    with pytest.raises(ValueError, match="d_head"):  # past 128, which padding cannot reach
-        flash_rel_attention(*_qkve(1, 2, 64, 144, 128, torch.float32))
+    with pytest.raises(ValueError, match="d_head"):  # past 256, the widest kernel
+        flash_rel_attention(*_qkve(1, 2, 64, 272, 128, torch.float32))
     with pytest.raises(ValueError, match="max_seq"):
         flash_rel_attention(q, k, v, e[:32])
     assert flash_rel_attention.launches == before + 1
@@ -338,6 +338,80 @@ def test_flash_kernels_padded_heads_match_twins(cuda, dtype, dh):
     else:
         for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+
+
+# d_head past 128: kernels 1 and 4 are built for 192 and 256 (two column
+# halves, a block each); 160 and 224 reach them through the padding
+WIDE_DHS = [160, 192, 224, 256]
+
+
+@pytest.mark.parametrize("dh", WIDE_DHS)
+@pytest.mark.parametrize("T", [1, 65, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_wide_heads_match_twins_f32(cuda, dh, T, causal):
+    """Kernels 1 and 4 in f32 past d_head 128: O, lse and dQ, dK, dV, dE
+    against the twins (1e-4, as at the narrower heads), a pad tail and a
+    fully masked row."""
+    q, k, v, e = _qkve(2, 3, T, dh, 256, torch.float32, seed=12)
+    pad = _pad(2, T, cuda)
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    ro, rlse = flash_rel_attention_plain(q, k, v, e, causal, pad)
+    torch.testing.assert_close(o, ro, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    got, want = _bwd_pair(q, k, v, e, causal, pad)
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
+        assert a.shape == b.shape and a.is_contiguous(), name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    if causal:
+        assert o[1, :, 0].eq(0).all() and lse[1, :, 0].eq(1e30).all()
+        assert got[0][1, :, 0].eq(0).all()
+
+
+@pytest.mark.parametrize("dh", WIDE_DHS)
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 333, 1216])
+def test_wgmma_flash_kernels_bf16_wide_heads_causal(cuda, dh, T):
+    """The wgmma kernels 1 and 4 past d_head 128, as
+    test_wgmma_flash_kernels_bf16_causal: the bf16 tolerances, the fully
+    masked row, two calls bitwise equal."""
+    _check_wgmma_kernels(*_qkve(2, 2, T, dh, 2048, torch.bfloat16, seed=13), True,
+                         _pad(2, T, cuda))
+
+
+@pytest.mark.parametrize("dh", WIDE_DHS)
+def test_wgmma_flash_kernels_bf16_wide_heads_non_causal(cuda, dh):
+    _check_wgmma_kernels(*_qkve(2, 2, 200, dh, 2048, torch.bfloat16, seed=14), False,
+                         _pad(2, 200, cuda))
+
+
+@pytest.mark.parametrize("impl,dqde", [("split", "column"), ("fused", "column"),
+                                       ("fused", "dist")])
+def test_wide_head_limits(cuda, monkeypatch, impl, dqde):
+    """Past 256 kernels 1 and 4 raise a ValueError naming d_head; past 128
+    so do kernels 5-9, naming the variables that chose them, and the
+    backward under split or fused before any launch."""
+    wide = _qkve(1, 2, 64, 272, 512, torch.bfloat16)
+    with pytest.raises(ValueError, match="d_head <= 256, got 272"):
+        flash_rel_attention(*wide)
+    with pytest.raises(ValueError, match="d_head <= 256, got 272"):
+        fa.flash_rel_attention_bwd(*wide, True, None, wide[0], torch.zeros((1, 2, 64), device=cuda),
+                                   wide[0])
+    kv, sc, _, e48, _, _, _ = _decode_inputs(2, 256, 2, 48, 2, 4, True)
+    with pytest.raises(ValueError, match="d_head <= 256, got 272"):  # kernel 13
+        da.decode_attn_cached(torch.randn((2, 2, 272), device=cuda), kv, sc, 1,
+                              da.expand_e_rows(e48, 11, 256), 10)
+    q, k, v, e = _qkve(1, 2, 64, 144, 512, torch.bfloat16)
+    o, lse = flash_rel_attention(q, k, v, e)  # 144 runs at 192 on kernels 1 and 4
+    fa.flash_rel_attention_bwd(q, k, v, e, True, None, o, lse, o)
+    monkeypatch.setenv("MIDI_EMOTION_BWD", impl)
+    monkeypatch.setenv("MIDI_EMOTION_DQDE", dqde)
+    before = {n: getattr(fa, n).launches for n in BWD_KERNELS}
+    with pytest.raises(ValueError, match=f"MIDI_EMOTION_BWD={impl}.*got 144"):
+        fa.flash_rel_attention_bwd(q, k, v, e, True, None, o, lse, o)
+    dsum = torch.zeros((1, 2, 64), device=cuda)
+    for kernel in BWD_KERNELS:
+        with pytest.raises(ValueError, match="d_head <= 128, got 144"):
+            getattr(fa, kernel)(q, k, v, e, True, None, lse, dsum, o)
+    assert before == {n: getattr(fa, n).launches for n in BWD_KERNELS}
 
 
 @pytest.mark.parametrize("kernel", list(BWD_KERNELS))
@@ -658,6 +732,14 @@ def test_train_step_kernels_match_plain_twins(cuda):
         torch.testing.assert_close(gg[n], gc[n], rtol=1e-4, atol=1e-5, msg=n)
 
 
+# d_head past 128: the flagship's width with 3 heads of 256 at its serving
+# shape, 4 of 192, one of 192 (rows whose halves are not 128-byte
+# multiples), and 160 laid out at 192
+DECODE_WIDE = [(64, 1408, 3, 256, 2), (4, 256, 4, 192, 2), (4, 256, 1, 192, 2),
+               (4, 256, 2, 160, 2)]
+DECODE_WIDE_IDS = ["flagship-dh256", "dh192", "dh192-h1", "dh160"]
+
+
 def _decode_inputs(B, W, H, dh, L, S, quant, seed=0):
     """A stacked cache of random rows (quantized for int8), q, E, a stage
     and the current row, on the card, laid out as the model lays them out:
@@ -679,8 +761,9 @@ def _decode_inputs(B, W, H, dh, L, S, quant, seed=0):
 
 @pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2),
                                    (4, 256, 8, 96, 2), (4, 256, 8, 128, 2), (4, 256, 10, 128, 2),
-                                   (4, 256, 16, 40, 2)],
-                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280", "dh40"])
+                                   (4, 256, 16, 40, 2)] + DECODE_WIDE,
+                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280", "dh40"]
+                         + DECODE_WIDE_IDS)
 @pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 def test_decode_kernel_matches_twin_unstaged(cuda, shape, quant):
     """acc/l within one P re-quantization unit (int8: max|V|/127, flipped
@@ -707,8 +790,9 @@ def test_decode_kernel_matches_twin_unstaged(cuda, shape, quant):
 
 @pytest.mark.parametrize("shape", [(64, 1408, 16, 48, 2), (3, 384, 4, 48, 3), (2, 200, 2, 16, 2),
                                    (4, 256, 8, 96, 2), (4, 256, 8, 128, 2), (4, 256, 10, 128, 2),
-                                   (4, 256, 16, 40, 2)],
-                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280", "dh40"])
+                                   (4, 256, 16, 40, 2)] + DECODE_WIDE,
+                         ids=["flagship", "odd", "w200-dh16", "dh96", "dh128", "D1280", "dh40"]
+                         + DECODE_WIDE_IDS)
 @pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 def test_decode_kernel_matches_twin_staged(cuda, shape, quant):
     """Staged (S 8): the normalized bf16 output within one P unit (int8)

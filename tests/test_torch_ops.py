@@ -89,10 +89,18 @@ def test_decode_rel_attention_matches_jax():
     assert_close(got, want, TOL)
 
 
+def _card_route(dh, *tensors):
+    """The tensors as the card's wrappers hand them to a kernel: padded with
+    zero columns to ``padded_dh(dh)``; and c = 1/sqrt(d_head)."""
+    return fa.pad_heads(fa.padded_dh(dh), *tensors), 1.0 / math.sqrt(dh)
+
+
 def _flash_twin_vs_pallas(seed, T, dh, max_seq):
-    """(O, lse) of the flash wrapper's CPU path against the Pallas kernel in
-    the generic interpreter at B 1, H 2, with key 0 and a tail of keys
-    padded; row 0, which sees no key, held to O = 0 and lse = +1e30."""
+    """(O, lse) of the flash wrapper's CPU path, and of the twin on the
+    card's route (heads padded to ``padded_dh``, c passed, O cut back),
+    against the Pallas kernel in the generic interpreter at B 1, H 2, with
+    key 0 and a tail of keys padded; row 0, which sees no key, held to O =
+    0 and lse = +1e30."""
     rng = np.random.default_rng(seed)
     B, H = 1, 2
     q, k, v = (_rand(rng, B, H, T, dh) for _ in range(3))
@@ -111,6 +119,11 @@ def _flash_twin_vs_pallas(seed, T, dh, max_seq):
     assert_close(got_lse[:, :, 1:], np.asarray(want_lse)[:, :, 0, 1:T], TOL)
     assert np.all(got_o.numpy()[:, :, 0] == 0)
     assert np.all(got_lse.numpy()[:, :, 0] == np.float32(1e30))
+    padded, c = _card_route(dh, *(torch.from_numpy(a) for a in (q, k, v, e)))
+    o, lse = fa.flash_rel_attention_plain(*padded, True, torch.from_numpy(pk), scale=c)
+    assert o[..., dh:].eq(0).all()
+    assert_close(o[:, :, 1:, :dh], np.asarray(want_o)[:, :, 1:], TOL)
+    assert_close(lse[:, :, 1:], np.asarray(want_lse)[:, :, 0, 1:T], TOL)
 
 
 def test_flash_twin_matches_pallas_kernel():
@@ -125,10 +138,10 @@ def test_flash_twin_matches_pallas_kernel():
     _flash_twin_vs_pallas(4, T=200, dh=16, max_seq=256)
 
 
-@pytest.mark.parametrize("dh", [96, 128])
+@pytest.mark.parametrize("dh", [96, 128, 160, 192, 256])
 def test_flash_twin_matches_pallas_kernel_wide_heads(dh):
-    """The d_head 96 and 128 that the port's kernels take, as
-    test_flash_twin_matches_pallas_kernel, at a short T."""
+    """The d_head 96 to 256 that the port's kernels take (160 padded to
+    192), as test_flash_twin_matches_pallas_kernel, at a short T."""
     _flash_twin_vs_pallas(dh, T=40, dh=dh, max_seq=64)
 
 
@@ -171,7 +184,7 @@ def test_flash_backward_twin_matches_pallas_kernel_padded_heads(dh):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", PADDED_DHS)
+@pytest.mark.parametrize("dh", PADDED_DHS + [160, 224])
 def test_padded_heads_match_unpadded_twins(dh, causal):
     """The card's route for such a d_head, run through the twins: q, k, v,
     e and dO padded with zero columns by ``pad_heads`` to ``padded_dh``,
@@ -186,7 +199,7 @@ def test_padded_heads_match_unpadded_twins(dh, causal):
     pad[1, 0] = True
     pad[1, -T // 4:] = True
     dh_k = fa.padded_dh(dh)
-    assert dh_k == {40: 48, 80: 96}[dh]
+    assert dh_k == {40: 48, 80: 96, 160: 192, 224: 256}[dh]
     qp, kp, vp, ep, dop = fa.pad_heads(dh_k, q, k, v, e, do)
     assert qp.shape[-1] == ep.shape[-1] == dh_k and qp[..., dh:].eq(0).all()
     scale = 1.0 / math.sqrt(dh)
@@ -203,9 +216,50 @@ def test_padded_heads_match_unpadded_twins(dh, causal):
 
 
 def test_padded_dh_bounds():
-    """Every d_head up to 128 maps to the least kernel width that holds it;
-    above 128 raises a ValueError naming d_head."""
-    assert [fa.padded_dh(d) for d in (1, 16, 17, 40, 48, 80, 97, 128)] == \
-        [16, 16, 32, 48, 48, 96, 128, 128]
-    with pytest.raises(ValueError, match="d_head"):
-        fa.padded_dh(129)
+    """Every d_head up to 256 maps to the least width kernels 1, 4 and 13
+    are built for that holds it; above 256 raises a ValueError naming
+    d_head. Kernels 5-9 (``decomposition_dh``) stop at 128, naming d_head
+    and the variables that chose each."""
+    assert [fa.padded_dh(d) for d in (1, 16, 17, 40, 48, 80, 97, 128, 129, 160, 192, 193,
+                                      224, 256)] == \
+        [16, 16, 32, 48, 48, 96, 128, 128, 192, 192, 192, 256, 256, 256]
+    with pytest.raises(ValueError, match="d_head <= 256, got 257"):
+        fa.padded_dh(257)
+    for wrapper, chosen in fa.CHOSEN_BY.items():
+        assert fa.decomposition_dh(97, wrapper) == 128
+        with pytest.raises(ValueError, match=f"{wrapper} \\(chosen by {chosen}\\) takes "
+                                             "d_head <= 128, got 129"):
+            fa.decomposition_dh(129, wrapper)
+
+
+@pytest.mark.parametrize("dh", [192, 256])
+def test_flash_backward_twin_matches_pallas_kernel_wider_heads(dh):
+    """Autograd through the flash wrapper (the merged backward twin) and
+    the twin on the card's route (heads padded to ``padded_dh``, c passed,
+    the gradients cut back) against jax.grad of the Pallas flash attention
+    in the generic interpreter, past d_head 128: dQ, dK, dV and dE to 1e-4,
+    causal with a pad tail, one head, T 16."""
+    rng = np.random.default_rng(dh + 3)
+    B, H, T, max_seq = 1, 1, 16, 32
+    q, k, v, g = (_rand(rng, B, H, T, dh) for _ in range(4))
+    e = _rand(rng, max_seq, dh)
+    pk = np.zeros((B, T), bool)
+    pk[:, -T // 4:] = True
+
+    def loss(q_, k_, v_, e_):
+        o = pallas_attention.flash_relative_attention(q_, k_, v_, e_, True, jnp.asarray(pk))
+        return jnp.sum(o * g)
+
+    with generic_interpret():
+        want = jax.grad(loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (q, k, v, e)))
+    xs = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, e)]
+    o, lse = flash_rel_attention(*xs, True, torch.from_numpy(pk))
+    got = torch.autograd.grad(o, xs, torch.from_numpy(g))
+    (qp, kp, vp, ep, gp, op), c = _card_route(dh, *xs, torch.from_numpy(g), o.detach())
+    routed = fa.flash_rel_attention_bwd_plain(qp.detach(), kp.detach(), vp.detach(), ep.detach(),
+                                              True, torch.from_numpy(pk), op, lse, gp, scale=c)
+    for name, a, r, b in zip(("dq", "dk", "dv", "de"), got, routed, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(r[..., :dh].numpy(), np.asarray(b), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
