@@ -23,18 +23,27 @@ Phases, each fatal on failure:
      d_head 128 beside 64; kernel 1 also at the train step's B 8, and
      kernel 4's call split into its launches: dsum, the main kernel, the
      dQ and the dE reductions); count the tensor-core instructions of
-     kernels 1 and 4-9 in their SASS (cuobjdump), failing on one without
-     any, on a bf16 kernel 1 or 4 without a wgmma (HGMMA) instruction or on
-     a missing kernel 7, 8 or 9; time kernel 9 on its two grids; hold each
+     kernels 1 and 4-9 and of their wide forms' bf16 sweeps in their SASS
+     (cuobjdump), failing on one without any, on a bf16 kernel 1 or 4
+     without a wgmma (HGMMA) instruction or on a missing kernel 7, 8 or 9
+     or wide sweep; time kernel 9 on its two grids; hold each
      backward decomposition (split, fused/column, fused/dist) against the
      merged kernel, and time the whole split call beside SDPA's backward;
      past d_head 128: kernels 1 and 4 at 160, 192, 224 and 256 (160 and 224
      through the padding) in f32 and bf16, kernel 13 at 192 and 256 in its
      four modes, the three timed at the flagship's width with 3 heads of
      256 beside SDPA and the bound (kernel 1 at B 4 and 8, kernel 4's call
-     at B 8, kernel 13 at L 20, B 64, W 1408), and the d_head limits (272
-     refused by kernels 1, 4 and 13; 144 by kernels 5-9 under split and
-     fused, with no launch);
+     at B 8, kernel 13 at L 20, B 64, W 1408); past the built widths, on
+     the wide kernels (csrc/flash_rel_attn_wide.cu, csrc/decode_attn_wide.cu):
+     kernels 1 and 4 at 320 (padded to 384), 384 and 768, kernels 5-9 at
+     192, 256 and 384, kernel 13 at 320, 384 and 768, f32 and bf16 at small
+     B; kernels 1, 4, 5-9 and 13 timed at the flagship's width with 2 heads
+     of 384 and 1 of 768 (the JSON rows' ``streamed_heads``: the flash
+     kernels at B 8, T 1216, kernel 13 at L 20, B 64, W 1408) beside their
+     twins, SDPA and the bound; and at the widths that were the limits (272
+     on kernels 1, 4 and 13, 144 on 5-9 under split and fused) every
+     wrapper launching its kernel while the plain twins and SDPA refuse to
+     run;
      kernels 3 and 12 also at a ragged shape ([9729, 99]), and their row
      pass timed apart from the dgamma/dbeta reduction; then one small f32
      train step through the kernels against the same step on the CPU
@@ -88,7 +97,13 @@ Phases, each fatal on failure:
      through the native, int8 and bf16 caches (sampled tokens/sec each); a
      4-layer --n_head 4 (d_head 192) model trained 3 steps and served from
      the int8 cache; a 4-layer --n_head 3 model trained 2 steps at B 2 in
-     f32;
+     f32; past d_head 256: the flagship's width with 2 heads of 384
+     (158 841 071 parameters), 20 layers, 2 CLI steps, then 2 warm-up and
+     5 timed, served like the 3-head model from the native, int8 and bf16
+     caches; a 4-layer --n_head 1 (d_head 768) model trained 3 steps and
+     served from the int8 and bf16 caches; one train step under each of
+     split, fused/column and fused/dist at 4 layers of --n_head 3 and of
+     --n_head 1; a 4-layer --n_head 1 model trained 2 steps at B 2 in f32;
   6. serve a 2-layer d_head-40 model (d_model 640, random weights): its
      stacked int8 and bf16 decode steps against its native ones, then
      Sampler.generate through each stacked cache; serve the trained work
@@ -105,7 +120,7 @@ Phases, each fatal on failure:
      and int8): device-busy share and the top kernels per step.
 Each path (the dropout-0.1 training run with its resume, the dropout-0
 run, the three decomposition runs, phase 5b's five, phase 5c's three remat
-runs and each mesh rank's run, phase 5d's three training runs and four
+runs and each mesh rank's run, phase 5d's twelve training runs and nine
 generation runs, the d_head-40 model's generation, each generation run)
 runs with every
 kernel launch counter set to 0 just before it and read just after; the
@@ -858,7 +873,8 @@ def check_decode(torch, quant, timed=False, shape=DECODE,
                                                 p_cnt, row),
                   lambda: da.decode_attn_cached_plain(q, kv, sc, layer, e_rows, length, stage,
                                                       e_pend, p_cnt, row),
-                  library, iters=50, kernel_only="decode_attn_stacked")
+                  library, iters=50,
+                  kernel_only="decode_wide_kernel" if dh_k > 256 else "decode_attn_stacked")
     if timed:
         print(f"{name}: bytes moved {n_bytes / 1e6:.1f} MB; kernel at "
               f"{n_bytes / (res['ms'] * 1e-3) / 1e12:.3f} TB/s")
@@ -1678,59 +1694,139 @@ def parallel_phase(torch, tmp, train_args, card):
 WIDE_DHS = (160, 192, 224, 256)
 
 
-def _raises_d_head(fn, what, match):
-    """fn() must raise a ValueError whose message holds ``match``."""
+# past d_head 256 kernels 1, 4 and 13, and past 128 kernels 5-9, run their
+# wide forms (csrc/flash_rel_attn_wide.cu, csrc/decode_attn_wide.cu): 320
+# through the padding (to 384)
+STREAMED_DHS = (320, 384, 768)
+DECOMPOSITION_WIDE_DHS = (192, 256, 384)
+WIDE_SOURCES = {"flash_rel_attn_fwd": "flash_rel_attn_wide.cu",
+                "flash_rel_attn_bwd": "flash_rel_attn_wide.cu",
+                **{name: "flash_rel_attn_wide.cu" for name in BWD_KERNELS},
+                "decode_attn_stacked": "decode_attn_wide.cu"}
+
+
+@contextlib.contextmanager
+def no_fallback(torch):
+    """Every plain twin of ops/flash_attention.py and ops/decode_attention.py
+    and F.scaled_dot_product_attention raise while inside: a wrapper that
+    ran one instead of its kernel fails."""
+    import torch.nn.functional as F
+
+    from midi_emotion_tpu_torch.ops import decode_attention as da
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise AssertionError(f"{name} ran on the card")
+        return call
+
+    patched = [(mod, name) for mod in (fa, da) for name in dir(mod) if name.endswith("_plain")]
+    patched.append((F, "scaled_dot_product_attention"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
+    for mod, name in patched:
+        setattr(mod, name, refuse(name))
     try:
-        fn()
-    except ValueError as exc:
-        if match not in str(exc):
-            fail(f"{what}: ValueError without {match!r}: {exc}")
-        return str(exc)
-    fail(f"{what}: no ValueError")
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
-def check_head_limits(torch):
-    """Past d_head 256 kernels 1, 4 and 13 raise a ValueError naming it;
-    past 128 kernels 5-9 do under MIDI_EMOTION_BWD=split and fused (each
-    wrapper, and the backward before any launch), naming the variables,
-    while kernels 1 and 4 take 144 (at 192)."""
+def check_no_fallback(torch):
+    """At the widths that were the kernels' limits, each wrapper launches
+    its kernel and nothing else: d_head 272 (padded to 384) on kernels 1,
+    4 and 13, 144 (padded to 192) on kernels 5-9 under split, fused/column
+    and fused/dist, bf16, with every plain twin and SDPA refusing to run
+    (``no_fallback``); each counter grows by its launches, and the outputs
+    match the twins at phase 3's bf16 tolerances."""
     from midi_emotion_tpu_torch.ops import decode_attention as da
     from midi_emotion_tpu_torch.ops import flash_attention as fa
 
     bf16 = torch.bfloat16
     q, k, v, e, pad = _flash_inputs(torch, 2, 2, 64, 272, bf16)
-    lse = torch.zeros((2, 2, 64), device="cuda")
-    seen = [_raises_d_head(lambda: fa.flash_rel_attention(q, k, v, e, True, pad),
-                           "kernel 1 at d_head 272", "got 272"),
-            _raises_d_head(lambda: fa.flash_rel_attention_bwd(q, k, v, e, True, pad, q, lse, q),
-                           "kernel 4 at d_head 272", "got 272")]
-    kv, sc, _, e48, _, _, _ = _decode_cache(torch, True, SEED, dict(L=1, B=2, W=128, H=2, dh=48,
-                                                                    S=8))
-    seen.append(_raises_d_head(
-        lambda: da.decode_attn_cached(torch.randn((2, 2, 272), device="cuda"), kv, sc, 0,
-                                      da.expand_e_rows(e48, 11, 128), 10),
-        "kernel 13 at d_head 272", "got 272"))
-    q, k, v, e, pad = _flash_inputs(torch, 2, 2, 64, 144, bf16)
-    o, lse = fa.flash_rel_attention(q, k, v, e, True, pad)  # kernel 1 at 192
-    fa.flash_rel_attention_bwd(q, k, v, e, True, pad, o, lse, o)  # kernel 4 at 192
-    dsum = torch.zeros_like(lse)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    do = (torch.randn(q.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(bf16)
+    kv, sc, q13, e13, _, _, vmax = _decode_cache(torch, True, SEED, dict(L=2, B=2, W=256, H=2,
+                                                                         dh=272, S=8))
+    e_rows = da.expand_e_rows(e13, 101, 256, dh_to=da.cache_dh(272))
+    q2, k2, v2, e2, _ = _flash_inputs(torch, 2, 2, 64, 144, bf16)
+    o2, lse2 = fa.flash_rel_attention(q2, k2, v2, e2, True, pad)
+    do2 = (torch.randn(q2.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(bf16)
     torch.cuda.synchronize()
-    before = read_counts()
-    for impl, dqde in DECOMPOSITIONS:
-        with bwd_decomposition(impl, dqde):
-            seen.append(_raises_d_head(
-                lambda: fa.flash_rel_attention_bwd(q, k, v, e, True, pad, o, lse, o),
-                f"MIDI_EMOTION_BWD={impl} DQDE={dqde} backward at d_head 144",
-                f"MIDI_EMOTION_BWD={impl}"))
-            for kernel in DECOMPOSITIONS[impl, dqde]:
-                wrapper = getattr(fa, BWD_KERNELS[kernel][0])
-                seen.append(_raises_d_head(
-                    lambda: wrapper(q, k, v, e, True, pad, lse, dsum, o),
-                    f"{kernel} at d_head 144", "d_head <= 128, got 144"))
-    if read_counts() != before:
-        fail(f"a refused d_head launched a kernel: {before} -> {read_counts()}")
-    print(f"d_head limits: kernels 1, 4 and 13 refuse 272, kernels 5-9 refuse 144 "
-          f"({len(seen)} ValueErrors, no launch), e.g. {seen[0]!r}; {seen[-1]!r}")
+    reset_counts()
+    with no_fallback(torch):
+        o, lse = fa.flash_rel_attention(q, k, v, e, True, pad)
+        grads = fa.flash_rel_attention_bwd(q, k, v, e, True, pad, o, lse, do)
+        acc, m, l = da.decode_attn_cached(q13, kv, sc, 1, e_rows, 100)
+        split = {}
+        for impl, dqde in DECOMPOSITIONS:
+            with bwd_decomposition(impl, dqde):
+                split[impl, dqde] = fa.flash_rel_attention_bwd(q2, k2, v2, e2, True, pad, o2,
+                                                               lse2, do2)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    want = {"flash_rel_attn_fwd": 1, "flash_rel_attn_bwd": 1, "decode_attn_stacked": 1,
+            "flash_rel_attn_bwd_dkdv_dq": 1, "flash_rel_attn_bwd_de_dqrel": 1,
+            "flash_rel_attn_bwd_dq_de": 1, "flash_rel_attn_bwd_dq_de_dist": 1,
+            "flash_rel_attn_bwd_dkdv": 2}
+    if any(counts[name] != n for name, n in want.items()):
+        fail(f"the wide wrappers' launches {counts} are not {want}")
+    ro, rlse = fa.flash_rel_attention_plain(q, k, v, e, True, pad)
+    errs = [_rel_err(o, ro)[0] / (1 + ro.float().abs().max().item()),
+            (lse - rlse).abs().max().item()]
+    rgrads = fa.flash_rel_attention_bwd_plain(q, k, v, e, True, pad, o, lse, do)
+    errs += [_rel_err(a, b)[0] / (1 + b.float().abs().max().item()) for a, b in zip(grads, rgrads)]
+    r2 = fa.flash_rel_attention_bwd_plain(q2, k2, v2, e2, True, pad, o2, lse2, do2)
+    for got in split.values():
+        errs += [_rel_err(a, b)[0] / (1 + b.float().abs().max().item()) for a, b in zip(got, r2)]
+    racc, _, rl = da.decode_attn_cached_plain(q13, kv, sc, 1, e_rows, 100)
+    err13 = (acc.view(2, 2, 272) / l[..., None] - racc.view(2, 2, 272) / rl[..., None]).abs()
+    if not (max(errs[:1] + errs[2:]) <= 2e-2 and errs[1] <= 1e-3
+            and err13.max().item() <= vmax / 127):
+        fail(f"a wide kernel disagrees with its twin past the old limits: {errs}, kernel 13 "
+             f"{err13.max().item():.3e}")
+    print(f"no fallback: kernels 1, 4 and 13 at d_head 272 and kernels 5-9 at 144 under split, "
+          f"fused/column and fused/dist launched {counts} with every plain twin and SDPA "
+          f"refusing to run; worst relative error {max(errs):.3e}, kernel 13 "
+          f"{err13.max().item():.3e}")
+
+
+def streamed_flagship_kernels(torch, card):
+    """Kernels 1, 4, 5-9 and 13 timed past their built widths at the
+    flagship's width with 2 heads of 384 and 1 of 768, beside their plain
+    twins, SDPA where one call computes the same function and the bound:
+    the flash kernels at the train step's B 8, T 1216, kernel 13 staged at
+    L 20, B 64, W 1408. Returns {kernel: {"dh384": numbers, "dh768": ...}}."""
+    bf16 = torch.bfloat16
+    out = {}
+    for H, dh in ((2, 384), (1, 768)):
+        key, shape = f"dh{dh}", {"B": TRAIN_B, "H": H, "T": TRAIN_T, "dh": dh}
+        row = {"flash_rel_attn_fwd": check_flash(torch, TRAIN_B, H, TRAIN_T, dh, bf16, True, 2e-2,
+                                                 1e-3, timed=True, rel=True)}
+        torch.cuda.empty_cache()
+        row["flash_rel_attn_bwd"] = check_flash_bwd(torch, TRAIN_B, H, TRAIN_T, dh, bf16, True,
+                                                    2e-2, timed=True)
+        for kernel in BWD_KERNELS:
+            torch.cuda.empty_cache()
+            row[kernel] = check_bwd_kernel(torch, kernel, TRAIN_B, H, TRAIN_T, dh, bf16, True,
+                                           2e-2, timed=True)
+        for m in row.values():
+            m["shape"] = shape
+        torch.cuda.empty_cache()
+        dshape = dict(L=20, B=64, W=1408, H=H, dh=dh, S=8)
+        lengths = (0, 1, 129, 700, 1216, 1400)
+        int8 = check_decode(torch, True, timed=True, shape=dshape, lengths=lengths)
+        int8["bf16"] = check_decode(torch, False, timed=True, shape=dshape, lengths=lengths)
+        int8["shape"] = {k: dshape[k] for k in ("L", "B", "W", "H", "dh")}
+        row["decode_attn_stacked"] = int8
+        torch.cuda.empty_cache()
+        for name, m in row.items():
+            out.setdefault(name, {})[key] = m
+        print(f"streamed heads (d_model 768, {H} heads of {dh}), device ms on {card}: "
+              + "; ".join(f"{name} {m['ms']:.4f} (plain {m['plain_ms']:.4f}, library "
+                          f"{m['library_ms'] if m['library_ms'] is None else round(m['library_ms'], 4)}"
+                          f", bound {m['bound_ms']:.4f})" for name, m in row.items()))
+    return out
 
 
 def wide_flagship_kernels(torch, card):
@@ -1870,6 +1966,95 @@ def wide_heads_phase(torch, tmp, vocab, train_args, card):
     print(f"phase 5d (d_head past 128): {time.perf_counter() - t_phase:.1f} s; wide train "
           f"tokens/sec {tps:.1f}, {dev_ms:.2f} device ms/step; sampled tokens/sec native "
           f"{rates['native']:.1f}, int8 {rates['int8']:.1f}, bf16 {rates['bf16']:.1f} on {card}")
+
+    # past d_head 256, on the wide kernels: 2 heads of 384 at full depth
+    t_phase = time.perf_counter()
+    runner = train("d_model 768, 2 heads of 384", "wide384", ["--n_head", "2"], 2)
+    n_params = sum(p.numel() for p in runner.model.parameters())
+    if runner.model.config.n_head != 2 or n_params != 158841071:
+        fail(f"the --n_head 2 run built {runner.model.config.n_head} heads, {n_params} parameters "
+             f"(want 2 and 158841071)")
+    tps384, secs384, per_step, losses, dev_ms384 = timed_training(torch, runner)
+    print(f"wide train (20 layers, d_model 768, 2 heads of 384, {n_params} parameters): "
+          f"{tps384:.1f} tokens/sec ({secs384 * 1e3:.2f} ms/step over 5 steps after 2 warm-up), "
+          f"{dev_ms384:.2f} device ms/step (profiled), losses {losses}, kernel launches per step "
+          f"{per_step} on {card}")
+    if per_step["flash_rel_attn_fwd"] <= 0 or per_step["flash_rel_attn_bwd"] <= 0:
+        fail("the d_head-384 train steps did not launch kernels 1 and 4")
+    work = runner.args.work_dir
+    del runner
+    torch.cuda.empty_cache()
+    model = load_model_dir(work, torch.bfloat16, "cuda")[1]
+    rates384 = {}
+    for kv_dtype in ("native", "int8", "bf16"):
+        def serve384():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            song = Sampler(model, vocab, sp, kv_dtype=kv_dtype).generate(
+                primer, continuous_conditions=cond)
+            torch.cuda.synchronize()
+            return song, time.perf_counter() - t0
+
+        c, (song, secs) = run_path(
+            f"generation (2 heads of 384, {kv_dtype} cache, B {B})",
+            serve_kernels + (() if kv_dtype == "native" else ("decode_attn_stacked",)), serve384)
+        counts.append(c)
+        if song.shape != (B, prompt + new) or vocab.special_mask()[song[:, prompt:]].any():
+            fail(f"d_head-384 model, {kv_dtype} cache: bad sampled ids {song.shape}")
+        rates384[kv_dtype] = B * new / secs
+        print(f"wide serve, 2 heads of 384 ({kv_dtype} cache): {rates384[kv_dtype]:.1f} sampled "
+              f"tokens/sec (B {B}, {prompt}-token prompt, {new} new, window 1216, bf16, "
+              f"{secs:.2f} s) on {card}")
+    del model
+    torch.cuda.empty_cache()
+
+    # one head of 768, 4 layers: trained, then served from the int8 and bf16 caches
+    runner = train("4 layers, 1 head of 768", "wide768", ["--n_head", "1", "--n_layer", "4"], 3)
+    model = load_model_dir(runner.args.work_dir, torch.bfloat16, "cuda")[1]
+    del runner
+    for kv_dtype in ("int8", "bf16"):
+        def serve768():
+            return Sampler(model, vocab, sp4, kv_dtype=kv_dtype).generate(
+                np.full((4, 1), vocab.start_id, np.int32), continuous_conditions=cond[:4])
+
+        c, song = run_path(f"generation (1 head of 768, {kv_dtype} cache)",
+                           serve_kernels + ("decode_attn_stacked",), serve768)
+        counts.append(c)
+        if song.shape != (4, 300) or vocab.special_mask()[song[:, 1:]].any():
+            fail(f"d_head 768 model, {kv_dtype} cache: bad sampled ids {song.shape}")
+    print("d_head 768 model: sampled 4 x 300 valid ids through the int8 and bf16 caches")
+    del model
+    torch.cuda.empty_cache()
+
+    # kernels 5-9 on their wide form: a train step under each other
+    # decomposition at 3 heads of 256 and 1 of 768 (4 layers)
+    for heads in ("3", "1"):
+        for impl, dqde in DECOMPOSITIONS:
+            def run_decomposition():
+                with bwd_decomposition(impl, dqde):
+                    return train_cli.main(train_args + [
+                        "--n_head", heads, "--n_layer", "4", "--max_step", "1", "--log_step", "1",
+                        "--work_dir", os.path.join(tmp, f"wide_{heads}_{impl}_{dqde}")])
+            c, runner = run_path(
+                f"train (4 layers, --n_head {heads}, MIDI_EMOTION_BWD={impl} DQDE={dqde})",
+                ("flash_rel_attn_fwd", *DECOMPOSITIONS[impl, dqde]), run_decomposition,
+                absent=("flash_rel_attn_bwd",))
+            counts.append(c)
+            d_losses = train_losses(runner.args.work_dir)
+            if runner.train_step_num != 1 or len(d_losses) != 1 or not np.isfinite(d_losses[0]):
+                fail(f"--n_head {heads} {impl}/{dqde}: the step did not run to a finite loss")
+            del runner
+            torch.cuda.empty_cache()
+        print(f"--n_head {heads} (d_head {768 // int(heads)}): one train step under each of "
+              f"split, fused/column and fused/dist")
+    train("4 layers, 1 head of 768, f32, B 2", "wide768_f32", ["--n_head", "1", "--n_layer", "4",
+                                                               "--dtype", "f32", "--batch_size",
+                                                               "2"], 2)
+    torch.cuda.empty_cache()
+    print(f"phase 5d past d_head 256: {time.perf_counter() - t_phase:.1f} s; 2 heads of 384: "
+          f"train tokens/sec {tps384:.1f}, {dev_ms384:.2f} device ms/step; sampled tokens/sec "
+          f"native {rates384['native']:.1f}, int8 {rates384['int8']:.1f}, bf16 "
+          f"{rates384['bf16']:.1f} on {card}")
     return counts
 
 
@@ -2154,8 +2339,9 @@ def main():
         print_ptxas(library_path(name), name)
     tc_kernels = {}
     for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "flash_rel_attn_bwd_kv",
-                 "flash_rel_attn_bwd_q"):
-        # the tensor-core kernels (kernels 1 and 4-9 in bf16) run mma instructions
+                 "flash_rel_attn_bwd_q", "flash_rel_attn_wide"):
+        # the tensor-core kernels (kernels 1 and 4-9 in bf16, their wide
+        # forms too) run mma instructions
         tc_kernels.update({k: n for k, n in print_sass_mma(library_path(name), name).items()
                            if "_tc_" in k})
     idle = [k for k, n in tc_kernels.items() if n["HMMA"] + n["HGMMA"] == 0]
@@ -2170,10 +2356,11 @@ def main():
     if no_wgmma:
         fail(f"kernel 1 or 4 instantiations without a wgmma (HGMMA) instruction: {no_wgmma}")
     # kernel 7 (the key-major sweep with dQ), kernel 9 (without) and kernel
-    # 8 (REL) among them
+    # 8 (REL) among them, and the wide forms' four sweeps
     for want in ("flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV/dQ_qk>",
                  "flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV>",
-                 "flash_bwd_q_tc_kernel <bf16, dh=48, rel>"):
+                 "flash_bwd_q_tc_kernel <bf16, dh=48, rel>", "wide_fwd_tc_kernel",
+                 "wide_dq_tc_kernel", "wide_dkdv_tc_kernel", "wide_de_tc_kernel"):
         if want not in tc_kernels:
             fail(f"no tensor-core kernel {want} in the SASS")
 
@@ -2230,7 +2417,25 @@ def main():
     check_flash(torch, 2, 2, 200, 256, torch.bfloat16, False, 2e-2, 1e-3, rel=True)
     check_flash_bwd(torch, 2, 2, 200, 256, torch.bfloat16, False, 2e-2)
     wide = wide_flagship_kernels(torch, card)
-    check_head_limits(torch)
+    # past the built widths, on the wide kernels: kernels 1 and 4 at 320
+    # (padded to 384), 384 and 768, kernels 5-9 at 192, 256 and 384, kernel
+    # 13 at 320, 384 and 768, f32 and bf16 at small B, the tolerances above
+    for dh in STREAMED_DHS:
+        for dtype, tol_o, tol_lse in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 1e-3)):
+            check_flash(torch, 2, 2, 333, dh, dtype, True, tol_o, tol_lse, rel=True)
+            check_flash_bwd(torch, 2, 2, 333, dh, dtype, True, tol_o)
+        for quant in (True, False):
+            check_decode(torch, quant, shape=dict(L=2, B=4, W=256, H=2 if dh < 768 else 1, dh=dh,
+                                                  S=8), lengths=(0, 1, 127, 128, 129, 200, 248))
+    check_flash(torch, 2, 2, 200, 384, torch.bfloat16, False, 2e-2, 1e-3, rel=True)
+    check_flash_bwd(torch, 2, 2, 200, 384, torch.float32, False, 1e-4)
+    for kernel in BWD_KERNELS:
+        for dh in DECOMPOSITION_WIDE_DHS:
+            check_bwd_kernel(torch, kernel, 2, 2, 333, dh, torch.float32, True, 1e-4)
+            check_bwd_kernel(torch, kernel, 2, 2, 333, dh, torch.bfloat16, True, 2e-2)
+        check_bwd_kernel(torch, kernel, 2, 2, 200, 256, torch.float32, False, 1e-4)
+    streamed = streamed_flagship_kernels(torch, card)
+    check_no_fallback(torch)
     bwd_kernels = {}
     for kernel in BWD_KERNELS:  # the other decompositions' kernels, same tolerances
         check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48, torch.float32, True, 1e-4)
@@ -2496,7 +2701,9 @@ def main():
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
             library_ms=m["library_ms"],
             **{key: m[key] for key in ("train_shape", "launch_ms") if key in m},
-            **({"wide_heads": wide[name]} if name in wide else {})))
+            **({"wide_heads": wide[name]} if name in wide else {}),
+            **({"wide_source": f"midi_emotion_tpu_torch/csrc/{WIDE_SOURCES[name]}",
+                "streamed_heads": streamed[name]} if name in streamed else {})))
     print(f"total {time.perf_counter() - t_start:.1f} s; train tokens/sec {tps:.1f}; headline "
           f"sampled tokens/sec native {headline['native']:.1f}, int8 {headline['int8']:.1f}, "
           f"bf16 {headline['bf16']:.1f} on {card}")

@@ -57,9 +57,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-# csrc/<name>.cu; the flash kernels 1 and 4 include csrc/hopper_sm90.cuh
+# csrc/<name>.cu; the flash kernels 1 and 4 include csrc/hopper_sm90.cuh; the
+# two wide sources hold kernels 1, 4-9 and 13 past their built head widths
 CUDA_SOURCES = ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "flash_rel_attn_bwd_kv",
-                "flash_rel_attn_bwd_q", "decode_attn_stacked")
+                "flash_rel_attn_bwd_q", "decode_attn_stacked", "flash_rel_attn_wide",
+                "decode_attn_wide")
 
 
 def _start_build(name: str):

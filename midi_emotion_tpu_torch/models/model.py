@@ -16,7 +16,8 @@ Besides ``forward`` the model has two KV caches for the sampler:
     / ``decode_step_staged`` over ``{"kv": [L, B, W, 2D] int8 or bf16, "sc":
     [L, B, 2H, W] bf16 (int8 only), "length": int}``, K|V merged, with D =
     H * cache_dh(d_head): d_model itself for a d_head the decode kernel is
-    built for, else each head zero-padded to the next built width. It stays
+    built for, else each head zero-padded to the next built width (past
+    256, the next multiple of 128). It stays
     int8/bf16 whatever the compute type, as in the JAX package. The staged
     step leaves the cache alone and appends its rows into a step-major stage
     ``[S, L, B, 2D]`` bf16 that the sampler flushes every S steps

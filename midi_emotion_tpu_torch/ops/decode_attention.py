@@ -6,7 +6,8 @@ stacked over layers with K|V merged: ``kv [L, B, W, 2D]`` int8 (with
 ``sc [L, B, 2H, W]`` bf16 per-(row, head) scales) or bf16 (no scales).
 The cache is laid out at ``dh_k = cache_dh(dh)``, the least of the
 kernel's built widths (``flash_attention.KERNEL_DHS``: 16, 32, 48, 64, 96,
-128, 192, 256) that holds d_head, and ``D = H * dh_k``: head h of a row holds its
+128, 192, 256) that holds d_head, past 256 the least multiple of 128
+(``flash_attention.padded_dh``), and ``D = H * dh_k``: head h of a row holds its
 key at columns ``[h*dh_k, h*dh_k + dh)`` and its value at ``[D + h*dh_k,
 D + h*dh_k + dh)``; the other columns are zero. For a built d_head (the flagship's 48) dh_k = dh and nothing is
 padded. Zero columns change no score, and no int8 row scale (max|x| over a
@@ -65,7 +66,12 @@ Source note for the kernel (``csrc/decode_attn_stacked.cu``):
     heads dividing H within 1024 channels), the grid's third index runs over
     the groups, and a model with d_model above 1024 runs as independent head
     groups. The TPU kernel's (bb, bw) grid and its host-built layouts were
-    Mosaic's needs and are not carried over.
+    Mosaic's needs and are not carried over;
+  * past d_head 256 (its tensor map's box and its k-step masks stop there)
+    the wrapper launches ``csrc/decode_attn_wide.cu`` instead, the same
+    function for the same TPU kernel: a block per (head, batch row) walking
+    the window blocks in order, q and the f32 accumulator in shared memory
+    at d_head floats, scores and PV on the CUDA cores (int8 in integers).
 """
 
 from __future__ import annotations
@@ -79,7 +85,9 @@ import torch
 import torch.nn.functional as F
 
 # The head width the stacked cache is laid out at for heads of dh columns:
-# the decode kernel is built for the flash kernels' widths, KERNEL_DHS
+# the decode kernel is built for the flash kernels' widths, KERNEL_DHS, and
+# its wide form takes multiples of 128 past them
+from .flash_attention import KERNEL_DHS
 from .flash_attention import padded_dh as cache_dh
 
 NEG = -1e30
@@ -260,16 +268,20 @@ _N_INTS = 12      # L, B, W, H, dh, layer, length, S, p_cnt, bw, quant, q_bf16; 
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _library(name: str = "decode_attn_stacked") -> ctypes.CDLL:
+    """``csrc/<name>.cu`` (decode_attn_stacked, or decode_attn_wide past
+    d_head 256), built and loaded at first use; both export ``<name>`` with
+    one signature."""
     from ..kernels.build import cuda_library
 
-    lib = cuda_library("decode_attn_stacked")
-    fn = lib.decode_attn_stacked
+    lib = cuda_library(name)
+    fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * _N_POINTERS + [ctypes.c_int] * _N_INTS
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.decode_attn_stacked_error_string.argtypes = [ctypes.c_int]
-    lib.decode_attn_stacked_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
@@ -291,7 +303,7 @@ def _check(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t) -> N
     if q_t.dim() != 3:
         raise ValueError(f"q_t must be [B, H, dh], got {tuple(q_t.shape)}")
     B, H, dh_q = q_t.shape
-    dh = cache_dh(dh_q)  # d_head <= 256, or a ValueError
+    dh = cache_dh(dh_q)
     if kv8.dim() == 4 and kv8.shape[-1] != 2 * H * dh:
         raise ValueError(f"a cache row of {kv8.shape[-1]} columns does not hold {H} heads of "
                          f"d_head {dh_q}, laid out at {dh}: it must have {2 * H * dh}")
@@ -336,15 +348,16 @@ def _kernel(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t):
         out = None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     S = pend.shape[0] if staged else 0
-    lib = _library()
-    rc = lib.decode_attn_stacked(
+    name = "decode_attn_wide" if dh > KERNEL_DHS[-1] else "decode_attn_stacked"
+    lib = _library(name)
+    rc = getattr(lib, name)(
         q.data_ptr(), kv8.data_ptr(), ptr(sc), e_rows.data_ptr(), ptr(pend), ptr(e_pend),
         ptr(row_t), ptr(acc), ptr(m), ptr(l), ptr(out), L, B, W, H, dh, int(layer), int(length),
         S, int(p_cnt or 0), window_block(W), int(quant), int(q.dtype == torch.bfloat16),
         1.0 / math.sqrt(dh_q), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        msg = lib.decode_attn_stacked_error_string(rc).decode()
-        raise RuntimeError(f"decode_attn_stacked launch failed: CUDA error {rc} ({msg})")
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     decode_attn_cached.launches += 1
     if dh != dh_q:  # the outputs cut back to d_head
         acc, out = (t if t is None else t.view(B, H, dh)[..., :dh_q].reshape(B, H * dh_q)
@@ -359,7 +372,7 @@ def _kernel(q_t, kv8, sc, layer, e_rows, length, pend, e_pend, p_cnt, row_t):
 
 
 def decode_attn_cached(
-    q_t: torch.Tensor,       # [B, H, dh], any d_head up to 256
+    q_t: torch.Tensor,       # [B, H, dh], any d_head
     kv8: torch.Tensor,       # [L, B, W, 2D] int8 (or bf16) stacked cache, D = H * cache_dh(dh)
     sc: Optional[torch.Tensor],  # [L, B, 2H, W] bf16 scales, or None (bf16 cache)
     layer: int,

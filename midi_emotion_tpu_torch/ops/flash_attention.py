@@ -40,20 +40,22 @@ package (``pallas_attention.py:1733-1735``), is a small kernel of
 ``csrc/flash_rel_attn_bwd.cu`` on a CUDA tensor, so every decomposition's
 backward runs only the port's own kernels.
 
-Head shapes: the forward and the merged backward (kernels 1 and 4) are
-built for d_head in ``KERNEL_DHS`` (16, 32, 48, 64, 96, 128, 192, 256), the
-other decompositions' kernels (5-9) for ``DECOMPOSITION_DHS`` (up to 128),
-in f32 and bf16, any T <= max_seq. The wrappers take any d_head up to
-their widest: another one is padded with zero columns up to the next entry
-(``pad_heads``; 40 -> 48, 80 -> 96, 160 -> 192), which add nothing to any
+Head shapes: every wrapper takes any d_head, as the JAX package's kernels
+do. The forward and the merged backward (kernels 1 and 4) are built for
+d_head in ``KERNEL_DHS`` (16, 32, 48, 64, 96, 128, 192, 256), the other
+decompositions' kernels (5-9) for ``DECOMPOSITION_DHS`` (up to 128), in f32
+and bf16, any T <= max_seq. Another d_head is padded with zero columns up to
+``padded_dh`` (``pad_heads``; 40 -> 48, 80 -> 96, 160 -> 192, and past 256
+the next multiple of ``WIDE_PART``: 320 -> 384), which add nothing to any
 product, the kernel is given c = 1/sqrt(true d_head), and the outputs are
-cut back. A wider d_head raises a ValueError that names it: above 256
-every kernel (``padded_dh``), above 128 kernels 5-9, naming the
-``MIDI_EMOTION_BWD`` and ``MIDI_EMOTION_DQDE`` that chose them
-(``decomposition_dh``). Kernels 1 and 4 compute d_head 192 and 256 in two
-column halves, a block each (the products over d_head done in both).
-bf16 operands must be 16-byte aligned (the kernels copy 16-byte units);
-fresh and contiguous tensors are.
+cut back. Past its built widths (above 256 for kernels 1 and 4, above 128
+for kernels 5-9) a wrapper launches the same kernel's wide form,
+``csrc/flash_rel_attn_wide.cu``, which never holds d_head whole: its score
+side streams d_head through shared memory in chunks and each block
+computes the outputs' columns of one 128-column part. Kernels 1 and
+4 compute d_head 192 and 256 in two column halves, a block each (the
+products over d_head done in both). bf16 operands must be 16-byte aligned
+(the kernels copy 16-byte units); fresh and contiguous tensors are.
 
 Source note for the forward kernel (``csrc/flash_rel_attn_fwd.cu``):
   * replaces ``pallas_attention.py::_flash_kernel`` (launched by
@@ -116,6 +118,18 @@ Source note for the merged backward kernel (``csrc/flash_rel_attn_bwd.cu``):
     (``scripts/torch_flash_bench.py``, same card);
   * f32, the checks' path: CUDA-core f32 FMAs fed from shared memory.
 
+Source note for the wide kernels (``csrc/flash_rel_attn_wide.cu``, kernels
+1 and 4 past d_head 256, 5-9 past 128; details in the source): each
+replaces the TPU kernel its narrow counterpart replaces; bound by
+operations; 64 x 64 score tiles, the score side streamed through shared
+memory in d_head chunks and recomputed for each 128-column output part and
+each sweep: query-major by key column (the forward, dQ), query-major by
+distance (dQ's relative term for 6 and 8), key-major (dK, dV) and
+distance-major (dE partials per (b, h), summed in order by a reduction).
+One owner per output element: deterministic, no atomics. bf16 on the
+tensor cores (``mma.sync``, f32 sums, P and dS' rounded to bf16 for the
+output products), f32 (the checks' path) on the CUDA cores.
+
 Source note for the other decompositions' kernels (details in their
 sources): in f32 (the checks' path) on the CUDA cores and bound by f32 FMAs
 fed from shared memory; every bf16 path on the tensor cores (below):
@@ -170,6 +184,7 @@ from .attention import rel_position_bias, relative_attention
 
 KERNEL_DHS = (16, 32, 48, 64, 96, 128, 192, 256)  # kernels 1, 4 and the decode kernel 13
 DECOMPOSITION_DHS = KERNEL_DHS[:6]  # kernels 5-9, up to 128
+WIDE_PART = 128  # past KERNEL_DHS, heads are padded to a multiple of this
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # variable -> (default, allowed values), as pallas_attention.py:187-190
@@ -216,35 +231,15 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
 
 def padded_dh(dh: int) -> int:
     """The d_head a kernel runs heads of ``dh`` columns at: the least entry
-    of ``KERNEL_DHS`` that is >= dh. Raises a ValueError naming d_head
-    above 256."""
+    of ``KERNEL_DHS`` that is >= dh, or past 256 the least multiple of
+    ``WIDE_PART`` (384 for 320, 768, 1024). Any d_head >= 1: no width is
+    refused."""
+    if dh < 1:
+        raise ValueError(f"d_head must be at least 1, got {dh}")
     for dh_k in KERNEL_DHS:
         if dh_k >= dh:
             return dh_k
-    raise ValueError(f"the attention kernels take d_head <= {KERNEL_DHS[-1]}, got {dh}")
-
-
-# kernels 5-9: wrapper -> the variables' values that choose it
-CHOSEN_BY = {
-    "bwd_dq_de": "MIDI_EMOTION_BWD=fused MIDI_EMOTION_DQDE=column",
-    "bwd_dq_de_dist": "MIDI_EMOTION_BWD=fused MIDI_EMOTION_DQDE=dist",
-    "bwd_dkdv": "MIDI_EMOTION_BWD=fused",
-    "bwd_dkdv_dq": "MIDI_EMOTION_BWD=split",
-    "bwd_de_dqrel": "MIDI_EMOTION_BWD=split",
-}
-
-
-def decomposition_dh(dh: int, wrapper: str) -> int:
-    """``padded_dh`` for ``wrapper``, one of kernels 5-9 (``CHOSEN_BY``): a
-    ValueError naming d_head and the variables that chose the kernel above
-    128, where only the merged kernel (4) is built."""
-    dh_k = padded_dh(dh)
-    if dh_k > DECOMPOSITION_DHS[-1]:
-        raise ValueError(
-            f"{wrapper} (chosen by {CHOSEN_BY[wrapper]}) takes d_head <= "
-            f"{DECOMPOSITION_DHS[-1]}, got {dh}; MIDI_EMOTION_BWD=merged takes d_head up to "
-            f"{KERNEL_DHS[-1]}")
-    return dh_k
+    return -(-dh // WIDE_PART) * WIDE_PART
 
 
 def pad_heads(dh_to: int, *tensors: Optional[torch.Tensor]):
@@ -415,6 +410,8 @@ _C_FUNCTIONS = {
     "flash_rel_attn_bwd_dq_de": ("flash_rel_attn_bwd_q", 11),
     "flash_rel_attn_bwd_dq_de_dist": ("flash_rel_attn_bwd_q", 11),
     "flash_rel_attn_bwd_de_dqrel": ("flash_rel_attn_bwd_q", 11),
+    "flash_rel_attn_wide_fwd": ("flash_rel_attn_wide", 7),
+    "flash_rel_attn_wide_bwd": ("flash_rel_attn_wide", 13),
 }
 
 
@@ -432,6 +429,8 @@ def _function(name: str):
         args = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7 + [ctypes.c_float]
         if name == "flash_rel_attn_bwd_dkdv":
             args.append(ctypes.c_int)  # blocks a (b, h) of the bf16 kernel
+        if name == "flash_rel_attn_wide_bwd":
+            args.append(ctypes.c_int)  # which kernel: 4-9
     lib = cuda_library(lib_name)
     fn = getattr(lib, name)
     fn.argtypes = args + [ctypes.c_void_p]
@@ -452,7 +451,6 @@ def _check(q, k, v, e, pad_keys):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be [B, H, T, dh] alike: {q.shape}, {k.shape}, {v.shape}")
     B, H, T, dh = q.shape
-    padded_dh(dh)  # d_head <= 256, or a ValueError
     if e.dim() != 2 or e.shape[1] != dh or T > e.shape[0]:
         raise ValueError(f"e must be [max_seq >= T, dh]: e {tuple(e.shape)}, T {T}")
     if pad_keys is not None:
@@ -503,7 +501,6 @@ def _cut(dh, *tensors):
 
 
 def _fwd(q, k, v, e, causal, pad_keys):
-    padded_dh(q.shape[-1])  # the card's d_head limit on either device
     if q.device.type == "cpu":
         return flash_rel_attention_plain(q, k, v, e, causal, pad_keys)
     _check(q, k, v, e, pad_keys)
@@ -512,7 +509,7 @@ def _fwd(q, k, v, e, causal, pad_keys):
     q, k, v, e = pad_heads(dh_k, q, k, v, e)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    _launch("flash_rel_attn_fwd",
+    _launch("flash_rel_attn_wide_fwd" if dh_k > KERNEL_DHS[-1] else "flash_rel_attn_fwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
             o.data_ptr(), lse.data_ptr(),
             B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
@@ -521,13 +518,31 @@ def _fwd(q, k, v, e, causal, pad_keys):
     return _cut(dh, o)[0], lse
 
 
-def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch, extra=()):
+def _launch_wide_bwd(kernel, q, k, v, e, causal, pad_keys, lse, dsum, do, outs, scale):
+    """Launch ``csrc/flash_rel_attn_wide.cu``'s backward for ``kernel`` (4-9)
+    on heads already padded: ``outs`` maps "dq", "dk", "dv", "de" to the
+    outputs that kernel writes; an f32 dE partial [B*H, T, dh] per (b, h)
+    is allocated where it writes dE."""
+    B, H, T, dh_k = q.shape
+    de_part = (torch.empty((B * H, T, dh_k), dtype=torch.float32, device=q.device)
+               if "de" in outs else None)
+    _launch("flash_rel_attn_wide_bwd",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            *(_ptr(outs.get(n)) for n in ("dq", "dk", "dv", "de")), _ptr(de_part),
+            B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], scale, kernel,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch_bwd(name, kernel, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch,
+                extra=()):
     """Check, allocate and launch one backward kernel of the other
-    decompositions, at the padded d_head: outputs shaped like the inputs
-    named in ``like``, then the f32 scratch ``scratch`` names: dQ partials
-    [2, B, H, T, dh] ("dq") or dE partials [2*B*H, T, dh] ("de"), up to two
-    a (b, h), or none; ``extra`` ints follow the scale. The outputs come
-    back cut to d_head."""
+    decompositions (``kernel``: 5-9), at the padded d_head: outputs shaped
+    like the inputs named in ``like``, then the f32 scratch ``scratch``
+    names: dQ partials [2, B, H, T, dh] ("dq") or dE partials [2*B*H, T, dh]
+    ("de"), up to two a (b, h), or none; ``extra`` ints follow the scale.
+    Past ``DECOMPOSITION_DHS`` the kernel's wide form runs instead. The
+    outputs come back cut to d_head."""
     _check(q, k, v, e, pad_keys)
     _check_saved(q, {"do": do}, {"lse": lse, "dsum": dsum})
     B, H, T, dh = q.shape
@@ -535,6 +550,10 @@ def _launch_bwd(name, q, k, v, e, causal, pad_keys, lse, dsum, do, like, scratch
     q, k, v, e, do = pad_heads(dh_k, q, k, v, e, do)
     inputs = {"q": q, "k": k, "v": v, "e": e}
     outs = [torch.empty_like(inputs[n]) for n in like]
+    if dh_k > DECOMPOSITION_DHS[-1]:
+        _launch_wide_bwd(kernel, q, k, v, e, causal, pad_keys, lse, dsum, do,
+                         {"d" + n: t for n, t in zip(like, outs)}, 1.0 / math.sqrt(dh))
+        return _cut(dh, *outs)
     shapes = {"dq": (2, B, H, T, dh_k), "de": (2 * B * H, T, dh_k)}
     scr = [] if scratch is None else [
         torch.empty(shapes[scratch], dtype=torch.float32, device=q.device)]
@@ -572,14 +591,13 @@ def bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do, split=None):
     ``_bwd_dkdv_kernel`` (``MIDI_EMOTION_BWD=fused``). In bf16 ``split``
     blocks share a (b, h), block s taking key tiles s, s + split, ...;
     None, one block per (b, h, key tile). The f32 kernel ignores it."""
-    decomposition_dh(q.shape[-1], "bwd_dkdv")
     if q.device.type == "cpu":
         return bwd_dkdv_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     if split is None:
         split = -(-q.shape[2] // DKDV_TILE)
     if split < 1:
         raise ValueError(f"bwd_dkdv: split must be at least 1, got {split}")
-    dk, dv = _launch_bwd("flash_rel_attn_bwd_dkdv", q, k, v, e, causal, pad_keys, lse, dsum, do,
+    dk, dv = _launch_bwd("flash_rel_attn_bwd_dkdv", 9, q, k, v, e, causal, pad_keys, lse, dsum, do,
                          ("k", "v"), None, (split,))
     bwd_dkdv.launches += 1
     return dk, dv
@@ -588,10 +606,9 @@ def bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do, split=None):
 def bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do):
     """-> (dk, dv, dq_qk): ``csrc/flash_rel_attn_bwd_kv.cu`` for the TPU's
     ``_bwd_dkdv_dq_kernel`` (``MIDI_EMOTION_BWD=split``)."""
-    decomposition_dh(q.shape[-1], "bwd_dkdv_dq")
     if q.device.type == "cpu":
         return bwd_dkdv_dq_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
-    dk, dv, dq_qk = _launch_bwd("flash_rel_attn_bwd_dkdv_dq", q, k, v, e, causal, pad_keys, lse,
+    dk, dv, dq_qk = _launch_bwd("flash_rel_attn_bwd_dkdv_dq", 7, q, k, v, e, causal, pad_keys, lse,
                                 dsum, do, ("k", "v", "q"), "dq")
     bwd_dkdv_dq.launches += 1
     return dk, dv, dq_qk
@@ -600,10 +617,9 @@ def bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do):
 def bwd_dq_de(q, k, v, e, causal, pad_keys, lse, dsum, do):
     """-> (dq, de): ``csrc/flash_rel_attn_bwd_q.cu`` for the TPU's
     ``_bwd_dq_de_kernel`` (``MIDI_EMOTION_BWD=fused``, ``DQDE=column``)."""
-    decomposition_dh(q.shape[-1], "bwd_dq_de")
     if q.device.type == "cpu":
         return bwd_dq_de_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
-    dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de", q, k, v, e, causal, pad_keys, lse, dsum, do,
+    dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de", 5, q, k, v, e, causal, pad_keys, lse, dsum, do,
                          ("q", "e"), "de")
     bwd_dq_de.launches += 1
     return dq, de
@@ -612,10 +628,9 @@ def bwd_dq_de(q, k, v, e, causal, pad_keys, lse, dsum, do):
 def bwd_dq_de_dist(q, k, v, e, causal, pad_keys, lse, dsum, do):
     """-> (dq, de): ``csrc/flash_rel_attn_bwd_q.cu`` for the TPU's
     ``_bwd_dq_de_dist_kernel`` (``MIDI_EMOTION_BWD=fused``, ``DQDE=dist``)."""
-    decomposition_dh(q.shape[-1], "bwd_dq_de_dist")
     if q.device.type == "cpu":
         return bwd_dq_de_dist_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
-    dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de_dist", q, k, v, e, causal, pad_keys, lse, dsum,
+    dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de_dist", 6, q, k, v, e, causal, pad_keys, lse, dsum,
                          do, ("q", "e"), "de")
     bwd_dq_de_dist.launches += 1
     return dq, de
@@ -624,10 +639,9 @@ def bwd_dq_de_dist(q, k, v, e, causal, pad_keys, lse, dsum, do):
 def bwd_de_dqrel(q, k, v, e, causal, pad_keys, lse, dsum, do):
     """-> (dq_rel, de): ``csrc/flash_rel_attn_bwd_q.cu`` for the TPU's
     ``_bwd_de_dqrel_kernel`` (``MIDI_EMOTION_BWD=split``)."""
-    decomposition_dh(q.shape[-1], "bwd_de_dqrel")
     if q.device.type == "cpu":
         return bwd_de_dqrel_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
-    dq_rel, de = _launch_bwd("flash_rel_attn_bwd_de_dqrel", q, k, v, e, causal, pad_keys, lse,
+    dq_rel, de = _launch_bwd("flash_rel_attn_bwd_de_dqrel", 8, q, k, v, e, causal, pad_keys, lse,
                              dsum, do, ("q", "e"), "de")
     bwd_de_dqrel.launches += 1
     return dq_rel, de
@@ -658,12 +672,6 @@ def flash_rel_attention_bwd(
     impl, dqde, _ = bwd_knobs()
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_rel_attention_bwd: unsupported device {q.device}")
-    # the card's d_head limits on either device, before any launch
-    if impl == "merged":
-        padded_dh(q.shape[-1])
-    else:
-        decomposition_dh(q.shape[-1], "bwd_dkdv_dq" if impl == "split"
-                         else "bwd_dq_de_dist" if dqde == "dist" else "bwd_dq_de")
     if impl == "merged" and q.device.type == "cpu":
         return flash_rel_attention_bwd_plain(q, k, v, e, causal, pad_keys, o, lse, do)
     if q.device.type == "cuda":
@@ -685,6 +693,11 @@ def flash_rel_attention_bwd(
     dh_k = padded_dh(dh)
     q, k, v, e, do = pad_heads(dh_k, q, k, v, e, do)
     dq, dk, dv, de = (torch.empty_like(t) for t in (q, k, v, e))
+    if dh_k > KERNEL_DHS[-1]:
+        _launch_wide_bwd(4, q, k, v, e, causal, pad_keys, lse, dsum, do,
+                         {"dq": dq, "dk": dk, "dv": dv, "de": de}, 1.0 / math.sqrt(dh))
+        flash_rel_attention_bwd.launches += 1
+        return tuple(_cut(dh, dq, dk, dv, de))
     # f32 scratch: a dQ and a dE partial for each of the (up to) two blocks
     # that share a (b, h), summed in a fixed order by the kernel's reductions
     dq_acc = torch.empty((2, B, H, T, dh_k), dtype=torch.float32, device=q.device)

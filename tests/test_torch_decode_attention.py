@@ -163,13 +163,16 @@ def test_twin_matches_pallas_kernel(quant, length, p_cnt):
     _twin_vs_pallas(_inputs(), (B, W, H, DH, S), quant, length, p_cnt)
 
 
-@pytest.mark.parametrize("heads,dh", [(2, 96), (2, 128), (10, 128), (3, 256), (2, 192), (2, 160)],
-                         ids=["dh96", "dh128", "D1280", "dh256", "dh192", "dh160"])
+@pytest.mark.parametrize("heads,dh", [(2, 96), (2, 128), (10, 128), (3, 256), (2, 192), (2, 160),
+                                      (2, 384), (1, 320)],
+                         ids=["dh96", "dh128", "D1280", "dh256", "dh192", "dh160", "dh384",
+                              "dh320"])
 @pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 def test_twin_matches_pallas_kernel_wide_heads(quant, heads, dh):
     """The head shapes past the flagship's (d_head 96, 128, 192 and 256, 160
-    laid out at 192, and a width of 1280 that the kernel runs as head
-    groups) at one length, unstaged and staged, with
+    laid out at 192, a width of 1280 that the kernel runs as head groups,
+    and past 256, where the wide kernel runs: 384, and 320 laid out at 384)
+    at one length, unstaged and staged, with
     test_twin_matches_pallas_kernel's tolerances."""
     dims = (2, 128, heads, dh, 4)
     x = _inputs(dh + heads, dims)

@@ -43,11 +43,16 @@ CASES = {  # T, dh, causal, pad tail (no pad at key 0: ROADMAP queue 3)
     "noncausal-dh16": (32, 16, False, False),
 }
 # d_head outside KERNEL_DHS, which the wrappers pad on the card: held for
-# the fused decomposition's dQ/dE kernels alone
+# the fused decomposition's dQ/dE kernels, and past the decomposition
+# kernels' built widths (160, padded to 192, and 320, padded to 384, where
+# the card runs the wide kernels) for all five
 PADDED_CASES = {
     "causal-pad-dh40": (24, 40, True, True),
     "noncausal-dh80": (24, 80, False, False),
+    "causal-pad-dh160": (16, 160, True, True),
+    "noncausal-dh320": (16, 320, False, False),
 }
+WIDE_CASES = ["causal-pad-dh160", "noncausal-dh320"]
 ALL_CASES = {**CASES, **PADDED_CASES}
 IMPLS = {"split": ("split", "column"), "fused-column": ("fused", "column"),
          "fused-dist": ("fused", "dist")}
@@ -175,12 +180,22 @@ def test_twin_matches_its_pallas_kernel(case, twin):
 @pytest.mark.parametrize("case", list(PADDED_CASES))
 def test_dq_de_twins_match_pallas_kernels_padded_heads(case, twin):
     """Kernels 5 and 6's twins at a d_head the kernels are not built for
-    (40, 80), against their Pallas kernels as above: 1e-4."""
+    (40, 80, and past 128: 160 and 320), against their Pallas kernels as
+    above: 1e-4."""
+    _twin_vs_pallas(case, twin)
+
+
+@pytest.mark.parametrize("twin", ["bwd_dkdv_dq_plain", "bwd_de_dqrel_plain", "bwd_dkdv_plain"])
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_other_twins_match_pallas_kernels_wide_heads(case, twin):
+    """Kernels 7, 8 and 9's twins past d_head 128 (160 and 320), against
+    their Pallas kernels as above: 1e-4 (kernels 5 and 6 at these widths
+    are in test_dq_de_twins_match_pallas_kernels_padded_heads)."""
     _twin_vs_pallas(case, twin)
 
 
 @pytest.mark.parametrize("twin", list(KERNELS))
-@pytest.mark.parametrize("dh", [40, 80])
+@pytest.mark.parametrize("dh", [40, 80, 160, 320])
 def test_padded_heads_match_unpadded_decomposition_twins(dh, twin):
     """The card's route for such a d_head through each decomposition's
     twin: q, k, v, e and dO padded with zero columns (``pad_heads``), c =

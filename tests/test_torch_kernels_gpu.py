@@ -200,11 +200,11 @@ def test_flash_wrapper_guards_and_counter(cuda):
         flash_rel_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, e)
     with pytest.raises(TypeError):
         flash_rel_attention(q, k.double(), v, e)
-    with pytest.raises(ValueError, match="d_head"):  # past 256, the widest kernel
-        flash_rel_attention(*_qkve(1, 2, 64, 272, 128, torch.float32))
+    flash_rel_attention(*_qkve(1, 2, 64, 272, 128, torch.float32))  # the wide kernel, at 384
+    assert flash_rel_attention.launches == before + 2
     with pytest.raises(ValueError, match="max_seq"):
         flash_rel_attention(q, k, v, e[:32])
-    assert flash_rel_attention.launches == before + 1
+    assert flash_rel_attention.launches == before + 2
     bwd_before = flash_rel_attention_bwd.launches
     o, _ = flash_rel_attention(q.requires_grad_(), k, v, e)
     o.sum().backward()
@@ -302,12 +302,12 @@ def test_flash_bwd_decomposition_wrapper_guards(cuda):
             wrapper(q, k, v, e, True, None, lse, dsum, q.transpose(2, 3).contiguous().transpose(2, 3))
         with pytest.raises(ValueError, match="f32"):
             wrapper(q, k, v, e, True, None, lse.bfloat16(), dsum, q)
-        with pytest.raises(ValueError, match="d_head"):
-            wrapper(*_qkve(1, 2, 64, 144, 128, torch.float32), True, None, lse, dsum,
-                    torch.zeros((1, 2, 64, 144), device=cuda))
         with pytest.raises(TypeError):
             wrapper(q, k.double(), v, e, True, None, lse, dsum, q)
         assert wrapper.launches == before, kernel
+        wrapper(*_qkve(1, 2, 64, 144, 128, torch.float32), True, None, lse, dsum,
+                torch.zeros((1, 2, 64, 144), device=cuda))  # the wide kernel, at 192
+        assert wrapper.launches == before + 1, kernel
 
 
 # d_head the kernels are not built for: the wrappers pad them with zero
@@ -341,11 +341,14 @@ def test_flash_kernels_padded_heads_match_twins(cuda, dtype, dh):
 
 
 # d_head past 128: kernels 1 and 4 are built for 192 and 256 (two column
-# halves, a block each); 160 and 224 reach them through the padding
+# halves, a block each); 160 and 224 reach them through the padding. Past
+# 256 they run their wide form (csrc/flash_rel_attn_wide.cu), and so do
+# kernels 5-9 past 128 (DECOMPOSITION_WIDE_DHS): 320 through the padding
 WIDE_DHS = [160, 192, 224, 256]
+STREAMED_DHS = [320, 384, 768]
 
 
-@pytest.mark.parametrize("dh", WIDE_DHS)
+@pytest.mark.parametrize("dh", WIDE_DHS + STREAMED_DHS)
 @pytest.mark.parametrize("T", [1, 65, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernels_wide_heads_match_twins_f32(cuda, dh, T, causal):
@@ -386,32 +389,73 @@ def test_wgmma_flash_kernels_bf16_wide_heads_non_causal(cuda, dh):
 @pytest.mark.parametrize("impl,dqde", [("split", "column"), ("fused", "column"),
                                        ("fused", "dist")])
 def test_wide_head_limits(cuda, monkeypatch, impl, dqde):
-    """Past 256 kernels 1 and 4 raise a ValueError naming d_head; past 128
-    so do kernels 5-9, naming the variables that chose them, and the
-    backward under split or fused before any launch."""
-    wide = _qkve(1, 2, 64, 272, 512, torch.bfloat16)
-    with pytest.raises(ValueError, match="d_head <= 256, got 272"):
-        flash_rel_attention(*wide)
-    with pytest.raises(ValueError, match="d_head <= 256, got 272"):
-        fa.flash_rel_attention_bwd(*wide, True, None, wide[0], torch.zeros((1, 2, 64), device=cuda),
-                                   wide[0])
-    kv, sc, _, e48, _, _, _ = _decode_inputs(2, 256, 2, 48, 2, 4, True)
-    with pytest.raises(ValueError, match="d_head <= 256, got 272"):  # kernel 13
-        da.decode_attn_cached(torch.randn((2, 2, 272), device=cuda), kv, sc, 1,
-                              da.expand_e_rows(e48, 11, 256), 10)
-    q, k, v, e = _qkve(1, 2, 64, 144, 512, torch.bfloat16)
-    o, lse = flash_rel_attention(q, k, v, e)  # 144 runs at 192 on kernels 1 and 4
-    fa.flash_rel_attention_bwd(q, k, v, e, True, None, o, lse, o)
+    """At the widths that were the kernels' limits, each kernel launches
+    and matches its twin: 272 (padded to 384) on kernels 1, 4 and 13, 144
+    (padded to 192) on kernels 5-9 under split and fused, bf16, each launch
+    counted."""
+    wide = _qkve(2, 2, 64, 272, 512, torch.bfloat16, seed=15)
+    pad = _pad(2, 64, cuda)
+    before = flash_rel_attention.launches, flash_rel_attention_bwd.launches
+    _check_wgmma_kernels(*wide, True, pad)
+    assert flash_rel_attention.launches >= before[0] + 2
+    assert flash_rel_attention_bwd.launches >= before[1] + 2
+    kv, sc, q, e, _, _, vmax = _decode_inputs(2, 256, 2, 272, 2, 4, True)
+    e_rows = da.expand_e_rows(e, 11, 256, dh_to=da.cache_dh(272))
+    n = da.decode_attn_cached.launches
+    acc, m, l = da.decode_attn_cached(q, kv, sc, 1, e_rows, 10)
+    assert da.decode_attn_cached.launches == n + 1
+    racc, rm, rl = da.decode_attn_cached_plain(q, kv, sc, 1, e_rows, 10)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=1e-5)
+    err = (acc.view(2, 2, 272) / l[..., None] - racc.view(2, 2, 272) / rl[..., None]).abs().max()
+    assert err.item() <= vmax / 127
+    q, k, v, e = _qkve(2, 2, 64, 144, 512, torch.bfloat16, seed=16)
     monkeypatch.setenv("MIDI_EMOTION_BWD", impl)
     monkeypatch.setenv("MIDI_EMOTION_DQDE", dqde)
-    before = {n: getattr(fa, n).launches for n in BWD_KERNELS}
-    with pytest.raises(ValueError, match=f"MIDI_EMOTION_BWD={impl}.*got 144"):
-        fa.flash_rel_attention_bwd(q, k, v, e, True, None, o, lse, o)
-    dsum = torch.zeros((1, 2, 64), device=cuda)
     for kernel in BWD_KERNELS:
-        with pytest.raises(ValueError, match="d_head <= 128, got 144"):
-            getattr(fa, kernel)(q, k, v, e, True, None, lse, dsum, o)
-    assert before == {n: getattr(fa, n).launches for n in BWD_KERNELS}
+        _assert_grads_bf16(BWD_KERNELS[kernel], *_bwd_kernel_pair(kernel, q, k, v, e, True, pad))
+    o, lse = flash_rel_attention(q, k, v, e, True, pad)
+    do = torch.randn(o.shape, device=cuda).to(o.dtype) * (~pad)[:, None, :, None]
+    want = flash_rel_attention_bwd_plain(q, k, v, e, True, pad, o, lse, do)
+    _assert_grads_bf16(("dq", "dk", "dv", "de"),
+                       flash_rel_attention_bwd(q, k, v, e, True, pad, o, lse, do), want)
+
+
+DECOMPOSITION_WIDE_DHS = [160, 192, 224, 256, 384]
+
+
+@pytest.mark.parametrize("dh", STREAMED_DHS)
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 333, 1216])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_wide_heads_streamed_bf16(cuda, dh, T, causal):
+    """Kernels 1 and 4 in bf16 past d_head 256: the bf16 tolerances, the
+    fully masked row, two calls bitwise equal."""
+    _check_wgmma_kernels(*_qkve(2, 2, T, dh, 2048, torch.bfloat16, seed=17), causal,
+                         _pad(2, T, cuda))
+
+
+@pytest.mark.parametrize("kernel", list(BWD_KERNELS))
+@pytest.mark.parametrize("dh", DECOMPOSITION_WIDE_DHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_decomposition_kernel_wide_heads(cuda, kernel, dh, dtype, causal):
+    """Kernels 5-9 past d_head 128 (their wide form; 160 and 224 through
+    the padding), against their twins (f32 1e-4; bf16 2e-2 of each
+    output's scale), a pad tail and a fully masked row, and a second call
+    bitwise the first."""
+    q, k, v, e = _qkve(2, 2, 133, dh, 256, dtype, seed=18)
+    pad = _pad(2, 133, cuda)
+    got, want = _bwd_kernel_pair(kernel, q, k, v, e, causal, pad)
+    if dtype == torch.bfloat16:
+        _assert_grads_bf16(BWD_KERNELS[kernel], got, want)
+    else:
+        for name, a, b in zip(BWD_KERNELS[kernel], got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    for name, a in zip(BWD_KERNELS[kernel], got):
+        if causal and name.startswith("dq"):
+            assert a[1, :, 0].eq(0).all(), name
+    again, _ = _bwd_kernel_pair(kernel, q, k, v, e, causal, pad)
+    for name, a, b in zip(BWD_KERNELS[kernel], got, again):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("kernel", list(BWD_KERNELS))
@@ -734,10 +778,13 @@ def test_train_step_kernels_match_plain_twins(cuda):
 
 # d_head past 128: the flagship's width with 3 heads of 256 at its serving
 # shape, 4 of 192, one of 192 (rows whose halves are not 128-byte
-# multiples), and 160 laid out at 192
+# multiples), and 160 laid out at 192; past 256, where the wide kernel
+# runs: the flagship's width with 2 heads of 384, 320 laid out at 384, 768
 DECODE_WIDE = [(64, 1408, 3, 256, 2), (4, 256, 4, 192, 2), (4, 256, 1, 192, 2),
-               (4, 256, 2, 160, 2)]
-DECODE_WIDE_IDS = ["flagship-dh256", "dh192", "dh192-h1", "dh160"]
+               (4, 256, 2, 160, 2), (64, 1408, 2, 384, 2), (4, 256, 2, 320, 2),
+               (4, 256, 1, 768, 2)]
+DECODE_WIDE_IDS = ["flagship-dh256", "dh192", "dh192-h1", "dh160", "flagship-dh384", "dh320",
+                   "dh768"]
 
 
 def _decode_inputs(B, W, H, dh, L, S, quant, seed=0):

@@ -216,20 +216,21 @@ def test_padded_heads_match_unpadded_twins(dh, causal):
 
 
 def test_padded_dh_bounds():
-    """Every d_head up to 256 maps to the least width kernels 1, 4 and 13
-    are built for that holds it; above 256 raises a ValueError naming
-    d_head. Kernels 5-9 (``decomposition_dh``) stop at 128, naming d_head
-    and the variables that chose each."""
+    """Every d_head maps to the width its kernels run it at: up to 256 the
+    least width kernels 1, 4 and 13 are built for that holds it, past 256
+    the least multiple of 128 (the wide kernels' column part), for every
+    kernel alike; no d_head from 1 to 1024 raises, and one below 1 raises
+    a ValueError naming it."""
     assert [fa.padded_dh(d) for d in (1, 16, 17, 40, 48, 80, 97, 128, 129, 160, 192, 193,
                                       224, 256)] == \
         [16, 16, 32, 48, 48, 96, 128, 128, 192, 192, 192, 256, 256, 256]
-    with pytest.raises(ValueError, match="d_head <= 256, got 257"):
-        fa.padded_dh(257)
-    for wrapper, chosen in fa.CHOSEN_BY.items():
-        assert fa.decomposition_dh(97, wrapper) == 128
-        with pytest.raises(ValueError, match=f"{wrapper} \\(chosen by {chosen}\\) takes "
-                                             "d_head <= 128, got 129"):
-            fa.decomposition_dh(129, wrapper)
+    assert [fa.padded_dh(d) for d in (257, 272, 320, 384, 385, 640, 768, 1000, 1024)] == \
+        [384, 384, 384, 384, 512, 640, 768, 1024, 1024]
+    for d in range(1, 1025):
+        dh_k = fa.padded_dh(d)
+        assert dh_k >= d and (dh_k in fa.KERNEL_DHS or dh_k % fa.WIDE_PART == 0)
+    with pytest.raises(ValueError, match="d_head must be at least 1, got 0"):
+        fa.padded_dh(0)
 
 
 @pytest.mark.parametrize("dh", [192, 256])

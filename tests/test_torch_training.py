@@ -98,8 +98,8 @@ def test_train_step_trajectory_matches_jax():
 
 def test_train_step_trajectory_matches_jax_at_d_head_256():
     """2 updates of 2 microbatches at one head of 256 (the widest the
-    port's kernels take), the port's attention through the flash wrapper
-    (its twins on the CPU, which keep the card's d_head limits): loss and
+    port's kernels are built for), the port's attention through the flash
+    wrapper (its twins on the CPU): loss and
     grad norm to 1e-5 at each update, the parameters to 1e-4 after: at
     this width Adam's first steps turn rounding noise in gradient elements
     near 0 into moves of up to the LR, whatever the attention path (with
@@ -107,6 +107,21 @@ def test_train_step_trajectory_matches_jax_at_d_head_256():
     3.5e-5 apart)."""
     jcfg, tcfg = config_pair(mode="none", **{**TINY, "n_head": 1, "d_model": 256})
     assert fa.padded_dh(256) == 256  # the card's kernels take this head whole
+    out, params, tmodel = _run_both(jcfg, _batches(2, 2, 2, 12, seed=2), [1e-3, 5e-4],
+                                    accumulate=2, attn_impl="kernel")
+    for jm, tm in out:
+        assert_close(tm["loss"].item(), float(jm["loss"]), 1e-5)
+        assert_close(tm["grad_norm"].item(), float(jm["grad_norm"]), 1e-5)
+    _assert_params_close(tmodel, params, tcfg, 1e-4)
+
+
+def test_train_step_trajectory_matches_jax_at_d_head_384():
+    """The same at one head of 384 in each of the 2 layers, past the built
+    widths of every kernel (the card runs the wide kernels there): 2
+    updates of 2 microbatches, loss and grad norm to 1e-5 at each update,
+    the parameters to 1e-4 after."""
+    jcfg, tcfg = config_pair(mode="none", **{**TINY, "n_head": 1, "d_model": 384})
+    assert fa.padded_dh(384) == 384
     out, params, tmodel = _run_both(jcfg, _batches(2, 2, 2, 12, seed=2), [1e-3, 5e-4],
                                     accumulate=2, attn_impl="kernel")
     for jm, tm in out:
