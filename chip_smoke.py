@@ -34,13 +34,18 @@ Phases, each fatal on failure:
      four modes, the three timed at the flagship's width with 3 heads of
      256 beside SDPA and the bound (kernel 1 at B 4 and 8, kernel 4's call
      at B 8, kernel 13 at L 20, B 64, W 1408); past the built widths, on
-     the wide kernels (csrc/flash_rel_attn_wide.cu, csrc/decode_attn_wide.cu):
-     kernels 1 and 4 at 320 (padded to 384), 384 and 768, kernels 5-9 at
-     192, 256 and 384, kernel 13 at 320, 384 and 768, f32 and bf16 at small
-     B; kernels 1, 4, 5-9 and 13 timed at the flagship's width with 2 heads
-     of 384 and 1 of 768 (the JSON rows' ``streamed_heads``: the flash
-     kernels at B 8, T 1216, kernel 13 at L 20, B 64, W 1408) beside their
-     twins, SDPA and the bound; and at the widths that were the limits (272
+     the wide kernels (csrc/flash_rel_attn_wide.cu, csrc/decode_attn_wide.cu;
+     kernel 1's bf16 forward there is a cluster of CTAs per query tile,
+     kernel 13 up to 1024 channels a head the stacked kernel's wide
+     instantiations): kernels 1 and 4 at 320 (padded to 384), 384 and 768,
+     kernel 1 in bf16 at 1152 (a 9-CTA cluster), kernels 5-9 at 192, 256
+     and 384, kernel 13 at 320, 384, 768, 1024 and 1152, f32 and bf16 at
+     small B; kernels 1, 4, 5-9 and 13 timed at the flagship's width with
+     2 heads of 384 and 1 of 768 (the JSON rows' ``streamed_heads``: the
+     flash kernels at B 8, T 1216, kernel 13 at L 20, B 64, W 1408) beside
+     their twins, SDPA and the bound, with the ptxas registers and spills
+     of kernel 1's cluster forward and kernel 13's wide instantiations
+     (``streamed_heads.ptxas``); and at the widths that were the limits (272
      on kernels 1, 4 and 13, 144 on 5-9 under split and fused) every
      wrapper launching its kernel while the plain twins and SDPA refuse to
      run;
@@ -874,7 +879,7 @@ def check_decode(torch, quant, timed=False, shape=DECODE,
                   lambda: da.decode_attn_cached_plain(q, kv, sc, layer, e_rows, length, stage,
                                                       e_pend, p_cnt, row),
                   library, iters=50,
-                  kernel_only="decode_wide_kernel" if dh_k > 256 else "decode_attn_stacked")
+                  kernel_only="decode_wide_kernel" if dh_k > 1024 else "decode_attn_stacked")
     if timed:
         print(f"{name}: bytes moved {n_bytes / 1e6:.1f} MB; kernel at "
               f"{n_bytes / (res['ms'] * 1e-3) / 1e12:.3f} TB/s")
@@ -1826,6 +1831,19 @@ def streamed_flagship_kernels(torch, card):
               + "; ".join(f"{name} {m['ms']:.4f} (plain {m['plain_ms']:.4f}, library "
                           f"{m['library_ms'] if m['library_ms'] is None else round(m['library_ms'], 4)}"
                           f", bound {m['bound_ms']:.4f})" for name, m in row.items()))
+    # the redesigned wide forms' registers and spills: kernel 1's cluster
+    # forward and kernel 13's wide instantiations
+    from midi_emotion_tpu_torch.kernels.build import library_path
+
+    for name, lib, pick in (("flash_rel_attn_fwd", "flash_rel_attn_wide", "cluster"),
+                            ("decode_attn_stacked", "decode_attn_wide",
+                             "decode_attn_stacked_kernel")):
+        regs = {kern: {"registers": r, "spilled": sp}
+                for kern, r, sp in ptxas_report(library_path(lib))[0] if pick in kern}
+        for kern, n in regs.items():
+            print(f"ptxas, wide form of {name}: {kern}: {n['registers']} registers, "
+                  f"{n['spilled']} bytes spilled")
+        out[name]["ptxas"] = regs
     return out
 
 
@@ -2260,16 +2278,24 @@ def _kernel_label(mangled):
     return mangled
 
 
-def print_ptxas(lib_path, label):
+def ptxas_report(lib_path):
+    """[(kernel label, registers, bytes spilled)] from the library's ptxas
+    report (``-Xptxas -v``, kept beside it by kernels/build.py), and the
+    report's text."""
     log = lib_path.with_name(lib_path.name + ".log")
     if not log.exists():
-        return
+        return [], ""
     text = log.read_text()
     kinds = re.findall(r"Compiling entry function '(\S+)'", text)
     regs = re.findall(r"Used (\d+) registers", text)
     spills = re.findall(r"(\d+) bytes spill stores", text)
-    for kern, r, sp in zip(kinds, regs, spills):
-        print(f"ptxas: {label} {_kernel_label(kern)}: {r} registers, {sp} bytes spilled")
+    return [(_kernel_label(k), int(r), int(sp)) for k, r, sp in zip(kinds, regs, spills)], text
+
+
+def print_ptxas(lib_path, label):
+    kernels, text = ptxas_report(lib_path)
+    for kern, r, sp in kernels:
+        print(f"ptxas: {label} {kern}: {r} registers, {sp} bytes spilled")
     for line in text.splitlines():  # e.g. wgmma serialized by the compiler
         if "Performance Loss" in line:
             print(f"ptxas: {label}: {line.strip()[:300]}")
@@ -2363,6 +2389,9 @@ def main():
                  "wide_dq_tc_kernel", "wide_dkdv_tc_kernel", "wide_de_tc_kernel"):
         if want not in tc_kernels:
             fail(f"no tensor-core kernel {want} in the SASS")
+    # kernel 1's bf16 forward past d_head 256: the cluster kernel, on wgmma
+    if tc_kernels.get("wide_fwd_tc_cluster_kernel", {"HGMMA": 0})["HGMMA"] == 0:
+        fail("no wgmma (HGMMA) instruction in wide_fwd_tc_cluster_kernel")
 
     # phase 3 -----------------------------------------------------------
     # Tolerances: f32 pins the algorithm (kernel and twin both sum in f32,
@@ -2429,6 +2458,14 @@ def main():
                                                   S=8), lengths=(0, 1, 127, 128, 129, 200, 248))
     check_flash(torch, 2, 2, 200, 384, torch.bfloat16, False, 2e-2, 1e-3, rel=True)
     check_flash_bwd(torch, 2, 2, 200, 384, torch.float32, False, 1e-4)
+    # kernel 1's cluster forward at 9 CTAs (a non-portable cluster size);
+    # kernel 13 at 1024, its widest stacked instantiation, and at 1152, past
+    # it, on the per-head kernel
+    check_flash(torch, 2, 1, 333, 1152, torch.bfloat16, True, 2e-2, 1e-3, rel=True)
+    for dh in (1024, 1152):
+        for quant in (True, False):
+            check_decode(torch, quant, shape=dict(L=2, B=4, W=256, H=1, dh=dh, S=8),
+                         lengths=(0, 1, 127, 128, 129, 200, 248))
     for kernel in BWD_KERNELS:
         for dh in DECOMPOSITION_WIDE_DHS:
             check_bwd_kernel(torch, kernel, 2, 2, 333, dh, torch.float32, True, 1e-4)

@@ -5,15 +5,27 @@
 // Replaces midi_emotion_tpu/ops/decode_attention.py::_kernel (the Pallas TPU
 // kernel launched by _run, which takes d_head as one block), as
 // decode_attn_stacked.cu does at the narrower widths: the same arguments,
-// layouts and results (see that file's note and ops/decode_attention.py's
-// twin, decode_attn_cached_plain). decode_attn_stacked.cu tiles a head's
-// channels for mma.sync and a 64-bit mask of k-steps and encodes its E
-// rows' tensor map with a box of d_head columns, which TMA caps at 256;
-// this kernel holds no operand at the whole width in registers and copies
-// nothing by TMA, so it takes any d_head.
+// layouts and results (see decode_attn_stacked.cuh's note and
+// ops/decode_attention.py's twin, decode_attn_cached_plain).
 //
-// Design: one block of 256 threads per (head, batch row), walking the
-// window blocks of `bw` keys in order with the twin's running max, so P
+// Up to 1024 channels a head (d_head 384, 512, 640, 768, 896 and 1024, the
+// widths the wrappers lay a wide head out at) this file instantiates the
+// stacked kernel of decode_attn_stacked.cuh: a cluster of CTAs per batch
+// row splitting the live window blocks, prefix maxima exchanged in
+// distributed shared memory, a producer warp filling a TMA ring, the
+// products on mma.sync (int8 m16n8k32 with exact integer sums, bf16
+// m16n8k16), rank 0 summing (acc, l) in rank order and running the staged
+// tail in the same launch. Its wide instantiations differ in two places
+// only (WIDE_DH): a tile's E rows come as a job of their own, copied in
+// 128-byte pieces of the row (a box is at most 256 columns, and the K
+// rows and E rows of one 32-key tile at d_head 1024 bf16 would take 128 KB
+// a ring stage), their bias landing in the logits before the K tile adds
+// its scores; and the score units run two chains over the one or two
+// heads a group holds.
+//
+// Past 1024 channels a head (namespace per_head) the first wide design
+// runs: one block of 256 threads per (head, batch row), walking the window
+// blocks of `bw` keys in order with the twin's running max, so P
 // re-quantizes as the twin's does. q (f32, its bf16 rounding and, in int8
 // mode, its int8 quantisation) and the f32 accumulator live in shared
 // memory at d_head floats each, whatever d_head is. Per window block: a
@@ -25,9 +37,10 @@
 // The staged tail and the self term follow as in the twin, and the current
 // row lands in stage slot (p_cnt, layer) when p_cnt < S.
 //
-// Bound on the H100: bytes (each live cache row is read once per head). With
-// a block per (b, h) the batch rows' heads are its only parallelism: at
-// B 64 and 2 heads, 128 blocks for 132 SMs.
+// Bound on the H100: bytes (each live cache row is read once). At B 64,
+// length 1216, 2 heads of 384, one layer's live int8 rows and scales are
+// 120.2 MB, 35.9 us at 3.35 TB/s (bf16 239.1 MB, 71.4 us); the E rows
+// (1216 x 768 bytes) stay in L2 across the batch rows.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -36,7 +49,12 @@
 
 #include <type_traits>
 
+#include "decode_attn_stacked.cuh"
+
 namespace {
+
+namespace per_head {
+
 
 constexpr int NT = 256;
 constexpr int NW = NT / 32;
@@ -273,18 +291,12 @@ __global__ void __launch_bounds__(NT) decode_wide_kernel(Params p) {
   }
 }
 
-}  // namespace
 
-extern "C" {
-
-// The arguments and results of decode_attn_stacked (decode_attn_stacked.cu),
-// for any d_head; the stage takes any S >= 1. Returns a cudaError_t: 0 when
-// the launch was accepted. Launches on `stream` and does not synchronise.
-int decode_attn_wide(const void* q, const void* kv, const void* sc, const void* e_rows,
-                     void* pend, const void* e_pend, const void* row, void* acc, void* m,
-                     void* l, void* out, int L, int B, int W, int H, int dh, int layer,
-                     int length, int S, int p_cnt, int bw, int quant, int q_bf16, float scale,
-                     void* stream) {
+// the checked call, past MAX_D channels a head
+cudaError_t run(const void* q, const void* kv, const void* sc, const void* e_rows, void* pend,
+                const void* e_pend, const void* row, void* acc, void* m, void* l, void* out,
+                int L, int B, int W, int H, int dh, int layer, int length, int S, int p_cnt,
+                int bw, int quant, int q_bf16, float scale, cudaStream_t s) {
   if (L <= 0 || B <= 0 || W <= 0 || H <= 0 || dh <= 0 || layer < 0 || layer >= L ||
       length < 0 || length > W || bw <= 0 || W % bw != 0 || q == nullptr || kv == nullptr ||
       e_rows == nullptr)
@@ -313,7 +325,6 @@ int decode_attn_wide(const void* q, const void* kv, const void* sc, const void* 
               L, B, W, H, dh, layer, length, S, p_cnt, bw, q_bf16, scale};
   const int smem = (4 * dh + (bw > S ? bw : S) + NW) * (int)sizeof(float);
   const dim3 grid(H, B);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (quant) {
     if ((err = cudaFuncSetAttribute(decode_wide_kernel<true>,
@@ -329,6 +340,49 @@ int decode_attn_wide(const void* q, const void* kv, const void* sc, const void* 
     decode_wide_kernel<false><<<grid, NT, smem, s>>>(p);
   }
   return cudaGetLastError();
+}
+
+}  // namespace per_head
+
+// the stacked kernel's wide instantiations (S: the 128-byte slab, which
+// divides any half row of multiples of 128 columns)
+template <bool QUANT>
+cudaError_t dispatch_wide(const Params& p, int dh, cudaStream_t stream) {
+  switch (dh) {
+    case 384: return launch<384, QUANT, 128>(p, stream);
+    case 512: return launch<512, QUANT, 128>(p, stream);
+    case 640: return launch<640, QUANT, 128>(p, stream);
+    case 768: return launch<768, QUANT, 128>(p, stream);
+    case 896: return launch<896, QUANT, 128>(p, stream);
+    case 1024: return launch<1024, QUANT, 128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// The arguments and results of decode_attn_stacked (decode_attn_stacked.cu)
+// for d_head past 256: the stacked kernel's wide instantiations up to MAX_D
+// (1024) channels a head, which take the stage sizes it takes (S <= 128),
+// the per-head kernel past them (any S >= 1). Returns a cudaError_t: 0 when
+// the launch was accepted. Launches on `stream` and does not synchronise.
+int decode_attn_wide(const void* q, const void* kv, const void* sc, const void* e_rows,
+                     void* pend, const void* e_pend, const void* row, void* acc, void* m,
+                     void* l, void* out, int L, int B, int W, int H, int dh, int layer,
+                     int length, int S, int p_cnt, int bw, int quant, int q_bf16, float scale,
+                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh > MAX_D)
+    return per_head::run(q, kv, sc, e_rows, pend, e_pend, row, acc, m, l, out, L, B, W, H, dh,
+                         layer, length, S, p_cnt, bw, quant, q_bf16, scale, s);
+  Params p = {};
+  const cudaError_t err = make_params(p, q, kv, sc, e_rows, pend, e_pend, row, acc, m, l, out, L,
+                                      B, W, H, dh, layer, length, S, p_cnt, bw, quant, q_bf16,
+                                      scale);
+  if (err != cudaSuccess) return err;
+  return quant ? dispatch_wide<true>(p, dh, s) : dispatch_wide<false>(p, dh, s);
 }
 
 const char* decode_attn_wide_error_string(int err) {

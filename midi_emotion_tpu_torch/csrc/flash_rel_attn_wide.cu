@@ -63,12 +63,18 @@
 //
 // Bound on the H100: operations. The score side is recomputed for each part
 // (d_head / 128 times) and each sweep: that is the cost of this simple
-// design, measured in PERF.md.
+// design, measured in PERF.md. Kernel 1's bf16 forward no longer pays it:
+// up to 16 parts it runs on cl::wide_fwd_tc_cluster_kernel (below), a
+// thread-block cluster of one CTA a part that computes each tile's score
+// side once, split by columns, on wgmma fed by TMA, and sums the parts'
+// partial scores through distributed shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_sm90.cuh"
 
 namespace {
 
@@ -1187,13 +1193,456 @@ cudaError_t bwd(const Bwd& p, int kernel, cudaStream_t s) {
 
 }  // namespace tc
 
+
+// ---------------------------------------------------------------------------
+// bf16 forward (kernel 1) on wgmma: a thread-block cluster per query tile
+// ---------------------------------------------------------------------------
+//
+// tc::wide_fwd_tc_kernel recomputes the score side in each of its d_head /
+// 128 blocks of a query tile. Here the CTAs of one cluster share that work:
+// CTA r (of np = d_head / 128, the cluster) owns d_head columns
+// 128 r .. 128 r + 127 and copies only those columns of Q, K, V and the E
+// band (TMA boxes of 8 slabs in the 32-byte-swizzled slab layout of
+// hopper_sm90.cuh, K and V in a two-stage ring, the band's 64-row chunks in
+// a ring of three, under mbarriers, one producer warp). Per key tile its
+// warpgroup computes, as kernel 1 does at d_head 128, the partial scores
+// S_r = Q_r K_r^T (m64n64) and the band Q_r E_band,r^T (two m64n64) by
+// wgmma over its 8 k16 steps, skews the band through a per-warp scratch
+// and publishes S_r + Srel_r (64 x 64 f32) in its shared memory, double
+// buffered. Each consumer warp then signals warp w of every CTA (an
+// mbarrier a warp and buffer, arrived on from each rank with release at
+// cluster scope), waits for its own, and reads its 16 rows of every rank's
+// partial through distributed shared memory, summing them in rank order:
+// every CTA holds bitwise the same scores, so the same m, l and P, with no
+// atomics. It then runs the online softmax as kernel 1 does and O_r += P
+// V_r (m64n128, P from registers) for its own columns; rank 0 writes lse.
+// One signal a tile suffices: warp w writes buffer kt % 2 again at tile kt
+// + 2 only after its signal of tile kt + 1 has come from every rank, which
+// each sends after reading tile kt.
+//
+// The remote reads are most of what the exchange costs, (np - 1) x 16 KB
+// a CTA and tile through distributed shared memory, whose rate is low
+// beside local shared memory (scripts/torch_wide_fwd_ablation.py times
+// the kernel without them; PERF.md). From SCATTER_PARTS parts on the sum
+// is a reduce-scatter and an all-gather instead: rank n np / 8 alone sums
+// column group n (8 keys) in rank order and publishes it, and a second
+// signal lets the others read it: about 2 x 16 KB a CTA and tile, and
+// bitwise the same sums. Below that the second signal costs more than the
+// reads it saves.
+//
+// Clusters up to 8 CTAs are portable; 9 to 16 (d_head 1152 to 2048) are
+// launched with cudaFuncAttributeNonPortableClusterSizeAllowed, which the
+// H100 takes. Past 16 parts the bf16 forward stays on tc::wide_fwd_tc_kernel.
+
+namespace cl {
+
+using namespace sm90;
+using bf = __nv_bfloat16;
+
+constexpr int BQ = 64;               // query rows per CTA: one warpgroup's wgmma tile
+constexpr int BK = 64;               // keys per tile
+constexpr int EB = BQ + BK;          // band rows staged per key tile (the first one unused)
+constexpr int PW = 128;              // d_head columns a CTA owns
+constexpr int KS = PW / 16;          // k16 steps (and slabs) over a part
+constexpr int NCW = 4;               // consumer warps: one warpgroup
+constexpr int NTH = 32 * (NCW + 1);  // + the producer warp
+constexpr int WB = 80;               // band columns a warp reads: its rows' 79 distances
+constexpr int WBS = WB + 8;          // row stride of a warp's band scratch (floats)
+constexpr int NST = 2;               // K, V ring stages
+constexpr int NE = NST + 1;          // the E ring, in chunks of 64 rows
+constexpr int MAX_PARTS = 16;        // the largest cluster the H100 takes
+constexpr int SCATTER_PARTS = 5;     // from this many parts: reduce-scatter, then all-gather
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+constexpr int TILE = BQ * PW * 2;           // a 64-row bf16 tile of a part, in slabs
+constexpr int STAGE = 2 * TILE;             // K, V
+constexpr int ST_AT = TILE;                 // Q first
+constexpr int E_AT = ST_AT + NST * STAGE;
+constexpr int SCR_AT = E_AT + NE * TILE;
+constexpr int XB = NCW * 32 * (BK / 8) * 16;  // a tile's partial scores: float4 [8][128 threads]
+constexpr int X_AT = SCR_AT + NCW * 16 * WBS * 4;
+constexpr int Y_AT = X_AT + 2 * XB;    // the summed groups a rank owns, as X
+constexpr int BAR_AT = Y_AT + 2 * XB;
+constexpr int TOTAL = BAR_AT + 8 * (2 * NST + 1 + 4 * NCW) + 1024;  // + room to align to 1024
+static_assert(TILE % 1024 == 0 && XB % 1024 == 0, "slabs stay 1024-byte aligned");
+static_assert(TOTAL <= 232448, "a CTA's shared memory");
+
+struct Maps {
+  CUtensorMap q, k, v, e;  // q, k, v: [B*H][T][dh], e: [max_seq][dh], in slabs, 8 a box
+};
+
+// ---- clusters: distributed shared memory and cluster-scope mbarriers
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+// every thread of every CTA of the cluster: release, then acquire
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+// the address of a shared-memory location in CTA `rank`'s copy
+__device__ __forceinline__ uint32_t peer(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// mbar_wait with acquire at cluster scope: the arrivals came from other CTAs
+__device__ __forceinline__ void wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      " .reg .pred p;\n"
+      " .reg .u32 n;\n"
+      " mov.u32 n, 0;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra DONE;\n"
+      " add.u32 n, n, 1;\n"
+      " setp.ge.u32 p, n, 67108864;\n"
+      " @p trap;\n"
+      " bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ float4 ld_peer(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// One cluster per (query tile, b h), the heaviest query tiles first (grid
+// (np, B * H, query tiles)); CTA `rank` computes O's columns 128 rank ..
+// 128 rank + 127. Warp 4 is the producer, warps 0-3 the consumer
+// warpgroup, warp w owning rows 16 w .. 16 w + 15 of every accumulator, as
+// in flash_rel_attn_fwd.cu's tc::flash_fwd_tc_kernel.
+__global__ void __launch_bounds__(NTH, 1)
+wide_fwd_tc_cluster_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ pad,
+                           bf* __restrict__ o, float* __restrict__ lse, int H, int T_len, int D,
+                           int max_seq, int causal, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_AT);
+  uint64_t* empty = full + NST;
+  uint64_t* qbar = empty + NST;
+  uint64_t* xbar = qbar + 1;  // [2][NCW]: warp w's rows of buffer kt % 2 published by every rank
+  uint64_t* ybar = xbar + 2 * NCW;  // [2][NCW]: the same for the summed groups
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_index();
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = cluster_rank(), np = cluster_size();
+  const int c2 = rank * KS;  // the part's first slab
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest tile first
+  const int bh = blockIdx.y, b = bh / H;
+  const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
+  const int n_kt = (k_end + BK - 1) / BK;
+  auto stage = [&](int s) { return ST_AT + s * STAGE; };  // K, then V
+  auto chunk = [&](int c) { return E_AT + (c % NE) * TILE; };
+  // E chunk c: rows from e0 + 64 c (see tc::flash_fwd_tc_kernel)
+  const int e0 = max_seq - EB - (q0 - (BK - 1));
+
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCW);
+    }
+    mbar_init(qbar, 1);
+    for (int x = 0; x < 4 * NCW; ++x) mbar_init(&xbar[x], np);
+    mbar_init_fence();
+  }
+  cluster_sync();  // every rank's barriers exist before any rank arrives on them
+
+  if (warp == NCW) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(qbar, TILE);
+      tma_load(smem, &maps.q, 0, q0, c2, bh, qbar);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % NST, k0 = kt * BK;
+        if (kt >= NST) mbar_wait(&empty[s], (kt / NST - 1) & 1);
+        // K, V and the band's new chunk (both chunks for the first tile)
+        mbar_expect_tx(&full[s], (kt == 0 ? 4 : 3) * TILE);
+        unsigned char* st = smem + stage(s);
+        tma_load(st, &maps.k, 0, k0, c2, bh, &full[s]);
+        tma_load(st + TILE, &maps.v, 0, k0, c2, bh, &full[s]);
+        if (kt == 0) tma_load(smem + chunk(0), &maps.e, 0, e0, c2, 0, &full[s]);
+        tma_load(smem + chunk(kt + 1), &maps.e, 0, e0 + 64 * (kt + 1), c2, 0, &full[s]);
+      }
+    }
+    __syncwarp();
+  } else {
+    float* scr = reinterpret_cast<float*>(smem + SCR_AT) + warp * 16 * WBS;
+    const int ub = 16 * warp;  // the warp's first row
+    float oacc[PW / 2];
+#pragma unroll
+    for (int x = 0; x < PW / 2; ++x) oacc[x] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8 (log2 units)
+    mbar_wait(qbar, 0);
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % NST, k0 = kt * BK, xb = kt & 1;
+      uint32_t live[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int key = k0 + 32 * hf + lane;
+        live[hf] = __ballot_sync(0xffffffffu,
+                                 key < T_len && !(pad != nullptr && pad[(size_t)b * T_len + key]));
+      }
+      const bool masked = (causal && k0 + BK - 1 > q0 + ub) || (live[0] & live[1]) != 0xffffffffu;
+      const uint32_t st = base + stage(s);
+      mbar_wait(&full[s], (kt / NST) & 1);
+
+      // the part's S_r = Q_r K_r^T and band Q_r E_band,r^T
+      float sacc[BK / 2], bacc[2][BK / 2];
+      const uint32_t c_lo = base + chunk(kt), c_hi = base + chunk(kt + 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint64_t da = desc_k(base + kk * TILE / KS);
+        mma_ss<BK, 0, 0>(sacc, da, desc_k(st + kk * TILE / KS), kk > 0);
+        mma_ss<BK, 0, 0>(bacc[0], da, desc_k(c_lo + kk * TILE / KS), kk > 0);
+        mma_ss<BK, 0, 0>(bacc[1], da, desc_k(c_hi + kk * TILE / KS), kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs<BK / 2>(sacc);
+      fence_regs<BK / 2>(bacc[0]);
+      fence_regs<BK / 2>(bacc[1]);
+
+      // the skew, as kernel 1's: row r, key j reads scratch column 16 - r + j
+#pragma unroll
+      for (int c = 0; c < EB / 8; ++c) {
+        const int cc = c - (6 - 2 * warp);
+        if (cc >= 0 && cc < WB / 8) {
+          const float* bc = bacc[c / 8] + 4 * (c % 8);
+          *reinterpret_cast<float2*>(scr + g * WBS + 8 * cc + 2 * t) = make_float2(bc[0], bc[1]);
+          *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * cc + 2 * t) =
+              make_float2(bc[2], bc[3]);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int r = g + 8 * (x >> 1), j = 8 * n + 2 * t + (x & 1);
+          sacc[4 * n + x] += scr[r * WBS + 16 - r + j];
+        }
+      __syncwarp();  // the scratch is read before the next tile writes it
+
+      // publish S_r + Srel_r, signal warp w of every rank, sum in rank order
+      const uint32_t xmine = base + X_AT + xb * XB + tid * 16;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+        *reinterpret_cast<float4*>(smem + X_AT + xb * XB + (n * NCW * 32 + tid) * 16) =
+            make_float4(sacc[4 * n], sacc[4 * n + 1], sacc[4 * n + 2], sacc[4 * n + 3]);
+      __syncwarp();
+      uint64_t* xw = xbar + xb * NCW + warp;
+      if (lane < np) arrive_peer(peer(smem_u32(xw), lane));
+      wait_cluster(xw, (kt >> 1) & 1);
+      float tot[BK / 2];  // the whole score, summed over the ranks in rank order
+      if (np < SCATTER_PARTS) {  // every rank sums every column group
+        for (int r = 0; r < np; ++r) {
+          float4 v[BK / 8];
+          if (r == rank) {
+#pragma unroll
+            for (int n = 0; n < BK / 8; ++n)
+              v[n] = make_float4(sacc[4 * n], sacc[4 * n + 1], sacc[4 * n + 2], sacc[4 * n + 3]);
+          } else {
+            const uint32_t at = peer(xmine, r);
+#pragma unroll
+            for (int n = 0; n < BK / 8; ++n) v[n] = ld_peer(at + n * NCW * 32 * 16);
+          }
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n) {
+            const float* w4 = reinterpret_cast<const float*>(&v[n]);
+#pragma unroll
+            for (int x = 0; x < 4; ++x) tot[4 * n + x] = r == 0 ? w4[x] : tot[4 * n + x] + w4[x];
+          }
+        }
+      } else {
+        // column group n (8 keys) is summed by rank owner(n) = n np / 8 alone,
+        // in rank order, published as Y, and read from there by the others:
+        // (np - 1) x 16 KB of remote reads a tile become about 2 x 16 KB
+        const uint32_t ymine = xmine - X_AT + Y_AT;
+        for (int r = 0; r < np; ++r) {
+          float4 v[BK / 8];
+          const uint32_t at = peer(xmine, r);
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n) {
+            if (((n * np) >> 3) != rank) continue;
+            v[n] = r == rank ? make_float4(sacc[4 * n], sacc[4 * n + 1], sacc[4 * n + 2],
+                                           sacc[4 * n + 3])
+                             : ld_peer(at + n * NCW * 32 * 16);
+          }
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n) {
+            if (((n * np) >> 3) != rank) continue;
+            const float* w4 = reinterpret_cast<const float*>(&v[n]);
+#pragma unroll
+            for (int x = 0; x < 4; ++x) tot[4 * n + x] = r == 0 ? w4[x] : tot[4 * n + x] + w4[x];
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+          if (((n * np) >> 3) == rank)
+            *reinterpret_cast<float4*>(smem + Y_AT + xb * XB + (n * NCW * 32 + tid) * 16) =
+                make_float4(tot[4 * n], tot[4 * n + 1], tot[4 * n + 2], tot[4 * n + 3]);
+        __syncwarp();
+        uint64_t* yw = ybar + xb * NCW + warp;
+        if (lane < np) arrive_peer(peer(smem_u32(yw), lane));
+        wait_cluster(yw, (kt >> 1) & 1);
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          const int owner = (n * np) >> 3;
+          if (owner == rank) continue;
+          const float4 v = ld_peer(peer(ymine, owner) + n * NCW * 32 * 16);
+          tot[4 * n] = v.x;
+          tot[4 * n + 1] = v.y;
+          tot[4 * n + 2] = v.z;
+          tot[4 * n + 3] = v.w;
+        }
+      }
+
+      // from here on kernel 1's tile step: masks, the online softmax, O += P V
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int r = g + 8 * (x >> 1), j = 8 * n + 2 * t + (x & 1);
+          const int i = q0 + ub + r;
+          float sc = tot[4 * n + x] * scale_log2;
+          if (masked && (!((live[j >> 5] >> (j & 31)) & 1) || (causal && k0 + j > i)))
+            sc = -INFINITY;
+          sacc[4 * n + x] = sc;
+          mx[x >> 1] = fmaxf(mx[x >> 1], sc);
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      }
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mu[hh] = mx[hh] == -INFINITY ? 0.f : mx[hh];  // a row with no visible key yet
+        alpha[hh] = exp2f(m[hh] - mu[hh]);
+        m[hh] = mx[hh];
+        l[hh] *= alpha[hh];
+      }
+#pragma unroll
+      for (int x = 0; x < PW / 2; ++x) oacc[x] *= alpha[(x >> 1) & 1];
+      uint32_t pa[BK / 16][4];  // P as bf16 A fragments, one set per k16 step
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        float p[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          p[x] = exp2f(sacc[4 * n + x] - mu[x >> 1]);
+          l[x >> 1] += p[x];
+        }
+        pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+        pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+      // O_r += P V_r: V [keys][128] read MN-major (a k16 step is 16 key rows)
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        mma_rs<PW, 1>(oacc, pa[kk], desc_mn(st + TILE + kk * 512, TILE / KS));
+      wg_commit();
+      wg_wait0();
+      fence_regs<PW / 2>(oacc);
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+    const size_t obase = (size_t)bh * T_len * D;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = q0 + ub + g + 8 * hh;
+      if (i >= T_len) continue;
+      const bool any = l[hh] > 0.f;
+      const float inv = any ? 1.f / l[hh] : 0.f;
+      bf* orow = o + obase + (size_t)i * D + rank * PW;
+#pragma unroll
+      for (int c = 0; c < PW / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t) =
+            pack_bf16(oacc[4 * c + 2 * hh] * inv, oacc[4 * c + 2 * hh + 1] * inv);
+      if (t == 0 && rank == 0)
+        lse[(size_t)bh * T_len + i] = any ? m[hh] * LN2 + logf(l[hh]) : 1e30f;
+    }
+  }
+  cluster_sync();  // no CTA leaves while another may read its partials
+}
+
+// The forward past d_head 256 in bf16, d_head a multiple of 128 in 2 to
+// MAX_PARTS parts: one cluster of D / 128 CTAs per (query tile, b h).
+cudaError_t fwd(const void* q, const void* k, const void* v, const void* e, const void* pad,
+                void* o, void* lse, int B, int H, int T_len, int D, int max_seq, int causal,
+                float scale, cudaStream_t stream) {
+  const int np = D / PW;
+  Maps maps;
+  cudaError_t err;
+  if ((err = sm90_host::slab_map(&maps.q, q, B * H, T_len, D, BQ, KS)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.k, k, B * H, T_len, D, BK, KS)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.v, v, B * H, T_len, D, BK, KS)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.e, e, 1, max_seq, D, BK, KS)) != cudaSuccess)
+    return err;
+  auto kernel = wide_fwd_tc_cluster_kernel;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TOTAL)) !=
+      cudaSuccess)
+    return err;
+  if (np > 8 && (err = cudaFuncSetAttribute(
+                     kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != cudaSuccess)
+    return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = np;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(np, B * H, (T_len + BQ - 1) / BQ);
+  cfg.blockDim = dim3(NTH, 1, 1);
+  cfg.dynamicSmemBytes = TOTAL;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, static_cast<const uint8_t*>(pad),
+                           static_cast<bf*>(o), static_cast<float*>(lse), H, T_len, D, max_seq,
+                           causal, LOG2E * scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace cl
+
 }  // namespace
 
 extern "C" {
 
 // Kernel 1 past d_head 256. The arguments of flash_rel_attn_fwd; dh: a
 // positive multiple of 32 (f32) or 64 (bf16); the wrappers pass multiples of
-// 128. Returns a
+// 128, which bf16 runs on cl::wide_fwd_tc_cluster_kernel up to 16 parts
+// (d_head 2048) and on tc::wide_fwd_tc_kernel past them. Returns a
 // cudaError_t: 0 when the launch was accepted. Launches on `stream` and does
 // not synchronise.
 int flash_rel_attn_wide_fwd(const void* q, const void* k, const void* v, const void* e,
@@ -1216,6 +1665,8 @@ int flash_rel_attn_wide_fwd(const void* q, const void* k, const void* v, const v
                                   static_cast<const float*>(v), static_cast<const float*>(e),
                                   pad8, static_cast<float*>(o), static_cast<float*>(lse), H,
                                   T_len, dh, max_seq, causal, scale);
+  } else if (dtype == 1 && dh % cl::PW == 0 && dh / cl::PW <= cl::MAX_PARTS) {
+    return cl::fwd(q, k, v, e, pad, o, lse, B, H, T_len, dh, max_seq, causal, scale, s);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
     if (dh % tc::KT != 0) return cudaErrorInvalidValue;

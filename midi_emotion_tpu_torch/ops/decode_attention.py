@@ -67,11 +67,14 @@ Source note for the kernel (``csrc/decode_attn_stacked.cu``):
     the groups, and a model with d_model above 1024 runs as independent head
     groups. The TPU kernel's (bb, bw) grid and its host-built layouts were
     Mosaic's needs and are not carried over;
-  * past d_head 256 (its tensor map's box and its k-step masks stop there)
-    the wrapper launches ``csrc/decode_attn_wide.cu`` instead, the same
-    function for the same TPU kernel: a block per (head, batch row) walking
-    the window blocks in order, q and the f32 accumulator in shared memory
-    at d_head floats, scores and PV on the CUDA cores (int8 in integers).
+  * past d_head 256 the wrapper launches ``csrc/decode_attn_wide.cu``
+    instead, the same function for the same TPU kernel: up to 1024
+    channels a head, the same kernel (``csrc/decode_attn_stacked.cuh``)
+    instantiated at d_head 384 to 1024, its E rows copied as jobs of their
+    own in 128-byte pieces (a tensor map's box stops at 256 columns);
+    past 1024, a block per (head, batch row) walking the window blocks in
+    order, q and the f32 accumulator in shared memory at d_head floats,
+    scores and PV on the CUDA cores (int8 in integers).
 """
 
 from __future__ import annotations

@@ -128,7 +128,14 @@ distance (dQ's relative term for 6 and 8), key-major (dK, dV) and
 distance-major (dE partials per (b, h), summed in order by a reduction).
 One owner per output element: deterministic, no atomics. bf16 on the
 tensor cores (``mma.sync``, f32 sums, P and dS' rounded to bf16 for the
-output products), f32 (the checks' path) on the CUDA cores.
+output products), f32 (the checks' path) on the CUDA cores. Kernel 1's
+bf16 forward (up to 16 parts, d_head 2048) runs instead on one
+thread-block cluster per query tile, a CTA per 128-column part: each CTA
+copies only its part's columns of Q, K, V and the E band by TMA and
+computes its partial score S_r + Srel_r by ``wgmma``; the partials are
+exchanged through distributed shared memory and summed in rank order, so
+each tile's score side is computed once, split by columns, and every CTA
+holds the same P; each then runs P V_r for its own columns by ``wgmma``.
 
 Source note for the other decompositions' kernels (details in their
 sources): in f32 (the checks' path) on the CUDA cores and bound by f32 FMAs

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_flash_bench.py                 # this checkout
     python3 scripts/torch_flash_bench.py --roots A B B A --check --train --decode
+    python3 scripts/torch_flash_bench.py --roots A B B A --wide
 
 Each root is a checkout of this repository (an unpacked ``git archive`` of
 another commit, say). For each root in the order given, a fresh process
@@ -20,6 +21,14 @@ with a pad tail:
 With ``--decode``, also the stacked-cache decode kernel 13 (``decode_attn_cached``,
 staged, as ``chip_smoke.check_decode`` times it: layer 13 of L 20, B 64,
 W 1408, length 1216, 4 stage rows, H 16, d_head 48), int8 and bf16.
+With ``--wide``, also kernels 1 and 13 past d_head 256 (their wide forms),
+at the flagship's width with 2 heads of 384 and 1 of 768: kernel 1
+(bf16, causal, a pad tail) at B 8, T 1216, and kernel 13 staged at layer 13
+of L 20, B 64, W 1408, length 1216, 4 stage rows, int8 and bf16 (the
+shapes of ``chip_smoke.streamed_flagship_kernels``); each is first held to
+its twin by ``chip_smoke.check_flash`` and ``check_decode`` at those
+shapes (kernel 13 at lengths 0 to 1400), and each library's ptxas report
+(registers, spills) is printed.
 With ``--train``, also the default (merged) train step of the flagship at
 B 8, T 1216, bf16, dropout 0.1 (``chip_smoke.py``'s CLI arguments, on its
 synthetic shards): after 2 warm-up steps, 3 steps under the profiler,
@@ -104,12 +113,45 @@ def decode_ms(torch, cs):
     return out
 
 
-def libraries(decode):
-    return ("flash_rel_attn_fwd", "flash_rel_attn_bwd") + (("decode_attn_stacked",) if decode
-                                                           else ())
+def wide_ms(torch, cs):
+    """Kernels 1 and 13 past d_head 256 (see the module docstring): CUPTI
+    device ms of one call, after the checks."""
+    from midi_emotion_tpu_torch.ops import decode_attention as da
+    from midi_emotion_tpu_torch.ops.flash_attention import flash_rel_attention
+
+    bf16 = torch.bfloat16
+    out = {}
+    for H, dh in ((2, 384), (1, 768)):
+        cs.check_flash(torch, cs.TRAIN_B, H, cs.TRAIN_T, dh, bf16, True, 2e-2, 1e-3, rel=True)
+        q, k, v, e, pad = cs._flash_inputs(torch, cs.TRAIN_B, H, cs.TRAIN_T, dh, bf16)
+        out[f"fwd_dh{dh}"] = cs.device_ms(torch, lambda: flash_rel_attention(q, k, v, e, True, pad))
+        del q, k, v, e, pad
+        shape = dict(L=20, B=64, W=1408, H=H, dh=dh, S=8)
+        for quant, mode in ((True, "int8"), (False, "bf16")):
+            torch.cuda.empty_cache()
+            cs.check_decode(torch, quant, shape=shape, lengths=(0, 1, 129, 700, 1216, 1400))
+            kv, sc, q, e, pend, row, _ = cs._decode_cache(torch, quant, cs.SEED + 5, shape)
+            length, p_cnt, dh_k = 1216, 4, da.cache_dh(dh)
+            e_rows = da.expand_e_rows(e, length + p_cnt + 1, shape["W"], dh_to=dh_k)
+            e_pend = da.expand_e_rows(e, p_cnt + 1, shape["S"] + 1, dh_to=dh_k)
+            # "decode": the kernel of either design (decode_attn_stacked_kernel,
+            # or the per-head decode_wide_kernel of earlier checkouts)
+            out[f"decode_{mode}_dh{dh}"] = cs.device_ms(
+                torch, lambda: da.decode_attn_cached(q, kv, sc, 13, e_rows, length, pend, e_pend,
+                                                     p_cnt, row),
+                iters=50, only="decode")
+            del kv, sc, pend
+        torch.cuda.empty_cache()
+    return out
 
 
-def worker(root, check, train, decode):
+def libraries(decode, wide):
+    return (("flash_rel_attn_fwd", "flash_rel_attn_bwd")
+            + (("decode_attn_stacked",) if decode else ())
+            + (("flash_rel_attn_wide", "decode_attn_wide") if wide else ()))
+
+
+def worker(root, check, train, decode, wide):
     import importlib.util
 
     sys.path.insert(0, root)  # the package comes from root
@@ -125,10 +167,13 @@ def worker(root, check, train, decode):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_all(libraries(decode))
+    build_all(libraries(decode, wide))
     for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd"):
         cs.print_ptxas(library_path(name), name)
         cs.print_sass_mma(library_path(name), name)
+    if wide:
+        for name in ("flash_rel_attn_wide", "decode_attn_wide"):
+            cs.print_ptxas(library_path(name), name)
     bf16 = torch.bfloat16
     if check:
         for T in (1, 63, 64, 65, 333, 1216):
@@ -157,6 +202,8 @@ def worker(root, check, train, decode):
     torch.cuda.empty_cache()
     if decode:
         out.update(decode_ms(torch, cs))
+    if wide:
+        out.update(wide_ms(torch, cs))
     if train:
         out.update(train_step(torch, cs, root))
     print("RESULT " + json.dumps(out), flush=True)
@@ -168,10 +215,11 @@ def main():
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--wide", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker, args.check, args.train, args.decode)
+        return worker(args.worker, args.check, args.train, args.decode, args.wide)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "no card"
@@ -180,14 +228,14 @@ def main():
     builds = [subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
          "from midi_emotion_tpu_torch.kernels.build import build_all; "
-         "build_all(tuple(sys.argv[2:]))", root, *libraries(args.decode)], cwd=root)
+         "build_all(tuple(sys.argv[2:]))", root, *libraries(args.decode, args.wide)], cwd=root)
         for root in dict.fromkeys(roots)]
     if any(b.wait() for b in builds):
         sys.exit("torch_flash_bench: a build failed")
     rows = []
     for root in roots:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", root]
-        flags = [f"--{f}" for f in ("check", "train", "decode") if getattr(args, f)]
+        flags = [f"--{f}" for f in ("check", "train", "decode", "wide") if getattr(args, f)]
         proc = subprocess.run(cmd + flags, cwd=root, capture_output=True, text=True, timeout=1800)
         print(proc.stdout[-20000:], proc.stderr[-4000:], sep="\n", flush=True)
         if proc.returncode != 0:

@@ -32,6 +32,18 @@ def test_header_edit_changes_the_includers_libraries(csrc):
         assert after[name] != before[name], name
 
 
+def test_decode_header_edit_changes_both_decode_libraries(csrc):
+    """decode_attn_stacked.cuh holds kernel 13, which decode_attn_stacked.cu
+    builds up to d_head 256 and decode_attn_wide.cu past it."""
+    before = _paths()
+    header = csrc / "decode_attn_stacked.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _paths()
+    for name in ("decode_attn_stacked", "decode_attn_wide"):
+        assert after[name] != before[name], name
+        assert '#include "decode_attn_stacked.cuh"' in (csrc / f"{name}.cu").read_text(), name
+
+
 @pytest.mark.parametrize("name", build.CUDA_SOURCES)
 def test_source_edit_changes_only_its_library(csrc, name):
     before = _paths()

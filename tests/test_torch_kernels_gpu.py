@@ -433,6 +433,45 @@ def test_flash_kernels_wide_heads_streamed_bf16(cuda, dh, T, causal):
                          _pad(2, T, cuda))
 
 
+# kernel 1's bf16 forward past d_head 256 runs on one thread-block cluster
+# per query tile, a CTA per 128 columns: 3 CTAs at 320 and 384, 4 at 512,
+# 6 at 768, 8 at 1024, 9 (a non-portable cluster size) at 1152
+CLUSTER_DHS = [320, 384, 512, 768, 1024, 1152]
+
+
+@pytest.mark.parametrize("dh", CLUSTER_DHS)
+@pytest.mark.parametrize("T", [1, 63, 65, 1216])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_cluster_forward_bf16(cuda, dh, T, causal):
+    """Kernel 1's cluster forward against its twin at the bf16 tolerances:
+    ragged last tiles, a pad tail, the fully masked row (causal), and a
+    second launch bitwise the first (the parts' partial scores are summed
+    in rank order, no atomics)."""
+    q, k, v, e = _qkve(2, 2, T, dh, 2048, torch.bfloat16, seed=18)
+    pad = _pad(2, T, cuda) if T > 1 else None
+    o, lse = _assert_fwd_bf16(q, k, v, e, causal, pad)
+    if causal and pad is not None:
+        assert o[1, :, 0].eq(0).all() and lse[1, :, 0].eq(1e30).all()
+    o2, lse2 = flash_rel_attention(q, k, v, e, causal, pad)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_wide_cluster_forward_launches_the_cluster_kernel(cuda):
+    """Past d_head 256 the bf16 forward's one launch is the cluster kernel
+    (counted by the wrapper), not the per-part kernel it replaced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, e = _qkve(2, 2, 333, 384, 512, torch.bfloat16, seed=19)
+    before = flash_rel_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_rel_attention(q, k, v, e, True, None)
+        torch.cuda.synchronize()
+    assert flash_rel_attention.launches == before + 1
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("wide_fwd_tc_cluster_kernel" in n for n in names), names
+    assert not any("wide_fwd_tc_kernel" in n for n in names), names
+
+
 @pytest.mark.parametrize("kernel", list(BWD_KERNELS))
 @pytest.mark.parametrize("dh", DECOMPOSITION_WIDE_DHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -778,13 +817,16 @@ def test_train_step_kernels_match_plain_twins(cuda):
 
 # d_head past 128: the flagship's width with 3 heads of 256 at its serving
 # shape, 4 of 192, one of 192 (rows whose halves are not 128-byte
-# multiples), and 160 laid out at 192; past 256, where the wide kernel
-# runs: the flagship's width with 2 heads of 384, 320 laid out at 384, 768
+# multiples), and 160 laid out at 192; past 256, where the stacked kernel's
+# wide instantiations run: the flagship's width with 2 heads of 384, 320
+# laid out at 384, 2 heads of 512, 768, 1024; and past 1024 channels a head
+# (the per-head kernel), 1152
 DECODE_WIDE = [(64, 1408, 3, 256, 2), (4, 256, 4, 192, 2), (4, 256, 1, 192, 2),
                (4, 256, 2, 160, 2), (64, 1408, 2, 384, 2), (4, 256, 2, 320, 2),
-               (4, 256, 1, 768, 2)]
+               (4, 256, 1, 768, 2), (4, 256, 2, 512, 2), (4, 256, 1, 1024, 2),
+               (2, 256, 1, 1152, 2)]
 DECODE_WIDE_IDS = ["flagship-dh256", "dh192", "dh192-h1", "dh160", "flagship-dh384", "dh320",
-                   "dh768"]
+                   "dh768", "dh512", "dh1024", "dh1152"]
 
 
 def _decode_inputs(B, W, H, dh, L, S, quant, seed=0):
@@ -939,8 +981,9 @@ def test_decode_kernel_every_cluster_split(cuda, quant, B):
 def test_decode_kernel_q_dtypes_and_head_groups(cuda, quant, q_dtype):
     """q as it comes (f32 or bf16; the kernel quantizes and casts it) against
     the twin given the same q, at H 16 and at H 20: the kernel's score units
-    take 8 heads, so H 20 ends on a partial unit of 4."""
-    for B, W, H, dh in ((4, 384, 16, 48), (3, 512, 20, 32)):
+    take 8 heads, so H 20 ends on a partial unit of 4; and on the wide
+    instantiations, 2 heads of 384 and 1 of 1024."""
+    for B, W, H, dh in ((4, 384, 16, 48), (3, 512, 20, 32), (4, 384, 2, 384), (2, 384, 1, 1024)):
         kv, sc, q, e, pend, row, vmax = _decode_inputs(B, W, H, dh, 2, 8, quant, seed=3)
         q = q.to(q_dtype)
         for length in (1, 300, W - 8):
