@@ -36,16 +36,20 @@ Phases, each fatal on failure:
      at B 8, kernel 13 at L 20, B 64, W 1408); past the built widths, on
      the wide kernels (csrc/flash_rel_attn_wide.cu, csrc/decode_attn_wide.cu;
      kernel 1's bf16 forward there is a cluster of CTAs per query tile,
-     kernel 13 up to 1024 channels a head the stacked kernel's wide
-     instantiations): kernels 1 and 4 at 320 (padded to 384), 384 and 768,
-     kernel 1 in bf16 at 1152 (a 9-CTA cluster), kernels 5-9 at 192, 256
+     kernel 4's bf16 backward a cluster of CTAs per (b, h) and split of
+     its key tiles, kernel 13 up to 1024 channels a head the stacked
+     kernel's wide instantiations): kernels 1 and 4 at 320 (padded to
+     384), 384 and 768, kernels 1 and 4 in bf16 at 1152 (a 9-CTA cluster;
+     the SASS check fails on either cluster kernel without HGMMA), kernels
+     5-9 at 192, 256
      and 384, kernel 13 at 320, 384, 768, 1024 and 1152, f32 and bf16 at
      small B; kernels 1, 4, 5-9 and 13 timed at the flagship's width with
      2 heads of 384 and 1 of 768 (the JSON rows' ``streamed_heads``: the
      flash kernels at B 8, T 1216, kernel 13 at L 20, B 64, W 1408) beside
      their twins, SDPA and the bound, with the ptxas registers and spills
-     of kernel 1's cluster forward and kernel 13's wide instantiations
-     (``streamed_heads.ptxas``); and at the widths that were the limits (272
+     of kernel 1's cluster forward, kernel 4's cluster backward and kernel
+     13's wide instantiations (``streamed_heads.ptxas``); and at the widths
+     that were the limits (272
      on kernels 1, 4 and 13, 144 on 5-9 under split and fused) every
      wrapper launching its kernel while the plain twins and SDPA refuse to
      run;
@@ -1831,11 +1835,14 @@ def streamed_flagship_kernels(torch, card):
               + "; ".join(f"{name} {m['ms']:.4f} (plain {m['plain_ms']:.4f}, library "
                           f"{m['library_ms'] if m['library_ms'] is None else round(m['library_ms'], 4)}"
                           f", bound {m['bound_ms']:.4f})" for name, m in row.items()))
-    # the redesigned wide forms' registers and spills: kernel 1's cluster
-    # forward and kernel 13's wide instantiations
+    # the redesigned wide forms' registers and spills: kernels 1 and 4's
+    # cluster kernels and kernel 13's wide instantiations
     from midi_emotion_tpu_torch.kernels.build import library_path
 
-    for name, lib, pick in (("flash_rel_attn_fwd", "flash_rel_attn_wide", "cluster"),
+    for name, lib, pick in (("flash_rel_attn_fwd", "flash_rel_attn_wide",
+                             "wide_fwd_tc_cluster_kernel"),
+                            ("flash_rel_attn_bwd", "flash_rel_attn_wide",
+                             "wide_bwd_tc_cluster_kernel"),
                             ("decode_attn_stacked", "decode_attn_wide",
                              "decode_attn_stacked_kernel")):
         regs = {kern: {"registers": r, "spilled": sp}
@@ -2389,9 +2396,10 @@ def main():
                  "wide_dq_tc_kernel", "wide_dkdv_tc_kernel", "wide_de_tc_kernel"):
         if want not in tc_kernels:
             fail(f"no tensor-core kernel {want} in the SASS")
-    # kernel 1's bf16 forward past d_head 256: the cluster kernel, on wgmma
-    if tc_kernels.get("wide_fwd_tc_cluster_kernel", {"HGMMA": 0})["HGMMA"] == 0:
-        fail("no wgmma (HGMMA) instruction in wide_fwd_tc_cluster_kernel")
+    # kernels 1 and 4 in bf16 past d_head 256: the cluster kernels, on wgmma
+    for want in ("wide_fwd_tc_cluster_kernel", "wide_bwd_tc_cluster_kernel"):
+        if tc_kernels.get(want, {"HGMMA": 0})["HGMMA"] == 0:
+            fail(f"no wgmma (HGMMA) instruction in {want}")
 
     # phase 3 -----------------------------------------------------------
     # Tolerances: f32 pins the algorithm (kernel and twin both sum in f32,
@@ -2458,10 +2466,12 @@ def main():
                                                   S=8), lengths=(0, 1, 127, 128, 129, 200, 248))
     check_flash(torch, 2, 2, 200, 384, torch.bfloat16, False, 2e-2, 1e-3, rel=True)
     check_flash_bwd(torch, 2, 2, 200, 384, torch.float32, False, 1e-4)
-    # kernel 1's cluster forward at 9 CTAs (a non-portable cluster size);
-    # kernel 13 at 1024, its widest stacked instantiation, and at 1152, past
-    # it, on the per-head kernel
+    # kernels 1 and 4's cluster kernels at 9 CTAs (a non-portable cluster
+    # size); kernel 13 at 1024, its widest stacked instantiation, and at
+    # 1152, past it, on the per-head kernel
     check_flash(torch, 2, 1, 333, 1152, torch.bfloat16, True, 2e-2, 1e-3, rel=True)
+    check_flash_bwd(torch, 2, 1, 333, 1152, torch.bfloat16, True, 2e-2)
+    check_flash_bwd(torch, 2, 1, 200, 1152, torch.bfloat16, False, 2e-2)
     for dh in (1024, 1152):
         for quant in (True, False):
             check_decode(torch, quant, shape=dict(L=2, B=4, W=256, H=1, dh=dh, S=8),

@@ -63,11 +63,15 @@
 //
 // Bound on the H100: operations. The score side is recomputed for each part
 // (d_head / 128 times) and each sweep: that is the cost of this simple
-// design, measured in PERF.md. Kernel 1's bf16 forward no longer pays it:
-// up to 16 parts it runs on cl::wide_fwd_tc_cluster_kernel (below), a
-// thread-block cluster of one CTA a part that computes each tile's score
-// side once, split by columns, on wgmma fed by TMA, and sums the parts'
-// partial scores through distributed shared memory.
+// design, measured in PERF.md. Kernels 1 and 4 in bf16 no longer pay it:
+// up to 16 parts each runs on a thread-block cluster of one CTA a part
+// that computes each tile pair's score side once, split by columns, on
+// wgmma fed by TMA, and sums the parts' partials through distributed
+// shared memory: cl::wide_fwd_tc_cluster_kernel (the forward, a cluster
+// per query tile) and cl::wide_bwd_tc_cluster_kernel (the merged backward,
+// a cluster per (b, h) and split of its key tiles, S and dP exchanged, each
+// CTA's own columns of dV, dK, dQ and dE after; both below). Kernels 5-9,
+// f32, and bf16 past 16 parts keep the sweeps.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1633,6 +1637,628 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const void* e, cons
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward (kernel 4) on wgmma: a thread-block cluster per key-tile sweep
+// ---------------------------------------------------------------------------
+//
+// tc::bwd runs three sweeps (key-major, query-major, distance-major), and
+// each recomputes the whole score side (S, the band, dP) in every one of
+// its d_head / 128 blocks. Here one cluster of np = d_head / 128 CTAs
+// computes each tile pair's score side once, split by columns, and every
+// output of the pair from it. Ownership is the narrow kernel 4's
+// (flash_rel_attn_bwd.cu): a cluster sweeps key tiles kt = s, s + S, ...
+// of one (b, h) (split s of S, alternate key tiles for the causal
+// balance) and, inside, the query tiles that see them; dK and dV of the key
+// tile stay in registers; dQ and dE accumulate in f32 partials that belong
+// to split s alone, which two small kernels sum in split order (no atomics).
+//
+// CTA r owns d_head columns 128 r .. 128 r + 127 and copies only those of
+// K and V (per key tile), Q and dO (per pair, a two-stage ring) and the E
+// band (in 64-row chunks, a ring of four: consecutive query tiles' bands
+// share a chunk), by TMA under mbarriers, thread 0 refilling each slot
+// right after the barrier that ends its last reader (a ninth, producer
+// warp would cap every thread at 168 registers, where the kernel spills).
+// Two warpgroups, warp w of each owning rows 16 w .. 16 w + 15 of every
+// 64-row accumulator. Per tile pair:
+//   * A: warpgroup 0 computes S_r = Q_r K_r^T and the band Q_r E_band,r^T
+//     (m64n64 each, over the part's 8 k16 steps), skews the band into Srel
+//     through a per-warp scratch and adds it; warpgroup 1 computes dP_r =
+//     dO_r V_r^T. Both publish (S_r + Srel_r and dP_r, 2 x 64 x 64 f32, one
+//     buffer) and signal row group w of every rank;
+//   * the exchange: warpgroup h reads key columns 32 h .. 32 h + 31 of
+//     both partials of every rank through distributed shared memory and
+//     sums them in rank order (all-pull below SCATTER_PARTS parts; from
+//     there a reduce-scatter in place, rank n np / 8 summing column group
+//     n, and an all-gather), so every CTA holds bitwise the same S and dP;
+//     P = exp(s - lse) and dS' = c P (dP - dsum) in f32, 0 where masked,
+//     rounded to bf16 into shared tiles with dS' also scattered by distance
+//     into dsd, as the narrow kernel does; then a signal that the buffer
+//     may be written again;
+//   * B, the CTA's own columns only: warpgroup 0 dV_r += P^T dO_r and dQ_r
+//     = (the partial's rows) + dS' K_r + dsd E_band,r, written back;
+//     warpgroup 1 dK_r += dS'^T Q_r and the dE block the query tile
+//     finishes, dsd[:, 64..]^T Q_r plus the block carried from the previous
+//     query tile and the partial's rows, written back; then dsd[:, ..63]^T
+//     Q_r is the block carried to the next query tile.
+// A split's first key tile writes its partial rows without reading them:
+// it reaches every row any later key tile of the split reaches.
+//
+// Measured on the H100 (PERF.md, by scripts/torch_wide_bwd_ablation.py):
+// the exchange takes about a quarter of the call and reading the partial
+// rows back a sixth; the rest is each warpgroup running a pair's phases in
+// turn, with nothing of the next pair under them.
+
+namespace bw {
+
+constexpr int THREADS = 32 * 2 * NCW;    // two warpgroups
+constexpr int SLAB = BQ * 32;            // a slab of a 64-row tile: 2048 bytes
+constexpr int NQ = 2;                    // Q, dO ring stages
+constexpr int NCH = 4;                   // the E ring, in chunks of 64 rows
+constexpr int HW = 48;                   // band columns a warp reads per 32 keys: 47 distances
+constexpr int HWS = HW + 8;              // row stride of a warp's skew scratch (floats)
+constexpr int MAX_SPLIT = 2;             // clusters a (b, h), at most
+constexpr int R = PW / 2;                // a thread's registers of a 64 x 128 f32 accumulator
+constexpr int XN = 32 * 16;              // 512: column group n (8 keys) of a row group's partial
+constexpr int XW = 2 * (BK / 8) * 32 * 16;  // 8192: a row group's S and dP partials
+constexpr int QD_AT = 0;                      // [NQ]: Q, dO
+constexpr int EC_AT = QD_AT + NQ * 2 * TILE;  // [NCH] E chunks
+constexpr int KV_AT = EC_AT + NCH * TILE;     // K, V
+constexpr int P_AT = KV_AT + 2 * TILE;       // P [64 q][64 k] in 4 slabs
+constexpr int DS_AT = P_AT + 4 * SLAB;       // dS', the same
+constexpr int DSD_AT = DS_AT + 4 * SLAB;     // dS' by distance [64 q][128 v] in 8 slabs
+constexpr int XP_AT = DSD_AT + 8 * SLAB;     // [row group][S, dP][column group n][lane] float4
+constexpr int BARS_AT = XP_AT + NCW * XW;
+constexpr int NBAR = NQ + 1 + 3 * NCW;
+constexpr int SMEM = BARS_AT + 8 * NBAR + 1024;  // + room to align to 1024
+static_assert(SMEM <= 232448, "a CTA's shared memory");
+static_assert(16 * HWS * 4 <= XW / 2, "a warp's skew scratch fits its row group's S buffer");
+
+}  // namespace bw
+
+struct BwdMaps {
+  CUtensorMap q, k, v, d, e;  // q, k, v, dO: [B*H][T][dh]; e: [max_seq][dh], in slabs, 8 a box
+};
+
+struct BwdArgs {
+  const uint8_t* pad;
+  const float* lse;
+  const float* dsum;
+  bf* dk;
+  bf* dv;
+  float* dq_part;  // [S][B*H][T][dh]
+  float* de_part;  // [S][B*H][T][dh], row = distance
+  int H, T_len, D, max_seq, causal, nsplit;
+  float scale, scale_log2;
+};
+
+// rows row0 + step * rl (rl = 16 wq + g + 8 hh, this thread's accumulator
+// rows) of an f32 [T][dh] partial, the part's columns c0..: into a (add:
+// onto a); rows outside [0, T) read as zeros
+__device__ __forceinline__ void part_rows_in(float (&a)[bw::R], const float* src, int row0,
+                                             int step, int T_len, int D, int c0, int wq, bool add) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + step * (16 * wq + g + 8 * hh);
+    const bool ok = row >= 0 && row < T_len;
+#pragma unroll
+    for (int c = 0; c < PW / 8; ++c) {
+      const float2 x = ok ? *reinterpret_cast<const float2*>(src + (size_t)row * D + c0 + 8 * c +
+                                                             2 * t)
+                          : make_float2(0.f, 0.f);
+      a[4 * c + 2 * hh] = add ? a[4 * c + 2 * hh] + x.x : x.x;
+      a[4 * c + 2 * hh + 1] = add ? a[4 * c + 2 * hh + 1] + x.y : x.y;
+    }
+  }
+}
+
+// a (m64n128 accumulator layout) into those rows of the partial
+__device__ __forceinline__ void part_rows_out(float* dst, const float (&a)[bw::R], int row0,
+                                              int step, int T_len, int D, int c0, int wq) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + step * (16 * wq + g + 8 * hh);
+    if (row < 0 || row >= T_len) continue;
+    float* at = dst + (size_t)row * D + c0 + 2 * t;
+#pragma unroll
+    for (int c = 0; c < PW / 8; ++c)
+      *reinterpret_cast<float2*>(at + 8 * c) = make_float2(a[4 * c + 2 * hh], a[4 * c + 2 * hh + 1]);
+  }
+}
+
+// Thread 0's copies, in the pairs' order: the K and V of a key tile once
+// the last key tile is done (one stage), and a pair's Q, dO and its band's
+// new E chunk (both chunks at a key tile's first pair) once the pair NQ
+// back is done. Band row v of pair (q0, k0) is E row r0 + v, at distance
+// q0 - k0 + 64 - v; the next query tile's band starts 64 rows lower, so its
+// rows 64.. are this band's rows ..63.
+struct BwdProducer {
+  const BwdMaps* maps;
+  unsigned char* smem;
+  int bh, c2, nsplit, n_tiles, causal, max_seq;
+  int kt0, kt, qt;               // the cluster's first key tile; the next pair to copy
+  int n_kt, n_kv, n_pairs, cnt;  // key tiles of the cluster, K/V, pairs and E chunks copied
+
+  __device__ __forceinline__ void produce(int pairs_done, int kts_done) {
+    using namespace bw;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + BARS_AT);
+    uint64_t* kvfull = full + NQ;
+    if (n_kv == kts_done && n_kv < n_kt) {
+      const int k0 = (kt0 + n_kv * nsplit) * BK;
+      mbar_expect_tx(kvfull, 2 * TILE);
+      tma_load(smem + KV_AT, &maps->k, 0, k0, c2, bh, kvfull);
+      tma_load(smem + KV_AT + TILE, &maps->v, 0, k0, c2, bh, kvfull);
+      ++n_kv;
+    }
+    while (kt < n_tiles && n_pairs < pairs_done + NQ) {
+      const int s = n_pairs % NQ, q0 = qt * BQ, k0 = kt * BK, qt0 = causal ? kt : 0;
+      const int r0 = max_seq - EB - (q0 - k0 - (BK - 1));
+      mbar_expect_tx(&full[s], (qt == qt0 ? 4 : 3) * TILE);
+      unsigned char* st = smem + QD_AT + s * 2 * TILE;
+      tma_load(st, &maps->q, 0, q0, c2, bh, &full[s]);
+      tma_load(st + TILE, &maps->d, 0, q0, c2, bh, &full[s]);
+      if (qt == qt0)
+        tma_load(smem + EC_AT + (cnt++ % NCH) * TILE, &maps->e, 0, r0 + BQ, c2, 0, &full[s]);
+      tma_load(smem + EC_AT + (cnt++ % NCH) * TILE, &maps->e, 0, r0, c2, 0, &full[s]);
+      ++n_pairs;
+      if (++qt == n_tiles) {
+        kt += nsplit;
+        qt = causal ? kt : 0;
+      }
+    }
+  }
+};
+
+// One consumer warpgroup's sweep (see the note above): WG 0 computes S and
+// the band, then dV and dQ; WG 1 dP, then dK and dE. Each runs its own loop,
+// so neither holds the other's accumulators.
+template <int WG>
+__device__ __forceinline__ void bwd_consumer(const BwdMaps& maps, const BwdArgs& a,
+                                             unsigned char* smem, uint32_t base, int wq, int rank,
+                                             int np, int bh, int sp) {
+  using namespace bw;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int b = bh / a.H, T_len = a.T_len, D = a.D, c0 = rank * PW;
+  const int n_tiles = (T_len + BK - 1) / BK, BH = gridDim.y / a.nsplit;
+  const size_t rbase = (size_t)bh * T_len, obase = rbase * D;
+  const size_t part = ((size_t)sp * BH + bh) * T_len * D;
+  float* dqa = a.dq_part + part;
+  float* dea = a.de_part + part;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BARS_AT);
+  uint64_t* kvfull = full + NQ;
+  uint64_t* xfull = kvfull + 1;  // [NCW]: row group w published by both warpgroups of every rank
+  uint64_t* xsum = xfull + NCW;   // [NCW]: (reduce-scatter) every rank's owned groups summed
+  uint64_t* xfree = xsum + NCW;   // [NCW]: row group w's buffer read by every rank
+  const uint32_t p_t = base + P_AT, ds_t = base + DS_AT, dsd_t = base + DSD_AT;
+  unsigned char* xrow = smem + XP_AT + wq * XW;  // this row group's S, then dP buffer
+  // this warpgroup's column groups 4 WG .. 4 WG + 3 (keys 32 WG ..) of both
+  const uint32_t xs = base + XP_AT + wq * XW + 4 * WG * XN + lane * 16;
+
+  const int qt_first = a.causal ? sp : 0, n_kt = (n_tiles - sp + a.nsplit - 1) / a.nsplit;
+  BwdProducer prod = {&maps, smem, bh, rank * KS, a.nsplit, n_tiles, a.causal, a.max_seq,
+                      sp, sp, qt_first, n_kt, 0, 0, 0};
+  if (WG == 0 && tid == 0) prod.produce(0, 0);
+  float acc[R];   // WG 0: dV of the key tile, WG 1: dK (rows = keys)
+  float work[R];  // WG 0: dQ of the pair; WG 1: the dE block carried between query tiles
+  int p = 0, cnt = 0, lower = 0, kti = 0;
+  for (int kt = sp; kt < n_tiles; kt += a.nsplit, ++kti) {
+    const int k0 = kt * BK, qt0 = a.causal ? kt : 0;
+    const bool first_kt = kt == sp;  // the partial rows are not yet written
+    const int key = k0 + 32 * WG + lane;
+    const uint32_t live = __ballot_sync(
+        0xffffffffu, key < T_len && !(a.pad != nullptr && a.pad[(size_t)b * T_len + key]));
+#pragma unroll
+    for (int x = 0; x < R; ++x) acc[x] = work[x] = 0.f;
+    mbar_wait(kvfull, kti & 1);
+    const uint32_t k_t = base + KV_AT, v_t = k_t + TILE;
+    for (int qt = qt0; qt < n_tiles; ++qt, ++p) {
+      const int s = p % NQ, q0 = qt * BQ;
+      const bool last_q = qt == n_tiles - 1;
+      const int upper = qt == qt0 ? cnt++ % NCH : lower;  // band rows 64..127
+      lower = cnt++ % NCH;                                // band rows 0..63
+      const uint32_t q_t = base + QD_AT + s * 2 * TILE, do_t = q_t + TILE;
+      const uint32_t lo_t = base + EC_AT + lower * TILE, up_t = base + EC_AT + upper * TILE;
+      float lse_r[2], dsum_r[2];  // rows g and g + 8 of the warp (lse in log2 units)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = q0 + 16 * wq + g + 8 * hh;
+        lse_r[hh] = i < T_len ? a.lse[rbase + i] * LOG2E : 0.f;
+        dsum_r[hh] = i < T_len ? a.dsum[rbase + i] : 0.f;
+      }
+      mbar_wait(&full[s], (p / NQ) & 1);
+
+      // ---- phase A: this warpgroup's product over the part's columns
+      {
+        float sc[BK / 2];
+        if (WG == 0) {
+          float bacc[2][BK / 2];  // band rows 0..63, 64..127
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            const uint64_t da = desc_k(q_t + kk * SLAB);
+            mma_ss<BK, 0, 0>(sc, da, desc_k(k_t + kk * SLAB), kk > 0);
+            mma_ss<BK, 0, 0>(bacc[0], da, desc_k(lo_t + kk * SLAB), kk > 0);
+            mma_ss<BK, 0, 0>(bacc[1], da, desc_k(up_t + kk * SLAB), kk > 0);
+          }
+          wg_commit();
+          wg_wait0();
+          fence_regs<BK / 2>(sc);
+          fence_regs<BK / 2>(bacc[0]);
+          fence_regs<BK / 2>(bacc[1]);
+          // every rank has read this row group's buffer of the previous pair
+          if (p > 0) wait_cluster(&xfree[wq], (p - 1) & 1);
+          // the skew, 32 keys at a time through the S buffer: row r, key
+          // 32 hf + j reads band column 64 - (16 wq + r) + 32 hf + j, which
+          // lands at scratch column 16 - r + j
+          float* scr = reinterpret_cast<float*>(xrow);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int cb = 6 - 2 * wq + 4 * hf;  // the first band chunk of 8 the half reads
+#pragma unroll
+            for (int c = 0; c < 2 * BK / 8; ++c) {
+              const int cc = c - cb;
+              if (cc >= 0 && cc < HW / 8) {
+                const float* bc = bacc[c / 8] + 4 * (c % 8);
+                *reinterpret_cast<float2*>(scr + g * HWS + 8 * cc + 2 * t) = make_float2(bc[0], bc[1]);
+                *reinterpret_cast<float2*>(scr + (g + 8) * HWS + 8 * cc + 2 * t) =
+                    make_float2(bc[2], bc[3]);
+              }
+            }
+            __syncwarp();
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) {
+                const int r = g + 8 * (x >> 1), j = 8 * n + 2 * t + (x & 1);
+                sc[4 * (4 * hf + n) + x] += scr[r * HWS + 16 - r + j];
+              }
+            __syncwarp();  // the scratch is read before the partial takes its place
+          }
+        } else {
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            mma_ss<BK, 0, 0>(sc, desc_k(do_t + kk * SLAB), desc_k(v_t + kk * SLAB), kk > 0);
+          wg_commit();
+          wg_wait0();
+          fence_regs<BK / 2>(sc);
+          if (p > 0) wait_cluster(&xfree[wq], (p - 1) & 1);
+        }
+        // publish: S_r + Srel_r (WG 0) or dP_r (WG 1), column group n at n XN
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+          *reinterpret_cast<float4*>(xrow + WG * (XW / 2) + n * XN + lane * 16) =
+              make_float4(sc[4 * n], sc[4 * n + 1], sc[4 * n + 2], sc[4 * n + 3]);
+        __syncwarp();
+        if (lane < np) arrive_peer(peer(smem_u32(&xfull[wq]), lane));
+      }
+
+      // ---- the exchange: this warpgroup's 4 column groups of S and dP,
+      // summed over the ranks in rank order
+      float ts[16], tp[16];
+      wait_cluster(&xfull[wq], p & 1);
+      if (np < SCATTER_PARTS) {
+        for (int r = 0; r < np; ++r) {
+          const uint32_t at = peer(xs, r);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const float4 u = ld_peer(at + n * XN), v = ld_peer(at + XW / 2 + n * XN);
+            const float us[4] = {u.x, u.y, u.z, u.w}, vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              ts[4 * n + x] = r == 0 ? us[x] : ts[4 * n + x] + us[x];
+              tp[4 * n + x] = r == 0 ? vs[x] : tp[4 * n + x] + vs[x];
+            }
+          }
+        }
+      } else {
+        // column group 4 WG + n is summed by rank owner = (4 WG + n) np / 8
+        // alone, in rank order, written over its own partial and read from
+        // there by the others
+        for (int r = 0; r < np; ++r) {
+          const uint32_t at = peer(xs, r);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            if ((((4 * WG + n) * np) >> 3) != rank) continue;
+            const float4 u = ld_peer(at + n * XN), v = ld_peer(at + XW / 2 + n * XN);
+            const float us[4] = {u.x, u.y, u.z, u.w}, vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              ts[4 * n + x] = r == 0 ? us[x] : ts[4 * n + x] + us[x];
+              tp[4 * n + x] = r == 0 ? vs[x] : tp[4 * n + x] + vs[x];
+            }
+          }
+        }
+        unsigned char* mine = xrow + 4 * WG * XN + lane * 16;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          if ((((4 * WG + n) * np) >> 3) == rank) {
+            *reinterpret_cast<float4*>(mine + n * XN) =
+                make_float4(ts[4 * n], ts[4 * n + 1], ts[4 * n + 2], ts[4 * n + 3]);
+            *reinterpret_cast<float4*>(mine + XW / 2 + n * XN) =
+                make_float4(tp[4 * n], tp[4 * n + 1], tp[4 * n + 2], tp[4 * n + 3]);
+          }
+        __syncwarp();
+        if (lane < np) arrive_peer(peer(smem_u32(&xsum[wq]), lane));
+        wait_cluster(&xsum[wq], p & 1);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int owner = ((4 * WG + n) * np) >> 3;
+          if (owner == rank) continue;
+          const uint32_t at = peer(xs, owner);
+          const float4 u = ld_peer(at + n * XN), v = ld_peer(at + XW / 2 + n * XN);
+          ts[4 * n] = u.x;
+          ts[4 * n + 1] = u.y;
+          ts[4 * n + 2] = u.z;
+          ts[4 * n + 3] = u.w;
+          tp[4 * n] = v.x;
+          tp[4 * n + 1] = v.y;
+          tp[4 * n + 2] = v.z;
+          tp[4 * n + 3] = v.w;
+        }
+      }
+
+      // P and dS' of this warpgroup's keys, as the narrow kernel's phase A
+      {
+        const bool masked = q0 + 16 * wq + 15 >= T_len || live != 0xffffffffu ||
+                            (a.causal && k0 + 32 * WG + 31 > q0 + 16 * wq);
+        const bf zero = __float2bfloat16(0.f);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int il = 16 * wq + g + 8 * hh, i = q0 + il;
+            const int jw = 8 * n + 2 * t, jl = 32 * WG + jw;  // key in the warpgroup, the tile
+            float pr[2], ds[2];
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int e = 4 * n + 2 * hh + x;
+              const bool ok = !masked || (i < T_len && ((live >> (jw + x)) & 1) &&
+                                          !(a.causal && k0 + jl + x > i));
+              pr[x] = ok ? exp2f(ts[e] * a.scale_log2 - lse_r[hh]) : 0.f;
+              ds[x] = pr[x] * (tp[e] - dsum_r[hh]) * a.scale;
+            }
+            const uint32_t at = (jl >> 4) * SLAB + sw32(il, jl & 15);
+            *reinterpret_cast<uint32_t*>(smem + P_AT + at) = pack_bf16(pr[0], pr[1]);
+            const uint32_t dsb = pack_bf16(ds[0], ds[1]);
+            *reinterpret_cast<uint32_t*>(smem + DS_AT + at) = dsb;
+            const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
+            // distance i - (k0 + jl + x) sits at band column 64 - il + jl + x
+            const int v = 64 - il + jl, dist = i - (k0 + jl);
+            *reinterpret_cast<bf*>(smem + DSD_AT + (v >> 4) * SLAB + sw32(il, v & 15)) =
+                dist >= 0 ? d2.x : zero;
+            *reinterpret_cast<bf*>(smem + DSD_AT + ((v + 1) >> 4) * SLAB + sw32(il, (v + 1) & 15)) =
+                dist - 1 >= 0 ? d2.y : zero;
+          }
+      }
+      fence_async_smem();
+      __syncwarp();  // the warp's reads of every rank's buffer are done (their values used)
+      if (lane < np) arrive_peer(peer(smem_u32(&xfree[wq]), lane));
+      named_barrier(1, 32 * 2 * NCW);  // P, dS' and dsd are in place
+
+      // ---- phase B: the CTA's own columns
+      if (WG == 0) {
+        wg_fence();
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq)  // dV += P^T dO
+          mma_ss<PW, 1, 1>(acc, desc_mn(p_t + 512 * kq, SLAB), desc_mn(do_t + 512 * kq, SLAB));
+        wg_commit();
+        // the split's dQ rows of the query tile so far, read under dV's product
+        if (first_kt) {
+#pragma unroll
+          for (int x = 0; x < R; ++x) work[x] = 0.f;
+        } else {
+          part_rows_in(work, dqa, q0, 1, T_len, D, c0, wq, false);
+        }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)  // dQ += dS' K
+          mma_ss<PW, 0, 1>(work, desc_k(ds_t + kk * SLAB), desc_mn(k_t + 512 * kk, SLAB));
+#pragma unroll
+        for (int kv = 0; kv < EB / 16; ++kv)  // + dsd E_band
+          mma_ss<PW, 0, 1>(work, desc_k(dsd_t + kv * SLAB),
+                           desc_mn((kv < 4 ? lo_t : up_t) + 512 * (kv & 3), SLAB));
+        wg_commit();
+        wg_wait0();
+        fence_regs<R>(acc);
+        fence_regs<R>(work);
+        part_rows_out(dqa, work, q0, 1, T_len, D, c0, wq);
+      } else {
+        wg_fence();
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq)  // dK += dS'^T Q
+          mma_ss<PW, 1, 1>(acc, desc_mn(ds_t + 512 * kq, SLAB), desc_mn(q_t + 512 * kq, SLAB));
+        wg_commit();
+        // the dE block the query tile finishes (band rows 64 + rl: distance
+        // q0 - k0 - rl) gets the partial's rows, read under dK's product
+        if (!first_kt) part_rows_in(work, dea, q0 - k0, -1, T_len, D, c0, wq, true);
+        wg_fence();
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq)
+          mma_ss<PW, 1, 1>(work, desc_mn(dsd_t + 4 * SLAB + 512 * kq, SLAB),
+                           desc_mn(q_t + 512 * kq, SLAB));
+        wg_commit();
+        wg_wait0();
+        fence_regs<R>(acc);
+        fence_regs<R>(work);
+        part_rows_out(dea, work, q0 - k0, -1, T_len, D, c0, wq);
+        // band rows 0..63: the next query tile's finished block
+        wg_fence();
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq)
+          mma_ss<PW, 1, 1>(work, desc_mn(dsd_t + 512 * kq, SLAB), desc_mn(q_t + 512 * kq, SLAB),
+                           kq > 0);
+        wg_commit();
+        wg_wait0();
+        fence_regs<R>(work);
+        if (last_q) {  // no next query tile: the block is done (distance q0 + 64 - k0 - rl)
+          if (!first_kt) part_rows_in(work, dea, q0 + BQ - k0, -1, T_len, D, c0, wq, true);
+          part_rows_out(dea, work, q0 + BQ - k0, -1, T_len, D, c0, wq);
+        }
+      }
+      if (last_q) {  // the key tile's dV (WG 0) or dK (WG 1), cast to bf16
+        bf* out = (WG == 0 ? a.dv : a.dk) + obase;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int j = k0 + 16 * wq + g + 8 * hh;
+          if (j >= T_len) continue;
+          bf* row = out + (size_t)j * D + c0 + 2 * t;
+#pragma unroll
+          for (int c = 0; c < PW / 8; ++c)
+            *reinterpret_cast<uint32_t*>(row + 8 * c) =
+                pack_bf16(acc[4 * c + 2 * hh], acc[4 * c + 2 * hh + 1]);
+        }
+      }
+      named_barrier(1, 32 * 2 * NCW);  // every product of the pair is done with its tiles
+      if (WG == 0 && tid == 0) prod.produce(p + 1, kti + last_q);
+    }
+  }
+}
+
+// One cluster of np = D / 128 CTAs per (b h, split), grid (np, B * H *
+// nsplit); warpgroup 0 (with thread 0's copies) and warpgroup 1.
+__global__ void __launch_bounds__(bw::THREADS, 1)
+wide_bwd_tc_cluster_kernel(const __grid_constant__ BwdMaps maps, const __grid_constant__ BwdArgs a) {
+  using namespace bw;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BARS_AT);  // [NQ], then K/V's
+  uint64_t* xbars = full + NQ + 1;  // xfull, xsum, xfree: [NCW] each
+  const int tid = threadIdx.x, warp = warp_index();
+  const int rank = cluster_rank(), np = cluster_size();
+  const int sp = blockIdx.y % a.nsplit, bh = blockIdx.y / a.nsplit;
+
+  if (tid == 0) {
+    for (int s = 0; s < NQ + 1; ++s) mbar_init(&full[s], 1);
+    for (int x = 0; x < 3 * NCW; ++x) mbar_init(&xbars[x], 2 * np);
+    mbar_init_fence();
+  }
+  // dsd's entries no pair reaches stay zero
+  for (int x = tid; x < 8 * SLAB / 16; x += THREADS)
+    reinterpret_cast<uint4*>(smem + DSD_AT)[x] = make_uint4(0u, 0u, 0u, 0u);
+  fence_async_smem();
+  cluster_sync();  // every rank's barriers exist before any rank arrives on them
+  if (warp < NCW)
+    bwd_consumer<0>(maps, a, smem, base, warp, rank, np, bh, sp);
+  else
+    bwd_consumer<1>(maps, a, smem, base, warp - NCW, rank, np, bh, sp);
+  cluster_sync();  // no CTA leaves while another may read its partials
+}
+
+// dQ = the splits' partials summed in split order, cast once; split s
+// holds the query tiles its key tiles reach (causal: from tile s on). 4
+// values a thread (n is a multiple of 128).
+__global__ void bwd_dq_reduce_kernel(const float* __restrict__ part, bf* __restrict__ dq, size_t n,
+                                     int T_len, int D, int nsplit, int causal) {
+  const size_t x = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (x >= n) return;
+  const int qt = (int)((x / D) % T_len) / BQ;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < nsplit && !(causal && s > qt); ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(part + s * n + x);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  *reinterpret_cast<uint2*>(dq + x) = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+}
+
+// dE[m, c] = for the distance d = max_seq - 1 - m < T, the partials of
+// every split that reaches d (split s: d <= 64 (tiles - s)), by split, then
+// (b, h); 0 for the others
+__global__ void bwd_de_reduce_kernel(const float* __restrict__ part, bf* __restrict__ de, int BH,
+                                     int T_len, int D, int max_seq, int nsplit) {
+  const size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= (size_t)max_seq * D) return;
+  const int m = (int)(x / D), c = (int)(x - (size_t)m * D), d = max_seq - 1 - m;
+  const int n_tiles = (T_len + BK - 1) / BK;
+  float acc = 0.f;
+  if (d < T_len)
+    for (int s = 0; s < nsplit && d <= BK * (n_tiles - s); ++s)
+      for (int bh = 0; bh < BH; ++bh) acc += part[(((size_t)s * BH + bh) * T_len + d) * D + c];
+  de[x] = __float2bfloat16(acc);
+}
+
+// Clusters a (b, h): two, on alternate key tiles, where the card holds
+// both of every (b, h) at once; else one.
+inline cudaError_t bwd_splits(int BH, int n_tiles, int np, int* nsplit) {
+  static int clusters[64][MAX_PARTS + 1] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (clusters[dev][np] == 0) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = np;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(np, 1, 1);
+    cfg.blockDim = dim3(bw::THREADS, 1, 1);
+    cfg.dynamicSmemBytes = bw::SMEM;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters[dev][np], wide_bwd_tc_cluster_kernel,
+                                              &cfg)) != cudaSuccess)
+      return err;
+  }
+  *nsplit = n_tiles >= 2 && bw::MAX_SPLIT * BH <= clusters[dev][np] ? bw::MAX_SPLIT : 1;
+  return cudaSuccess;
+}
+
+// Kernel 4's backward past d_head 256 in bf16, d_head a multiple of 128 in 2
+// to MAX_PARTS parts; scratch: f32 [2 MAX_SPLIT][B * H][T][dh], the splits'
+// dQ partials, then their dE partials.
+cudaError_t bwd(const Bwd& p, cudaStream_t stream) {
+  const int np = p.D / PW, BH = p.B * p.H, n_tiles = (p.Tn + BK - 1) / BK;
+  BwdMaps maps;
+  cudaError_t err;
+  if ((err = sm90_host::slab_map(&maps.q, p.q, BH, p.Tn, p.D, BQ, KS)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.k, p.k, BH, p.Tn, p.D, BK, KS)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.v, p.v, BH, p.Tn, p.D, BK, KS)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.d, p.dout, BH, p.Tn, p.D, BQ, KS)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.e, p.e, 1, p.ms, p.D, BQ, KS)) != cudaSuccess)
+    return err;
+  auto kernel = wide_bwd_tc_cluster_kernel;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  bw::SMEM)) != cudaSuccess)
+    return err;
+  if (np > 8 && (err = cudaFuncSetAttribute(
+                     kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != cudaSuccess)
+    return err;
+  int nsplit = 1;
+  if ((err = bwd_splits(BH, n_tiles, np, &nsplit)) != cudaSuccess) return err;
+  const size_t n = (size_t)BH * p.Tn * p.D;
+  BwdArgs a = {p.pad, p.lse, p.dsum, static_cast<bf*>(p.dk), static_cast<bf*>(p.dv),
+               p.de_part, p.de_part + nsplit * n, p.H, p.Tn, p.D, p.ms, p.causal, nsplit,
+               p.scale, p.scale * LOG2E};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = np;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(np, BH * nsplit, 1);
+  cfg.blockDim = dim3(bw::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = bw::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, maps, a)) != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_dq_reduce_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
+      a.dq_part, static_cast<bf*>(p.dq), n, p.Tn, p.D, nsplit, p.causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t m = (size_t)p.ms * p.D;
+  bwd_de_reduce_kernel<<<(unsigned)((m + 255) / 256), 256, 0, stream>>>(
+      a.de_part, static_cast<bf*>(p.de), BH, p.Tn, p.D, p.ms, nsplit);
+  return cudaGetLastError();
+}
+
 }  // namespace cl
 
 }  // namespace
@@ -1686,9 +2312,11 @@ int flash_rel_attn_wide_fwd(const void* q, const void* k, const void* v, const v
 // The backward of kernel `kernel` (4, 5, 6, 7, 8 or 9) past its built
 // d_head: dq, dk, dv, de as that kernel's wrapper returns them (dq is dQ,
 // dQ's key term for 7 and its relative term for 8), the ones it does not
-// compute null; de_part: f32 scratch [B * H, T, dh] for 4, 5, 6 and 8. The
-// other arguments as flash_rel_attn_bwd's; dh: a positive multiple of 32
-// (f32) or 64 (bf16).
+// compute null; de_part: f32 scratch [B * H, T, dh] for 4, 5, 6 and 8, but
+// [4 * B * H, T, dh] for 4 in bf16 with dh a multiple of 128 up to 16
+// parts (2048), which runs on cl::wide_bwd_tc_cluster_kernel (its splits'
+// dQ and dE partials). The other arguments as flash_rel_attn_bwd's; dh: a
+// positive multiple of 32 (f32) or 64 (bf16).
 int flash_rel_attn_wide_bwd(const void* q, const void* k, const void* v, const void* e,
                             const void* pad, const void* dout, const void* lse, const void* dsum,
                             void* dq, void* dk, void* dv, void* de, void* de_part, int B, int H,
@@ -1708,6 +2336,8 @@ int flash_rel_attn_wide_bwd(const void* q, const void* k, const void* v, const v
            static_cast<float*>(de_part), B, H, T_len, dh, max_seq, causal, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd(p, kernel, s);
+  if (dtype == 1 && kernel == 4 && dh % cl::PW == 0 && dh / cl::PW <= cl::MAX_PARTS)
+    return cl::bwd(p, s);
   if (dtype == 1) return dh % tc::KT != 0 ? cudaErrorInvalidValue : tc::bwd(p, kernel, s);
   return cudaErrorInvalidValue;
 }

@@ -52,7 +52,10 @@ cut back. Past its built widths (above 256 for kernels 1 and 4, above 128
 for kernels 5-9) a wrapper launches the same kernel's wide form,
 ``csrc/flash_rel_attn_wide.cu``, which never holds d_head whole: its score
 side streams d_head through shared memory in chunks and each block
-computes the outputs' columns of one 128-column part. Kernels 1 and
+computes the outputs' columns of one 128-column part, or (kernels 1 and 4
+in bf16, up to ``CLUSTER_MAX_PARTS`` parts) a cluster of one CTA a part
+splits the score side by columns and sums it through distributed shared
+memory. Kernels 1 and
 4 compute d_head 192 and 256 in two column halves, a block each (the
 products over d_head done in both). bf16 operands must be 16-byte aligned
 (the kernels copy 16-byte units); fresh and contiguous tensors are.
@@ -136,6 +139,15 @@ computes its partial score S_r + Srel_r by ``wgmma``; the partials are
 exchanged through distributed shared memory and summed in rank order, so
 each tile's score side is computed once, split by columns, and every CTA
 holds the same P; each then runs P V_r for its own columns by ``wgmma``.
+Kernel 4's bf16 backward (the same widths) runs on one cluster per (b, h)
+and split of its key tiles (up to ``WIDE_BWD_SPLITS``, alternate key
+tiles), sweeping each key tile's query tiles as the narrow kernel 4 does:
+per tile pair CTA r computes S_r + Srel_r and dP_r by ``wgmma`` over its
+columns, both are summed in rank order through distributed shared
+memory, so every CTA has the same P and dS'; then, on its own columns
+only, dV_r and dK_r in registers across the key tile, dQ_r and dE_r
+(by distance) into the split's f32 partials, which two small kernels sum
+in split order: one owner per element, no atomics.
 
 Source note for the other decompositions' kernels (details in their
 sources): in f32 (the checks' path) on the CUDA cores and bound by f32 FMAs
@@ -192,6 +204,11 @@ from .attention import rel_position_bias, relative_attention
 KERNEL_DHS = (16, 32, 48, 64, 96, 128, 192, 256)  # kernels 1, 4 and the decode kernel 13
 DECOMPOSITION_DHS = KERNEL_DHS[:6]  # kernels 5-9, up to 128
 WIDE_PART = 128  # past KERNEL_DHS, heads are padded to a multiple of this
+# csrc/flash_rel_attn_wide.cu's cl::MAX_PARTS: kernels 1 and 4 in bf16 run
+# on a cluster of one CTA a part up to this many parts; and bw::MAX_SPLIT:
+# kernel 4's cluster backward runs at most this many clusters a (b, h)
+CLUSTER_MAX_PARTS = 16
+WIDE_BWD_SPLITS = 2
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # variable -> (default, allowed values), as pallas_attention.py:187-190
@@ -529,9 +546,13 @@ def _launch_wide_bwd(kernel, q, k, v, e, causal, pad_keys, lse, dsum, do, outs, 
     """Launch ``csrc/flash_rel_attn_wide.cu``'s backward for ``kernel`` (4-9)
     on heads already padded: ``outs`` maps "dq", "dk", "dv", "de" to the
     outputs that kernel writes; an f32 dE partial [B*H, T, dh] per (b, h)
-    is allocated where it writes dE."""
+    is allocated where it writes dE, and for kernel 4's cluster backward
+    (bf16, up to ``CLUSTER_MAX_PARTS`` parts) a dQ and a dE partial per
+    split of up to ``WIDE_BWD_SPLITS``."""
     B, H, T, dh_k = q.shape
-    de_part = (torch.empty((B * H, T, dh_k), dtype=torch.float32, device=q.device)
+    slabs = (2 * WIDE_BWD_SPLITS if kernel == 4 and q.dtype == torch.bfloat16
+             and dh_k // WIDE_PART <= CLUSTER_MAX_PARTS else 1)
+    de_part = (torch.empty((slabs * B * H, T, dh_k), dtype=torch.float32, device=q.device)
                if "de" in outs else None)
     _launch("flash_rel_attn_wide_bwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),

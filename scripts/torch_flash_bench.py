@@ -21,14 +21,16 @@ with a pad tail:
 With ``--decode``, also the stacked-cache decode kernel 13 (``decode_attn_cached``,
 staged, as ``chip_smoke.check_decode`` times it: layer 13 of L 20, B 64,
 W 1408, length 1216, 4 stage rows, H 16, d_head 48), int8 and bf16.
-With ``--wide``, also kernels 1 and 13 past d_head 256 (their wide forms),
-at the flagship's width with 2 heads of 384 and 1 of 768: kernel 1
-(bf16, causal, a pad tail) at B 8, T 1216, and kernel 13 staged at layer 13
+With ``--wide``, also kernels 1, 4 and 13 past d_head 256 (their wide
+forms), at the flagship's width with 2 heads of 384 and 1 of 768: kernel 1
+(bf16, causal, a pad tail) at B 8, T 1216; kernel 4's whole call at the
+same shape (``bwd_dh*``), beside SDPA's backward (``bwd_dh*_sdpa``, as
+``chip_smoke.check_flash_bwd`` builds it); and kernel 13 staged at layer 13
 of L 20, B 64, W 1408, length 1216, 4 stage rows, int8 and bf16 (the
 shapes of ``chip_smoke.streamed_flagship_kernels``); each is first held to
-its twin by ``chip_smoke.check_flash`` and ``check_decode`` at those
-shapes (kernel 13 at lengths 0 to 1400), and each library's ptxas report
-(registers, spills) is printed.
+its twin by ``chip_smoke.check_flash``, ``check_flash_bwd`` and
+``check_decode`` at those shapes (kernel 13 at lengths 0 to 1400), and each
+library's ptxas report (registers, spills) is printed.
 With ``--train``, also the default (merged) train step of the flagship at
 B 8, T 1216, bf16, dropout 0.1 (``chip_smoke.py``'s CLI arguments, on its
 synthetic shards): after 2 warm-up steps, 3 steps under the profiler,
@@ -114,8 +116,8 @@ def decode_ms(torch, cs):
 
 
 def wide_ms(torch, cs):
-    """Kernels 1 and 13 past d_head 256 (see the module docstring): CUPTI
-    device ms of one call, after the checks."""
+    """Kernels 1, 4 and 13 past d_head 256 (see the module docstring):
+    CUPTI device ms of one call, after the checks."""
     from midi_emotion_tpu_torch.ops import decode_attention as da
     from midi_emotion_tpu_torch.ops.flash_attention import flash_rel_attention
 
@@ -126,6 +128,9 @@ def wide_ms(torch, cs):
         q, k, v, e, pad = cs._flash_inputs(torch, cs.TRAIN_B, H, cs.TRAIN_T, dh, bf16)
         out[f"fwd_dh{dh}"] = cs.device_ms(torch, lambda: flash_rel_attention(q, k, v, e, True, pad))
         del q, k, v, e, pad
+        torch.cuda.empty_cache()
+        bwd = cs.check_flash_bwd(torch, cs.TRAIN_B, H, cs.TRAIN_T, dh, bf16, True, 2e-2, timed=True)
+        out[f"bwd_dh{dh}"], out[f"bwd_dh{dh}_sdpa"] = bwd["ms"], bwd["library_ms"]
         shape = dict(L=20, B=64, W=1408, H=H, dh=dh, S=8)
         for quant, mode in ((True, "int8"), (False, "bf16")):
             torch.cuda.empty_cache()

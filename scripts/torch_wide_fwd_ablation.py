@@ -63,6 +63,52 @@ def variants(text):
             "no_exchange": all_pull.replace(PULL, OWN).replace(SIGNAL, "")}
 
 
+def card_name():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def build_variants(texts, kernel):
+    """Each variant's flash_rel_attn_wide.cu (``texts``: name -> source)
+    built into build/ablation/<name>/, one nvcc each, all at once (the
+    other sources copied beside it load the libraries built from them as
+    they are); prints
+    the registers and spills of ``kernel``. Returns name -> directory."""
+    import chip_smoke as cs
+    from midi_emotion_tpu_torch.kernels import build
+
+    src_dir = build.CSRC_DIR
+    dirs, started = {}, []
+    for name, src in texts.items():
+        d = build.PACKAGE_DIR.parent / "build" / "ablation" / name
+        d.mkdir(parents=True, exist_ok=True)
+        for other in (*src_dir.glob("*.cuh"), *src_dir.glob("*.cu")):  # the same hashes
+            shutil.copy(other, d)
+        (d / "flash_rel_attn_wide.cu").write_text(src)
+        dirs[name] = d
+        build.CSRC_DIR = d
+        started.append((name, *build._start_build("flash_rel_attn_wide")))
+    for name, proc, tmp in started:
+        build.CSRC_DIR = dirs[name]
+        build._finish_build("flash_rel_attn_wide", proc, tmp)
+        for kern, regs, spilled in cs.ptxas_report(build.library_path("flash_rel_attn_wide"))[0]:
+            if kernel in kern:
+                print(f"{name}: {kern}: {regs} registers, {spilled} bytes spilled")
+    build.CSRC_DIR = src_dir
+    return dirs
+
+
+def use_variant(d):
+    """Load the kernels of build directory ``d`` at the wrappers' next launch."""
+    from midi_emotion_tpu_torch.kernels import build
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    build.CSRC_DIR = d
+    build.cuda_library.cache_clear()
+    fa._function.cache_clear()
+
+
 def main():
     import torch
 
@@ -72,35 +118,16 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("torch_wide_fwd_ablation: needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
     src_dir = build.CSRC_DIR
-    text = (src_dir / "flash_rel_attn_wide.cu").read_text()
-    dirs, started = {}, []
-    for name, src in variants(text).items():  # one nvcc each, all at once
-        d = build.PACKAGE_DIR.parent / "build" / "ablation" / name
-        d.mkdir(parents=True, exist_ok=True)
-        for header in src_dir.glob("*.cuh"):
-            shutil.copy(header, d)
-        (d / "flash_rel_attn_wide.cu").write_text(src)
-        dirs[name] = d
-        build.CSRC_DIR = d
-        started.append((name, *build._start_build("flash_rel_attn_wide")))
-    for name, proc, tmp in started:
-        build.CSRC_DIR = dirs[name]
-        build._finish_build("flash_rel_attn_wide", proc, tmp)
-        for kern, regs, spilled in cs.ptxas_report(build.library_path("flash_rel_attn_wide"))[0]:
-            if "cluster" in kern:
-                print(f"{name}: {kern}: {regs} registers, {spilled} bytes spilled")
+    dirs = build_variants(variants((src_dir / "flash_rel_attn_wide.cu").read_text()),
+                          "wide_fwd_tc_cluster_kernel")
     bf16 = torch.bfloat16
     out = {"card": card}
     for rnd in range(2):
         for name, d in dirs.items():
-            build.CSRC_DIR = d
-            build.cuda_library.cache_clear()
-            fa._function.cache_clear()
+            use_variant(d)
             for H, dh in ((2, 384), (1, 768), (1, 1024)):
                 q, k, v, e, pad = cs._flash_inputs(torch, cs.TRAIN_B, H, cs.TRAIN_T, dh, bf16)
                 o, _ = fa.flash_rel_attention(q, k, v, e, True, pad)

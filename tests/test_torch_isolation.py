@@ -100,7 +100,8 @@ def test_port_sources_import_no_jax_package():
     files = [os.path.join(REPO, "chip_smoke.py")]
     # the kernel bench and ablation scripts, which run on the card's machine
     files += [os.path.join(REPO, "scripts", n)
-              for n in ("torch_flash_bench.py", "torch_wide_fwd_ablation.py")]
+              for n in ("torch_flash_bench.py", "torch_wide_fwd_ablation.py",
+                        "torch_wide_bwd_ablation.py")]
     for root, _, names in os.walk(os.path.join(REPO, "midi_emotion_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

@@ -472,6 +472,76 @@ def test_wide_cluster_forward_launches_the_cluster_kernel(cuda):
     assert not any("wide_fwd_tc_kernel" in n for n in names), names
 
 
+# kernel 4's bf16 backward past d_head 256 runs on one thread-block cluster
+# per (b, h) and split of its key tiles, a CTA per 128 columns, at the same
+# widths: 3 CTAs at 320 and 384 up to 9 at 1152
+
+
+@pytest.mark.parametrize("dh", CLUSTER_DHS)
+@pytest.mark.parametrize("T", [1, 63, 65, 333])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_cluster_backward_bf16(cuda, dh, T, causal):
+    """Kernel 4's cluster backward against its twin at the bf16 tolerances
+    (phase 3's 2e-2 of 1 + each gradient's scale): ragged last tiles, a
+    pad tail, one and two splits of the key tiles, the fully masked row's
+    dQ 0 (causal), and a second call bitwise the first (the parts' partial
+    S and dP summed in rank order, the splits' partials in split order, no
+    atomics)."""
+    q, k, v, e = _qkve(2, 2, T, dh, 2048, torch.bfloat16, seed=20)
+    pad = _pad(2, T, cuda)
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(q.dtype)
+    got = flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    want = flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do)
+    _assert_grads_bf16(("dq", "dk", "dv", "de"), got, want)
+    if causal:
+        assert got[0][1, :, 0].eq(0).all()
+    again = flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_cluster_backward_masked_rows(cuda, causal):
+    """A batch row whose keys are all pad: its query rows see no key, so
+    its dQ, dK and dV are zero, and dE is the other row's alone."""
+    q, k, v, e = _qkve(2, 1, 200, 768, 256, torch.bfloat16, seed=21)
+    pad = torch.zeros((2, 200), dtype=torch.bool, device=cuda)
+    pad[1] = True
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    do = torch.randn(o.shape, device=cuda).to(q.dtype)
+    got = flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    for name, grad in zip(("dq", "dk", "dv"), got):
+        assert grad[1].eq(0).all(), name
+    want = flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do)
+    _assert_grads_bf16(("dq", "dk", "dv", "de"), got, want)
+    alone = flash_rel_attention_bwd_plain(*(t[:1] for t in (q, k, v)), e, causal, pad[:1],
+                                          o[:1], lse[:1], do[:1])
+    _assert_grads_bf16(("de",), got[3:], alone[3:])
+
+
+def test_wide_cluster_backward_launches_the_cluster_kernel(cuda):
+    """Past d_head 256 the bf16 merged backward's main launch is the
+    cluster kernel (counted by the wrapper), not the three sweeps it
+    replaced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, e = _qkve(2, 2, 333, 384, 512, torch.bfloat16, seed=22)
+    o, lse = flash_rel_attention(q, k, v, e, True, None)
+    do = torch.randn(o.shape, device=cuda).to(q.dtype)
+    torch.cuda.synchronize()
+    before = flash_rel_attention_bwd.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_rel_attention_bwd(q, k, v, e, True, None, o, lse, do)
+        torch.cuda.synchronize()
+    assert flash_rel_attention_bwd.launches == before + 1
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("wide_bwd_tc_cluster_kernel" in n for n in names), names
+    for sweep in ("wide_dkdv_tc_kernel", "wide_dq_tc_kernel", "wide_de_tc_kernel"):
+        assert not any(sweep in n for n in names), (sweep, names)
+
+
 @pytest.mark.parametrize("kernel", list(BWD_KERNELS))
 @pytest.mark.parametrize("dh", DECOMPOSITION_WIDE_DHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -1,9 +1,10 @@
-"""Torch port, the work partitions of the wide forms of kernels 1 and 13
+"""Torch port, the work partitions of the wide forms of kernels 1, 4 and 13
 (d_head past 256), restated in torch and held to the plain twins on the CPU.
 
-Both kernels run only on the card. Their index algebra is restated here in
-f32 and held to ``flash_rel_attention_plain`` and
-``decode_attn_cached_plain``:
+The kernels run only on the card. Their index algebra is restated here in
+f32 and held to ``flash_rel_attention_plain``,
+``flash_rel_attention_bwd_plain`` (and, at one shape, the JAX package's
+merged Pallas backward) and ``decode_attn_cached_plain``:
 
   * kernel 1 (``csrc/flash_rel_attn_wide.cu``,
     ``cl::wide_fwd_tc_cluster_kernel``): one cluster per 64-row query tile
@@ -14,6 +15,20 @@ f32 and held to ``flash_rel_attention_plain`` and
     Srel_r; the partials are summed in rank order (every CTA the same sum),
     then the masks and the online softmax, and O_r += P V_r for the CTA's
     own columns;
+  * kernel 4 (``csrc/flash_rel_attn_wide.cu``,
+    ``cl::wide_bwd_tc_cluster_kernel``): one cluster per (b, h) and split
+    s of S, sweeping key tiles s, s + S, ... and inside the query tiles
+    that see them, CTA r owning d_head columns 128 r .. 128 r + 127. Per
+    tile pair CTA r computes S_r + Srel_r and dP_r over its own columns;
+    both are summed in rank order, so every CTA has the same P and dS';
+    then its own columns: dV_r += P^T dO_r, dK_r += dS'^T Q_r, dQ_r =
+    dS' K_r + dsd E_band,r added to split s's f32 partial rows, and dE by
+    distance: dsd (dS' at band column 64 - i + j, zero for a negative
+    distance) gives dsd^T Q_r, whose band rows 64.. finish the distance
+    block the query tile closes (with the block carried from the previous
+    query tile) and whose rows ..63 are carried to the next; the splits'
+    partials are summed in split order (dQ: causal, split s from query
+    tile s on; dE: distances up to 64 (tiles - s));
   * kernel 13 (``csrc/decode_attn_stacked.cuh``, the wide instantiations
     in ``csrc/decode_attn_wide.cu``): the cluster of a batch row splits the
     live window blocks of ``bw`` keys, rank r taking blocks r * per ..
@@ -132,6 +147,163 @@ def test_kernel1_cluster_partition_matches_twin(dh, T, causal):
     torch.testing.assert_close(lse, rlse, rtol=1e-6, atol=1e-6)
     if causal and T > 1:  # the fully masked row: O = 0, lse = 1e30
         assert o[1, :, 0].eq(0).all() and lse[1, :, 0].eq(1e30).all()
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: the cluster backward
+# ---------------------------------------------------------------------------
+
+
+def _band_dist(q0, k0):
+    """[128] distance of each band row of pair (q0, k0): q0 - k0 + 64 - v."""
+    return q0 - k0 + BK - torch.arange(BQ + BK)
+
+
+def kernel4_cluster_partition(q, k, v, e, causal, pad, lse, dsum, do, nsplit):
+    """-> (dq, dk, dv, de) by the cluster backward's partition (see the
+    module note), ``nsplit`` clusters a (b, h)."""
+    T, dh = q.shape[2], q.shape[3]
+    n_parts, n_tiles = dh // PW, -(-T // BK)
+    c = 1.0 / math.sqrt(dh)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    dq_part = torch.zeros((nsplit, B, H, T, dh))
+    de_part = torch.zeros((nsplit, B, H, T, dh))  # row = distance
+    R = torch.arange(BQ)[:, None]
+    j = torch.arange(BK)[None, :]
+    skew = (BK - R + j).expand(B, H, BQ, BK)  # row R, key j: band column 64 - R + j
+    cols = [slice(PW * r, PW * r + PW) for r in range(n_parts)]
+
+    def part_rows(part, sp, rows, blk, first):
+        """blk's rows into part[sp] at ``rows`` (those in [0, T)): stored
+        in the split's first key tile, added after."""
+        ok = (rows >= 0) & (rows < T)
+        idx = rows[ok]
+        part[sp][..., idx, :] = blk[..., ok, :] + (0 if first else part[sp][..., idx, :])
+
+    for sp in range(nsplit):
+        for kt in range(sp, n_tiles, nsplit):
+            k0 = kt * BK
+            first = kt == sp
+            ks, vs = _tile(k, k0, BK, T), _tile(v, k0, BK, T)
+            live = torch.ones((B, BK), dtype=torch.bool)
+            live[:, max(0, T - k0):] = False
+            live[:, :max(0, min(BK, T - k0))] &= ~pad[:, k0:k0 + BK]
+            dk_t, dv_t = torch.zeros((B, H, BK, dh)), torch.zeros((B, H, BK, dh))
+            carried = torch.zeros((B, H, BK, dh))  # band rows 0..63 of the last query tile
+            for qt in range(kt if causal else 0, n_tiles):
+                q0 = qt * BQ
+                qs, dos = _tile(q, q0, BQ, T), _tile(do, q0, BQ, T)
+                band = _e_band(e, q0, k0)
+                s_tot = dp_tot = None
+                for r in range(n_parts):  # rank order
+                    s_r = qs[..., cols[r]] @ ks[..., cols[r]].transpose(-1, -2) \
+                        + (qs[..., cols[r]] @ band[:, cols[r]].T).gather(-1, skew)
+                    dp_r = dos[..., cols[r]] @ vs[..., cols[r]].transpose(-1, -2)
+                    s_tot = s_r if s_tot is None else s_tot + s_r
+                    dp_tot = dp_r if dp_tot is None else dp_tot + dp_r
+                i = q0 + R
+                ok = (live[:, None, None, :] & (i < T)[None, None]
+                      & ~(causal & (k0 + j > i))[None, None])
+                rows = torch.arange(q0, q0 + BQ).clamp(max=T - 1)
+                lse_t = torch.where(i[:, 0] < T, lse[..., rows], 0.0)
+                dsum_t = torch.where(i[:, 0] < T, dsum[..., rows], 0.0)
+                p = torch.where(ok, torch.exp(s_tot * c - lse_t[..., None]), 0.0)
+                ds = p * (dp_tot - dsum_t[..., None]) * c
+                # dS' by distance: dsd[i, 64 - i + j] = dS'[i, j] where i - j >= 0
+                dsd = torch.zeros((B, H, BQ, BQ + BK))
+                dsd.scatter_(-1, skew, torch.where(q0 + R - (k0 + j) >= 0, ds, 0.0))
+                dq_t = torch.zeros((B, H, BQ, dh))
+                de_lo = torch.zeros((B, H, BK, dh))
+                de_hi = torch.zeros((B, H, BK, dh))
+                for r in range(n_parts):  # each CTA its own columns
+                    cr = cols[r]
+                    dv_t[..., cr] += p.transpose(-1, -2) @ dos[..., cr]
+                    dk_t[..., cr] += ds.transpose(-1, -2) @ qs[..., cr]
+                    dq_t[..., cr] = ds @ ks[..., cr] + dsd @ band[:, cr]
+                    de_band = dsd.transpose(-1, -2) @ qs[..., cr]
+                    de_lo[..., cr] = carried[..., cr] + de_band[..., BK:, :]
+                    de_hi[..., cr] = de_band[..., :BK, :]
+                part_rows(dq_part, sp, torch.arange(q0, q0 + BQ), dq_t, first)
+                part_rows(de_part, sp, _band_dist(q0, k0)[BK:], de_lo, first)
+                carried = de_hi
+            part_rows(de_part, sp, _band_dist(n_tiles * BQ, k0)[BK:], carried, first)
+            n = min(BK, T - k0)
+            dk[:, :, k0:k0 + n] = dk_t[:, :, :n]
+            dv[:, :, k0:k0 + n] = dv_t[:, :, :n]
+    dq = torch.zeros_like(q)
+    for i in range(T):  # split order; causal: split s from query tile s on
+        for sp in range(nsplit):
+            if not (causal and sp > i // BQ):
+                dq[:, :, i] += dq_part[sp][:, :, i]
+    de = torch.zeros_like(e)
+    for d in range(T):  # by split, then (b, h)
+        for sp in range(nsplit):
+            if d <= BK * (n_tiles - sp):
+                for bb in range(B):
+                    for hh in range(H):
+                        de[e.shape[0] - 1 - d] += de_part[sp, bb, hh, d]
+    return dq, dk, dv, de
+
+
+def _bwd_inputs(T, dh, causal, masked_row=True):
+    """Kernel 1's inputs, a cotangent and the forward's (O, lse); without
+    ``masked_row``, the pad tail alone (no query row sees only pad keys)."""
+    q, k, v, e, pad = _flash_inputs(T, dh, causal)
+    if not masked_row:
+        pad[1, 0] = False
+    rng = np.random.default_rng(dh + T + 11)
+    do = torch.from_numpy(rng.standard_normal((B, H, T, dh)).astype(np.float32))
+    o, lse = fa.flash_rel_attention_plain(q, k, v, e, causal, pad)
+    return q, k, v, e, pad, o, lse, do
+
+
+@pytest.mark.parametrize("dh", [384, 768, 1152])
+@pytest.mark.parametrize("T,causal", [(130, True), (130, False), (1, True), (65, True)],
+                         ids=["T130-causal", "T130-noncausal", "T1", "T65"])
+def test_kernel4_cluster_partition_matches_twin(dh, T, causal):
+    """3, 6 and 9 parts, two splits where there are two key tiles: dQ, dK,
+    dV and dE within 1e-5 of (1 + each gradient's scale) of the merged
+    twin's; the fully masked row's gradients 0."""
+    q, k, v, e, pad, o, lse, do = _bwd_inputs(T, dh, causal)
+    dsum = (do * o).sum(-1)
+    nsplit = 2 if T > BK else 1
+    got = kernel4_cluster_partition(q, k, v, e, causal, pad, lse, dsum, do, nsplit)
+    want = fa.flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * (1 + scale), msg=name)
+    if causal and T > 1:
+        assert got[0][1, :, 0].eq(0).all()
+
+
+def test_kernel4_cluster_partition_matches_pallas():
+    """At d_head 384, T 70 (two key tiles, two splits), causal with a pad
+    tail: the partition against the JAX package's merged Pallas backward
+    (``_bwd_merged_kernel``, through the generic interpreter as
+    ``test_torch_wide_heads.py`` runs it), 1e-4 as there. No row sees only
+    pad keys: the Pallas kernels mask with a finite -1e30, so such a row
+    does not get the zero gradients of the documented contract, which the
+    port keeps."""
+    import conftest  # noqa: F401 -- pins JAX to the CPU
+
+    import jax
+    import jax.numpy as jnp
+    from midi_emotion_tpu.ops import pallas_attention
+    from torch_parity import generic_interpret
+
+    T, dh = 70, 384
+    q, k, v, e, pad, _, _, do = _bwd_inputs(T, dh, True, masked_row=False)
+    with generic_interpret():
+        o, vjp = jax.vjp(
+            lambda *x: pallas_attention.flash_relative_attention(*x, True, jnp.asarray(pad.numpy())),
+            *(jnp.asarray(t.numpy()) for t in (q, k, v, e)))
+        want = vjp(jnp.asarray(do.numpy()))
+    o = torch.from_numpy(np.array(o))
+    _, lse = fa.flash_rel_attention_plain(q, k, v, e, True, pad)
+    dsum = (do * o).sum(-1)
+    got = kernel4_cluster_partition(q, k, v, e, True, pad, lse, dsum, do, 2)
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 # ---------------------------------------------------------------------------
