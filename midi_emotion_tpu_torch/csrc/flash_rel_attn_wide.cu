@@ -4,9 +4,10 @@
 // The kernels of flash_rel_attn_fwd.cu (1), flash_rel_attn_bwd.cu (4),
 // flash_rel_attn_bwd_q.cu (5, 6, 8) and flash_rel_attn_bwd_kv.cu (7, 9)
 // are instantiated per d_head and hold a query tile's operands at the whole
-// width in registers and shared memory: kernels 1 and 4 up to d_head 256,
-// kernels 5-9 up to 128. Their wrappers (ops/flash_attention.py) launch
-// the kernels of this file for a wider head, so each replaces the same
+// width in registers and shared memory: kernels 1 and 4 up to d_head 256
+// (kernel 4 in bf16 up to 128), kernels 5-9 up to 128. Their wrappers
+// (ops/flash_attention.py) launch the kernels of this file for a wider
+// head, so each replaces the same
 // Pallas TPU kernel as its narrow counterpart
 // (midi_emotion_tpu/ops/pallas_attention.py: _flash_kernel, _bwd_merged_kernel,
 // _bwd_dq_de_kernel, _bwd_dq_de_dist_kernel, _bwd_dkdv_dq_kernel,
@@ -65,6 +66,7 @@
 // (d_head / 128 times) and each sweep: that is the cost of this simple
 // design, measured in PERF.md. Kernels 1 and 4 in bf16 no longer pay it:
 // up to 16 parts each runs on a thread-block cluster of one CTA a part
+// (kernel 4's also at d_head 192 and 256, in two parts)
 // that computes each tile pair's score side once, split by columns, on
 // wgmma fed by TMA, and sums the parts' partials through distributed
 // shared memory: cl::wide_fwd_tc_cluster_kernel (the forward, a cluster
@@ -1652,7 +1654,12 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const void* e, cons
 // tile stay in registers; dQ and dE accumulate in f32 partials that belong
 // to split s alone, which two small kernels sum in split order (no atomics).
 //
-// CTA r owns d_head columns 128 r .. 128 r + 127 and copies only those of
+// It also serves d_head 192 and 256 (flash_rel_attn_bwd.cu is built for
+// bf16 up to 128) as a cluster of two: at 256 parts of 128, at 192 parts of
+// 96 (PW, a template parameter: m64n96 products in phase B), where padding
+// to 256 would add a third to every product over d_head.
+//
+// CTA r owns d_head columns PW r .. PW r + PW - 1 (PW = 128 but at 192) and copies only those of
 // K and V (per key tile), Q and dO (per pair, a two-stage ring) and the E
 // band (in 64-row chunks, a ring of four: consecutive query tiles' bands
 // share a chunk), by TMA under mbarriers, thread 0 refilling each slot
@@ -1661,7 +1668,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const void* e, cons
 // Two warpgroups, warp w of each owning rows 16 w .. 16 w + 15 of every
 // 64-row accumulator. Per tile pair:
 //   * A: warpgroup 0 computes S_r = Q_r K_r^T and the band Q_r E_band,r^T
-//     (m64n64 each, over the part's 8 k16 steps), skews the band into Srel
+//     (m64n64 each, over the part's PW / 16 k16 steps), skews the band into Srel
 //     through a per-warp scratch and adds it; warpgroup 1 computes dP_r =
 //     dO_r V_r^T. Both publish (S_r + Srel_r and dP_r, 2 x 64 x 64 f32, one
 //     buffer) and signal row group w of every rank;
@@ -1697,21 +1704,27 @@ constexpr int NCH = 4;                   // the E ring, in chunks of 64 rows
 constexpr int HW = 48;                   // band columns a warp reads per 32 keys: 47 distances
 constexpr int HWS = HW + 8;              // row stride of a warp's skew scratch (floats)
 constexpr int MAX_SPLIT = 2;             // clusters a (b, h), at most
-constexpr int R = PW / 2;                // a thread's registers of a 64 x 128 f32 accumulator
 constexpr int XN = 32 * 16;              // 512: column group n (8 keys) of a row group's partial
 constexpr int XW = 2 * (BK / 8) * 32 * 16;  // 8192: a row group's S and dP partials
-constexpr int QD_AT = 0;                      // [NQ]: Q, dO
-constexpr int EC_AT = QD_AT + NQ * 2 * TILE;  // [NCH] E chunks
-constexpr int KV_AT = EC_AT + NCH * TILE;     // K, V
-constexpr int P_AT = KV_AT + 2 * TILE;       // P [64 q][64 k] in 4 slabs
-constexpr int DS_AT = P_AT + 4 * SLAB;       // dS', the same
-constexpr int DSD_AT = DS_AT + 4 * SLAB;     // dS' by distance [64 q][128 v] in 8 slabs
-constexpr int XP_AT = DSD_AT + 8 * SLAB;     // [row group][S, dP][column group n][lane] float4
-constexpr int BARS_AT = XP_AT + NCW * XW;
 constexpr int NBAR = NQ + 1 + 3 * NCW;
-constexpr int SMEM = BARS_AT + 8 * NBAR + 1024;  // + room to align to 1024
-static_assert(SMEM <= 232448, "a CTA's shared memory");
 static_assert(16 * HWS * 4 <= XW / 2, "a warp's skew scratch fits its row group's S buffer");
+
+// A CTA's shared memory for parts of P columns: 128, or 96 at d_head 192
+template <int P>
+struct Layout {
+  static constexpr int TILE = BQ * P * 2;        // a 64-row bf16 tile of a part, in slabs
+  static constexpr int QD_AT = 0;                // [NQ]: Q, dO
+  static constexpr int EC_AT = QD_AT + NQ * 2 * TILE;  // [NCH] E chunks
+  static constexpr int KV_AT = EC_AT + NCH * TILE;     // K, V
+  static constexpr int P_AT = KV_AT + 2 * TILE;  // P [64 q][64 k] in 4 slabs
+  static constexpr int DS_AT = P_AT + 4 * SLAB;  // dS', the same
+  static constexpr int DSD_AT = DS_AT + 4 * SLAB;  // dS' by distance [64 q][128 v] in 8 slabs
+  static constexpr int XP_AT = DSD_AT + 8 * SLAB;  // [row group][S, dP][column group n][lane] float4
+  static constexpr int BARS_AT = XP_AT + NCW * XW;
+  static constexpr int SMEM = BARS_AT + 8 * NBAR + 1024;  // + room to align to 1024
+  static_assert(P % 16 == 0 && TILE % 1024 == 0, "slabs stay 1024-byte aligned");
+  static_assert(SMEM <= 232448, "a CTA's shared memory");
+};
 
 }  // namespace bw
 
@@ -1734,7 +1747,8 @@ struct BwdArgs {
 // rows row0 + step * rl (rl = 16 wq + g + 8 hh, this thread's accumulator
 // rows) of an f32 [T][dh] partial, the part's columns c0..: into a (add:
 // onto a); rows outside [0, T) read as zeros
-__device__ __forceinline__ void part_rows_in(float (&a)[bw::R], const float* src, int row0,
+template <int PW>
+__device__ __forceinline__ void part_rows_in(float (&a)[PW / 2], const float* src, int row0,
                                              int step, int T_len, int D, int c0, int wq, bool add) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -1753,7 +1767,8 @@ __device__ __forceinline__ void part_rows_in(float (&a)[bw::R], const float* src
 }
 
 // a (m64n128 accumulator layout) into those rows of the partial
-__device__ __forceinline__ void part_rows_out(float* dst, const float (&a)[bw::R], int row0,
+template <int PW>
+__device__ __forceinline__ void part_rows_out(float* dst, const float (&a)[PW / 2], int row0,
                                               int step, int T_len, int D, int c0, int wq) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -1773,6 +1788,7 @@ __device__ __forceinline__ void part_rows_out(float* dst, const float (&a)[bw::R
 // back is done. Band row v of pair (q0, k0) is E row r0 + v, at distance
 // q0 - k0 + 64 - v; the next query tile's band starts 64 rows lower, so its
 // rows 64.. are this band's rows ..63.
+template <int PW>
 struct BwdProducer {
   const BwdMaps* maps;
   unsigned char* smem;
@@ -1782,7 +1798,9 @@ struct BwdProducer {
 
   __device__ __forceinline__ void produce(int pairs_done, int kts_done) {
     using namespace bw;
-    uint64_t* full = reinterpret_cast<uint64_t*>(smem + BARS_AT);
+    using L = Layout<PW>;
+    constexpr int TILE = L::TILE, QD_AT = L::QD_AT, EC_AT = L::EC_AT, KV_AT = L::KV_AT;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS_AT);
     uint64_t* kvfull = full + NQ;
     if (n_kv == kts_done && n_kv < n_kt) {
       const int k0 = (kt0 + n_kv * nsplit) * BK;
@@ -1813,11 +1831,15 @@ struct BwdProducer {
 // One consumer warpgroup's sweep (see the note above): WG 0 computes S and
 // the band, then dV and dQ; WG 1 dP, then dK and dE. Each runs its own loop,
 // so neither holds the other's accumulators.
-template <int WG>
+template <int WG, int PW>
 __device__ __forceinline__ void bwd_consumer(const BwdMaps& maps, const BwdArgs& a,
                                              unsigned char* smem, uint32_t base, int wq, int rank,
                                              int np, int bh, int sp) {
   using namespace bw;
+  using L = Layout<PW>;
+  constexpr int TILE = L::TILE, KS = PW / 16, R = PW / 2, QD_AT = L::QD_AT, EC_AT = L::EC_AT;
+  constexpr int KV_AT = L::KV_AT, P_AT = L::P_AT, DS_AT = L::DS_AT, DSD_AT = L::DSD_AT;
+  constexpr int XP_AT = L::XP_AT, BARS_AT = L::BARS_AT;
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int b = bh / a.H, T_len = a.T_len, D = a.D, c0 = rank * PW;
   const int n_tiles = (T_len + BK - 1) / BK, BH = gridDim.y / a.nsplit;
@@ -1836,7 +1858,7 @@ __device__ __forceinline__ void bwd_consumer(const BwdMaps& maps, const BwdArgs&
   const uint32_t xs = base + XP_AT + wq * XW + 4 * WG * XN + lane * 16;
 
   const int qt_first = a.causal ? sp : 0, n_kt = (n_tiles - sp + a.nsplit - 1) / a.nsplit;
-  BwdProducer prod = {&maps, smem, bh, rank * KS, a.nsplit, n_tiles, a.causal, a.max_seq,
+  BwdProducer<PW> prod = {&maps, smem, bh, rank * KS, a.nsplit, n_tiles, a.causal, a.max_seq,
                       sp, sp, qt_first, n_kt, 0, 0, 0};
   if (WG == 0 && tid == 0) prod.produce(0, 0);
   float acc[R];   // WG 0: dV of the key tile, WG 1: dK (rows = keys)
@@ -2049,7 +2071,7 @@ __device__ __forceinline__ void bwd_consumer(const BwdMaps& maps, const BwdArgs&
 #pragma unroll
           for (int x = 0; x < R; ++x) work[x] = 0.f;
         } else {
-          part_rows_in(work, dqa, q0, 1, T_len, D, c0, wq, false);
+          part_rows_in<PW>(work, dqa, q0, 1, T_len, D, c0, wq, false);
         }
         wg_fence();
 #pragma unroll
@@ -2063,7 +2085,7 @@ __device__ __forceinline__ void bwd_consumer(const BwdMaps& maps, const BwdArgs&
         wg_wait0();
         fence_regs<R>(acc);
         fence_regs<R>(work);
-        part_rows_out(dqa, work, q0, 1, T_len, D, c0, wq);
+        part_rows_out<PW>(dqa, work, q0, 1, T_len, D, c0, wq);
       } else {
         wg_fence();
 #pragma unroll
@@ -2072,7 +2094,7 @@ __device__ __forceinline__ void bwd_consumer(const BwdMaps& maps, const BwdArgs&
         wg_commit();
         // the dE block the query tile finishes (band rows 64 + rl: distance
         // q0 - k0 - rl) gets the partial's rows, read under dK's product
-        if (!first_kt) part_rows_in(work, dea, q0 - k0, -1, T_len, D, c0, wq, true);
+        if (!first_kt) part_rows_in<PW>(work, dea, q0 - k0, -1, T_len, D, c0, wq, true);
         wg_fence();
 #pragma unroll
         for (int kq = 0; kq < BQ / 16; ++kq)
@@ -2082,7 +2104,7 @@ __device__ __forceinline__ void bwd_consumer(const BwdMaps& maps, const BwdArgs&
         wg_wait0();
         fence_regs<R>(acc);
         fence_regs<R>(work);
-        part_rows_out(dea, work, q0 - k0, -1, T_len, D, c0, wq);
+        part_rows_out<PW>(dea, work, q0 - k0, -1, T_len, D, c0, wq);
         // band rows 0..63: the next query tile's finished block
         wg_fence();
 #pragma unroll
@@ -2093,8 +2115,8 @@ __device__ __forceinline__ void bwd_consumer(const BwdMaps& maps, const BwdArgs&
         wg_wait0();
         fence_regs<R>(work);
         if (last_q) {  // no next query tile: the block is done (distance q0 + 64 - k0 - rl)
-          if (!first_kt) part_rows_in(work, dea, q0 + BQ - k0, -1, T_len, D, c0, wq, true);
-          part_rows_out(dea, work, q0 + BQ - k0, -1, T_len, D, c0, wq);
+          if (!first_kt) part_rows_in<PW>(work, dea, q0 + BQ - k0, -1, T_len, D, c0, wq, true);
+          part_rows_out<PW>(dea, work, q0 + BQ - k0, -1, T_len, D, c0, wq);
         }
       }
       if (last_q) {  // the key tile's dV (WG 0) or dK (WG 1), cast to bf16
@@ -2118,9 +2140,11 @@ __device__ __forceinline__ void bwd_consumer(const BwdMaps& maps, const BwdArgs&
 
 // One cluster of np = D / 128 CTAs per (b h, split), grid (np, B * H *
 // nsplit); warpgroup 0 (with thread 0's copies) and warpgroup 1.
+template <int PW>
 __global__ void __launch_bounds__(bw::THREADS, 1)
 wide_bwd_tc_cluster_kernel(const __grid_constant__ BwdMaps maps, const __grid_constant__ BwdArgs a) {
   using namespace bw;
+  constexpr int BARS_AT = Layout<PW>::BARS_AT, DSD_AT = Layout<PW>::DSD_AT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
@@ -2141,9 +2165,9 @@ wide_bwd_tc_cluster_kernel(const __grid_constant__ BwdMaps maps, const __grid_co
   fence_async_smem();
   cluster_sync();  // every rank's barriers exist before any rank arrives on them
   if (warp < NCW)
-    bwd_consumer<0>(maps, a, smem, base, warp, rank, np, bh, sp);
+    bwd_consumer<0, PW>(maps, a, smem, base, warp, rank, np, bh, sp);
   else
-    bwd_consumer<1>(maps, a, smem, base, warp - NCW, rank, np, bh, sp);
+    bwd_consumer<1, PW>(maps, a, smem, base, warp - NCW, rank, np, bh, sp);
   cluster_sync();  // no CTA leaves while another may read its partials
 }
 
@@ -2182,8 +2206,13 @@ __global__ void bwd_de_reduce_kernel(const float* __restrict__ part, bf* __restr
   de[x] = __float2bfloat16(acc);
 }
 
-// Clusters a (b, h): two, on alternate key tiles, where the card holds
-// both of every (b, h) at once; else one.
+// Clusters a (b, h): two, on alternate key tiles (their causal work is
+// 100 and 90 pairs in 19 tiles), where the card holds both of every (b, h)
+// at once; else one. A CTA fills an SM's shared memory, so at the flagship's
+// width with 3 heads of 256 and B 8 two splits are 48 clusters of 2 (96 of
+// the 132 SMs) and three would be 144 CTAs, whose second wave would double
+// the longest cluster's time; with 4 heads of 192 two splits are 128 CTAs.
+template <int PW>
 inline cudaError_t bwd_splits(int BH, int n_tiles, int np, int* nsplit) {
   static int clusters[64][MAX_PARTS + 1] = {};
   int dev = 0;
@@ -2199,10 +2228,10 @@ inline cudaError_t bwd_splits(int BH, int n_tiles, int np, int* nsplit) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(np, 1, 1);
     cfg.blockDim = dim3(bw::THREADS, 1, 1);
-    cfg.dynamicSmemBytes = bw::SMEM;
+    cfg.dynamicSmemBytes = bw::Layout<PW>::SMEM;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    if ((err = cudaOccupancyMaxActiveClusters(&clusters[dev][np], wide_bwd_tc_cluster_kernel,
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters[dev][np], wide_bwd_tc_cluster_kernel<PW>,
                                               &cfg)) != cudaSuccess)
       return err;
   }
@@ -2210,28 +2239,30 @@ inline cudaError_t bwd_splits(int BH, int n_tiles, int np, int* nsplit) {
   return cudaSuccess;
 }
 
-// Kernel 4's backward past d_head 256 in bf16, d_head a multiple of 128 in 2
-// to MAX_PARTS parts; scratch: f32 [2 MAX_SPLIT][B * H][T][dh], the splits'
-// dQ partials, then their dE partials.
-cudaError_t bwd(const Bwd& p, cudaStream_t stream) {
+// Kernel 4's backward in bf16 on parts of PW columns, d_head = np PW;
+// scratch: f32 [2 MAX_SPLIT][B * H][T][dh], the splits' dQ partials, then
+// their dE partials.
+template <int PW>
+cudaError_t bwd_parts(const Bwd& p, cudaStream_t stream) {
+  constexpr int KSP = PW / 16, SMEM = bw::Layout<PW>::SMEM;
   const int np = p.D / PW, BH = p.B * p.H, n_tiles = (p.Tn + BK - 1) / BK;
   BwdMaps maps;
   cudaError_t err;
-  if ((err = sm90_host::slab_map(&maps.q, p.q, BH, p.Tn, p.D, BQ, KS)) != cudaSuccess ||
-      (err = sm90_host::slab_map(&maps.k, p.k, BH, p.Tn, p.D, BK, KS)) != cudaSuccess ||
-      (err = sm90_host::slab_map(&maps.v, p.v, BH, p.Tn, p.D, BK, KS)) != cudaSuccess ||
-      (err = sm90_host::slab_map(&maps.d, p.dout, BH, p.Tn, p.D, BQ, KS)) != cudaSuccess ||
-      (err = sm90_host::slab_map(&maps.e, p.e, 1, p.ms, p.D, BQ, KS)) != cudaSuccess)
+  if ((err = sm90_host::slab_map(&maps.q, p.q, BH, p.Tn, p.D, BQ, KSP)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.k, p.k, BH, p.Tn, p.D, BK, KSP)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.v, p.v, BH, p.Tn, p.D, BK, KSP)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.d, p.dout, BH, p.Tn, p.D, BQ, KSP)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.e, p.e, 1, p.ms, p.D, BQ, KSP)) != cudaSuccess)
     return err;
-  auto kernel = wide_bwd_tc_cluster_kernel;
-  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  bw::SMEM)) != cudaSuccess)
+  auto kernel = wide_bwd_tc_cluster_kernel<PW>;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM)) !=
+      cudaSuccess)
     return err;
   if (np > 8 && (err = cudaFuncSetAttribute(
                      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != cudaSuccess)
     return err;
   int nsplit = 1;
-  if ((err = bwd_splits(BH, n_tiles, np, &nsplit)) != cudaSuccess) return err;
+  if ((err = bwd_splits<PW>(BH, n_tiles, np, &nsplit)) != cudaSuccess) return err;
   const size_t n = (size_t)BH * p.Tn * p.D;
   BwdArgs a = {p.pad, p.lse, p.dsum, static_cast<bf*>(p.dk), static_cast<bf*>(p.dv),
                p.de_part, p.de_part + nsplit * n, p.H, p.Tn, p.D, p.ms, p.causal, nsplit,
@@ -2244,7 +2275,7 @@ cudaError_t bwd(const Bwd& p, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(np, BH * nsplit, 1);
   cfg.blockDim = dim3(bw::THREADS, 1, 1);
-  cfg.dynamicSmemBytes = bw::SMEM;
+  cfg.dynamicSmemBytes = SMEM;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -2257,6 +2288,12 @@ cudaError_t bwd(const Bwd& p, cudaStream_t stream) {
   bwd_de_reduce_kernel<<<(unsigned)((m + 255) / 256), 256, 0, stream>>>(
       a.de_part, static_cast<bf*>(p.de), BH, p.Tn, p.D, p.ms, nsplit);
   return cudaGetLastError();
+}
+
+// Kernel 4's backward in bf16: d_head 192 on two parts of 96, or a
+// multiple of 128 up to MAX_PARTS parts (256 and on)
+cudaError_t bwd(const Bwd& p, cudaStream_t stream) {
+  return p.D == 192 ? bwd_parts<96>(p, stream) : bwd_parts<PW>(p, stream);
 }
 
 }  // namespace cl
@@ -2313,7 +2350,7 @@ int flash_rel_attn_wide_fwd(const void* q, const void* k, const void* v, const v
 // d_head: dq, dk, dv, de as that kernel's wrapper returns them (dq is dQ,
 // dQ's key term for 7 and its relative term for 8), the ones it does not
 // compute null; de_part: f32 scratch [B * H, T, dh] for 4, 5, 6 and 8, but
-// [4 * B * H, T, dh] for 4 in bf16 with dh a multiple of 128 up to 16
+// [4 * B * H, T, dh] for 4 in bf16 at 192 or a multiple of 128 up to 16
 // parts (2048), which runs on cl::wide_bwd_tc_cluster_kernel (its splits'
 // dQ and dE partials). The other arguments as flash_rel_attn_bwd's; dh: a
 // positive multiple of 32 (f32) or 64 (bf16).
@@ -2336,7 +2373,8 @@ int flash_rel_attn_wide_bwd(const void* q, const void* k, const void* v, const v
            static_cast<float*>(de_part), B, H, T_len, dh, max_seq, causal, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd(p, kernel, s);
-  if (dtype == 1 && kernel == 4 && dh % cl::PW == 0 && dh / cl::PW <= cl::MAX_PARTS)
+  if (dtype == 1 && kernel == 4 &&
+      (dh == 192 || (dh % cl::PW == 0 && dh / cl::PW <= cl::MAX_PARTS)))
     return cl::bwd(p, s);
   if (dtype == 1) return dh % tc::KT != 0 ? cudaErrorInvalidValue : tc::bwd(p, kernel, s);
   return cudaErrorInvalidValue;

@@ -49,16 +49,19 @@ and bf16, any T <= max_seq. Another d_head is padded with zero columns up to
 the next multiple of ``WIDE_PART``: 320 -> 384), which add nothing to any
 product, the kernel is given c = 1/sqrt(true d_head), and the outputs are
 cut back. Past its built widths (above 256 for kernels 1 and 4, above 128
-for kernels 5-9) a wrapper launches the same kernel's wide form,
-``csrc/flash_rel_attn_wide.cu``, which never holds d_head whole: its score
-side streams d_head through shared memory in chunks and each block
-computes the outputs' columns of one 128-column part, or (kernels 1 and 4
-in bf16, up to ``CLUSTER_MAX_PARTS`` parts) a cluster of one CTA a part
-splits the score side by columns and sums it through distributed shared
-memory. Kernels 1 and
-4 compute d_head 192 and 256 in two column halves, a block each (the
-products over d_head done in both). bf16 operands must be 16-byte aligned
-(the kernels copy 16-byte units); fresh and contiguous tensors are.
+for kernels 5-9 and for kernel 4 in bf16) a wrapper launches the same
+kernel's wide form, ``csrc/flash_rel_attn_wide.cu``, which never holds
+d_head whole: its score side streams d_head through shared memory in
+chunks and each block computes the outputs' columns of one 128-column
+part, or (kernels 1 and 4 in bf16, up to ``CLUSTER_MAX_PARTS`` parts) a
+cluster of one CTA a part splits the score side by columns and sums it
+through distributed shared memory. In bf16 at d_head 192 and 256 kernel 1
+is one block a query tile whose two warpgroups each own half the columns
+and sum their partial scores in the block's shared memory, and kernel 4
+is the cluster backward in two parts (of 96 at 192). ``flash_form`` names
+the form each (kernel, d_head, dtype) runs on. bf16 operands must be
+16-byte aligned (the kernels copy 16-byte units); fresh and contiguous
+tensors are.
 
 Source note for the forward kernel (``csrc/flash_rel_attn_fwd.cu``):
   * replaces ``pallas_attention.py::_flash_kernel`` (launched by
@@ -76,9 +79,11 @@ Source note for the forward kernel (``csrc/flash_rel_attn_fwd.cu``):
     f32, P rounded to bf16 into wgmma's register operand for P V, as the
     TPU kernel casts P; K, V and the E band's next 64-row chunk land by TMA
     while the current tile computes, two blocks an SM up to d_head 64; at
-    d_head 192 and 256 two blocks share a query tile, each running the
-    whole score side and computing O's columns of one half (its registers
-    and tiles would not hold all of them), with one K, V stage at 256.
+    d_head 192 and 256 (``tc::flash_fwd_tc_parts_kernel``) a block holds
+    the query tile with two warpgroups, each computing the partial score
+    of its half of the columns, the two summed once a tile in the block's
+    shared memory, and O's columns of its half (a warpgroup's registers
+    would not hold all of them), V in a ring of its own.
     Measured before the redesign, the ``mma.sync`` kernel it replaces took
     0.1255 ms at B 4 and 0.2203 at B 8 (``scripts/torch_flash_bench.py``,
     NVIDIA H100 80GB HBM3 at 700 W);
@@ -110,10 +115,9 @@ Source note for the merged backward kernel (``csrc/flash_rel_attn_bwd.cu``):
     groups of key tiles (two up to d_head 48, their f32 dK and dV kept in
     shared memory between pairs) with its own dQ and dE partials, which a
     group's query tile reads and writes once; two blocks share a (b, h),
-    or one where B * H fills 7/8 of the SMs; at d_head 192 and 256 each
-    of two blocks runs the products over d_head whole and computes one
-    half of the gradients' columns (one pair stage, the skew's scratch at
-    256 in the E band's other half). Measured before the redesign,
+    or one where B * H fills 7/8 of the SMs; built up to d_head 128 (at
+    192 and 256 the cluster backward of the wide kernels below runs, in
+    two parts). Measured before the redesign,
     the whole ``mma.sync`` call took 0.9731 ms at B 8, of which the main
     kernel 0.8868, ``dsum`` 0.0243 and the dQ and dE reductions 0.0345
     and 0.0287; taking the f32 partial reads and writes out of a first
@@ -139,7 +143,8 @@ computes its partial score S_r + Srel_r by ``wgmma``; the partials are
 exchanged through distributed shared memory and summed in rank order, so
 each tile's score side is computed once, split by columns, and every CTA
 holds the same P; each then runs P V_r for its own columns by ``wgmma``.
-Kernel 4's bf16 backward (the same widths) runs on one cluster per (b, h)
+Kernel 4's bf16 backward (the same widths, and 192 and 256 in two parts
+of 96 or 128) runs on one cluster per (b, h)
 and split of its key tiles (up to ``WIDE_BWD_SPLITS``, alternate key
 tiles), sweeping each key tile's query tiles as the narrow kernel 4 does:
 per tile pair CTA r computes S_r + Srel_r and dP_r by ``wgmma`` over its
@@ -264,6 +269,33 @@ def padded_dh(dh: int) -> int:
         if dh_k >= dh:
             return dh_k
     return -(-dh // WIDE_PART) * WIDE_PART
+
+
+def flash_form(kernel: int, dh: int, dtype: torch.dtype) -> str:
+    """The form of kernel 1 (``kernel=1``, the forward) or kernel 4 (4, the
+    merged backward) that runs heads of ``dh`` columns in ``dtype`` on the
+    card, at ``padded_dh(dh)``:
+      * ``"tile"``: the kernel built for that d_head, ``csrc/
+        flash_rel_attn_fwd.cu`` or ``_bwd.cu`` (f32 up to 256, bf16 up to
+        128): a block's warpgroup holds its tile's whole d_head;
+      * ``"parts"``: kernel 1 in bf16 at 192 and 256, ``tc::
+        flash_fwd_tc_parts_kernel`` of ``flash_rel_attn_fwd.cu``: two
+        warpgroups of one block, a column part each;
+      * ``"cluster"``: bf16, kernel 4 from 192 and kernel 1 past 256, up to
+        ``CLUSTER_MAX_PARTS`` parts: a cluster of one CTA a part of 128
+        columns (96 at 192), ``csrc/flash_rel_attn_wide.cu``;
+      * ``"streamed"``: past those, ``flash_rel_attn_wide.cu``'s sweeps.
+    Any d_head >= 1."""
+    if kernel not in (1, 4):
+        raise ValueError(f"flash_form: kernel 1 or 4, got {kernel}")
+    dh_k = padded_dh(dh)
+    if dtype == torch.bfloat16:
+        if dh_k <= DECOMPOSITION_DHS[-1]:
+            return "tile"
+        if kernel == 1 and dh_k <= KERNEL_DHS[-1]:
+            return "parts"
+        return "cluster" if dh_k <= CLUSTER_MAX_PARTS * WIDE_PART else "streamed"
+    return "tile" if dh_k <= KERNEL_DHS[-1] else "streamed"
 
 
 def pad_heads(dh_to: int, *tensors: Optional[torch.Tensor]):
@@ -533,12 +565,15 @@ def _fwd(q, k, v, e, causal, pad_keys):
     q, k, v, e = pad_heads(dh_k, q, k, v, e)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    _launch("flash_rel_attn_wide_fwd" if dh_k > KERNEL_DHS[-1] else "flash_rel_attn_fwd",
+    form = flash_form(1, dh_k, q.dtype)
+    wide = form in ("cluster", "streamed")
+    _launch("flash_rel_attn_wide_fwd" if wide else "flash_rel_attn_fwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
             o.data_ptr(), lse.data_ptr(),
             B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_rel_attention.launches += 1
+    flash_rel_attention.form_launches[form] += 1
     return _cut(dh, o)[0], lse
 
 
@@ -547,11 +582,11 @@ def _launch_wide_bwd(kernel, q, k, v, e, causal, pad_keys, lse, dsum, do, outs, 
     on heads already padded: ``outs`` maps "dq", "dk", "dv", "de" to the
     outputs that kernel writes; an f32 dE partial [B*H, T, dh] per (b, h)
     is allocated where it writes dE, and for kernel 4's cluster backward
-    (bf16, up to ``CLUSTER_MAX_PARTS`` parts) a dQ and a dE partial per
-    split of up to ``WIDE_BWD_SPLITS``."""
+    (``flash_form`` "cluster") a dQ and a dE partial per split of up to
+    ``WIDE_BWD_SPLITS``."""
     B, H, T, dh_k = q.shape
-    slabs = (2 * WIDE_BWD_SPLITS if kernel == 4 and q.dtype == torch.bfloat16
-             and dh_k // WIDE_PART <= CLUSTER_MAX_PARTS else 1)
+    cluster = kernel == 4 and flash_form(4, dh_k, q.dtype) == "cluster"
+    slabs = 2 * WIDE_BWD_SPLITS if cluster else 1
     de_part = (torch.empty((slabs * B * H, T, dh_k), dtype=torch.float32, device=q.device)
                if "de" in outs else None)
     _launch("flash_rel_attn_wide_bwd",
@@ -721,10 +756,12 @@ def flash_rel_attention_bwd(
     dh_k = padded_dh(dh)
     q, k, v, e, do = pad_heads(dh_k, q, k, v, e, do)
     dq, dk, dv, de = (torch.empty_like(t) for t in (q, k, v, e))
-    if dh_k > KERNEL_DHS[-1]:
+    form = flash_form(4, dh_k, q.dtype)
+    if form != "tile":
         _launch_wide_bwd(4, q, k, v, e, causal, pad_keys, lse, dsum, do,
                          {"dq": dq, "dk": dk, "dv": dv, "de": de}, 1.0 / math.sqrt(dh))
         flash_rel_attention_bwd.launches += 1
+        flash_rel_attention_bwd.form_launches[form] += 1
         return tuple(_cut(dh, dq, dk, dv, de))
     # f32 scratch: a dQ and a dE partial for each of the (up to) two blocks
     # that share a (b, h), summed in a fixed order by the kernel's reductions
@@ -737,10 +774,14 @@ def flash_rel_attention_bwd(
             B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_rel_attention_bwd.launches += 1
+    flash_rel_attention_bwd.form_launches[form] += 1
     return tuple(_cut(dh, dq, dk, dv, de))
 
 
+FORMS = ("tile", "parts", "cluster", "streamed")  # flash_form's answers
 flash_rel_attention_bwd.launches = 0  # merged kernel launches since the last reset
+# the same launches by flash_form's form of kernel 4
+flash_rel_attention_bwd.form_launches = dict.fromkeys(FORMS, 0)
 
 
 def flash_rel_attention_bwd_xla(
@@ -807,3 +848,4 @@ def flash_rel_attention(
 
 
 flash_rel_attention.launches = 0  # forward kernel launches since the last reset
+flash_rel_attention.form_launches = dict.fromkeys(FORMS, 0)  # the same by flash_form's form

@@ -4,6 +4,7 @@
     python3 scripts/torch_flash_bench.py                 # this checkout
     python3 scripts/torch_flash_bench.py --roots A B B A --check --train --decode
     python3 scripts/torch_flash_bench.py --roots A B B A --wide
+    python3 scripts/torch_flash_bench.py --roots A B B A --mid --train
 
 Each root is a checkout of this repository (an unpacked ``git archive`` of
 another commit, say). For each root in the order given, a fresh process
@@ -31,6 +32,20 @@ shapes of ``chip_smoke.streamed_flagship_kernels``); each is first held to
 its twin by ``chip_smoke.check_flash``, ``check_flash_bwd`` and
 ``check_decode`` at those shapes (kernel 13 at lengths 0 to 1400), and each
 library's ptxas report (registers, spills) is printed.
+With ``--mid``, also kernels 1 and 4 in bf16 at d_head 129-256, at the
+flagship's width with 3 heads of 256 and 4 of 192 (T 1216, causal, a pad
+tail): kernel 1 at B 4 and B 8 (``fwd_dh*_B*``) and kernel 4's whole call
+at B 8 (``bwd_dh*``), each first held to its twin by
+``chip_smoke.check_flash`` / ``check_flash_bwd`` and timed beside SDPA
+(``*_sdpa``) and SDPA's backward; kernel 4's main launch apart
+(``bwd_dh*_main``); the alternatives the route was chosen against, run on
+each root's wide source and held to the twins: kernel 1 as the cluster
+forward in two parts of 128 (``fwd_dh*_B*_cluster``; at 192 on heads
+padded to 256) and, at 192, kernel 4's cluster on heads padded to 256
+(``bwd_dh192_pad256``), both as the wrapper would run them (pad, launch,
+cut); and the 20-layer ``--n_head 3`` train step at B 8 (``step3_*``, as
+``--train`` measures the flagship's). Each library's ptxas report is
+printed.
 With ``--train``, also the default (merged) train step of the flagship at
 B 8, T 1216, bf16, dropout 0.1 (``chip_smoke.py``'s CLI arguments, on its
 synthetic shards): after 2 warm-up steps, 3 steps under the profiler,
@@ -52,9 +67,10 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def train_step(torch, cs, root, steps=3):
+def train_step(torch, cs, root, steps=3, extra=(), key="step"):
     """The merged train step's device ms, wall ms and kernels 1 and 4's ms,
-    a step, on the flagship (see the module docstring)."""
+    a step, on the flagship (see the module docstring), or with ``extra``
+    CLI arguments (``--n_head 3``), into keys starting with ``key``."""
     import tempfile
     import time
 
@@ -71,7 +87,7 @@ def train_step(torch, cs, root, steps=3):
             "--tgt_len", str(cs.TRAIN_T), "--dtype", "bf16", "--dropout", "0.1",
             "--num_workers", "0", "--log_step", "1000", "--eval_step", "1000",
             "--max_eval_step", "1", "--gen_step", "1000000", "--seed", "1", "--device", "cuda",
-            "--work_dir", os.path.join(tmp, "run"), "--max_step", "1"])
+            "--work_dir", os.path.join(tmp, "run"), "--max_step", "1", *extra])
         it = runner.train_dataset.epochs(cs.TRAIN_B)
         batches = [runner._to_device(runner._microbatches(it)) for _ in range(2 + steps)]
         gen = torch.Generator().manual_seed(cs.SEED)
@@ -89,9 +105,9 @@ def train_step(torch, cs, root, steps=3):
     per_step = lambda es: sum(e.self_device_time_total for e in es) / 1e3 / steps
     device = per_step(events)
     k4 = per_step([e for e in events if any(only in e.key for _, only in cs.BWD_LAUNCHES)])
-    k1 = per_step([e for e in events if "flash_fwd_tc_kernel" in e.key])
-    return {"step_device_ms": device, "step_wall_ms": wall * 1e3 / steps,
-            "step_busy": device / (wall * 1e3 / steps), "step_k4_ms": k4, "step_k1_ms": k1}
+    k1 = per_step([e for e in events if "flash_fwd_tc_" in e.key])
+    return {f"{key}_device_ms": device, f"{key}_wall_ms": wall * 1e3 / steps,
+            f"{key}_busy": device / (wall * 1e3 / steps), f"{key}_k4_ms": k4, f"{key}_k1_ms": k1}
 
 
 def decode_ms(torch, cs):
@@ -150,13 +166,92 @@ def wide_ms(torch, cs):
     return out
 
 
-def libraries(decode, wide):
+def _padded_fwd(torch, fa, q, k, v, e, pad, dh_to=256):
+    """Kernel 1 on the wide source's cluster forward at ``dh_to`` columns,
+    as the wrapper would run it there: heads padded, c of the true d_head,
+    O cut back."""
+    import math
+
+    B, H, T, dh = q.shape
+    qp, kp, vp, ep = fa.pad_heads(dh_to, q, k, v, e)
+    o = torch.empty_like(qp)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    fa._launch("flash_rel_attn_wide_fwd", qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+               ep.data_ptr(), pad.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, T, dh_to,
+               e.shape[0], 1, 1, 1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream)
+    return o[..., :dh].contiguous(), lse
+
+
+def _padded_bwd(torch, fa, q, k, v, e, pad, o, lse, do, dh_to=256):
+    """Kernel 4's whole call on the wide source's cluster backward at
+    ``dh_to`` columns, as the wrapper would run it there (dsum, heads
+    padded, c of the true d_head, gradients cut back)."""
+    import math
+
+    dh = q.shape[-1]
+    dsum = fa._dsum(o, do)
+    qp, kp, vp, ep, dop = fa.pad_heads(dh_to, q, k, v, e, do)
+    outs = {n: torch.empty_like(t) for n, t in zip(("dq", "dk", "dv", "de"), (qp, kp, vp, ep))}
+    fa._launch_wide_bwd(4, qp, kp, vp, ep, True, pad, lse, dsum, dop, outs, 1.0 / math.sqrt(dh))
+    return [t[..., :dh].contiguous() for t in outs.values()]
+
+
+def mid_ms(torch, cs):
+    """Kernels 1 and 4 in bf16 at d_head 129-256 and the alternatives the
+    route was chosen against (see the module docstring): CUPTI device ms
+    of one call, after the checks."""
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    out = {}
+    for H, dh in ((3, 256), (4, 192)):
+        for B in (4, cs.TRAIN_B):
+            k1 = cs.check_flash(torch, B, H, cs.TRAIN_T, dh, bf16, True, 2e-2, 1e-3, timed=True,
+                                rel=True)
+            out[f"fwd_dh{dh}_B{B}"], out[f"fwd_dh{dh}_B{B}_sdpa"] = k1["ms"], k1["library_ms"]
+            q, k, v, e, pad = cs._flash_inputs(torch, B, H, cs.TRAIN_T, dh, bf16)
+            o, lse = _padded_fwd(torch, fa, q, k, v, e, pad)
+            ro, rlse = fa.flash_rel_attention_plain(q, k, v, e, True, pad)
+            err = (o.float() - ro.float()).abs().max().item() / (1 + ro.float().abs().max().item())
+            if not (err <= 2e-2 and (lse - rlse).abs().max().item() <= 1e-3):
+                sys.exit(f"the cluster forward at dh {dh} (padded to 256) disagrees: {err}")
+            out[f"fwd_dh{dh}_B{B}_cluster"] = cs.device_ms(
+                torch, lambda: _padded_fwd(torch, fa, q, k, v, e, pad),
+                only="wide_fwd_tc_cluster_kernel")
+            del q, k, v, e, pad, o, lse, ro, rlse
+            torch.cuda.empty_cache()
+        k4 = cs.check_flash_bwd(torch, cs.TRAIN_B, H, cs.TRAIN_T, dh, bf16, True, 2e-2, timed=True,
+                                launches=True)
+        out[f"bwd_dh{dh}"], out[f"bwd_dh{dh}_sdpa"] = k4["ms"], k4["library_ms"]
+        out[f"bwd_dh{dh}_main"] = k4["launch_ms"]["main"]
+        torch.cuda.empty_cache()
+        if dh == 192:
+            q, k, v, e, pad = cs._flash_inputs(torch, cs.TRAIN_B, H, cs.TRAIN_T, dh, bf16)
+            o, lse = fa.flash_rel_attention(q, k, v, e, True, pad)
+            g = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+            do = (torch.randn(o.shape, generator=g, device="cuda")
+                  * (~pad)[:, None, :, None]).to(bf16)
+            got = _padded_bwd(torch, fa, q, k, v, e, pad, o, lse, do)
+            want = fa.flash_rel_attention_bwd_plain(q, k, v, e, True, pad, o, lse, do)
+            for a, b in zip(got, want):
+                scale = b.float().abs().max().item()
+                if not (a.float() - b.float()).abs().max().item() <= 2e-2 * (1 + scale):
+                    sys.exit("kernel 4's cluster at dh 192 padded to 256 disagrees with its twin")
+            out["bwd_dh192_pad256"] = cs.device_ms(
+                torch, lambda: _padded_bwd(torch, fa, q, k, v, e, pad, o, lse, do), iters=5)
+            del q, k, v, e, pad, o, lse, do, got, want
+            torch.cuda.empty_cache()
+    return out
+
+
+def libraries(decode, wide, mid):
     return (("flash_rel_attn_fwd", "flash_rel_attn_bwd")
             + (("decode_attn_stacked",) if decode else ())
-            + (("flash_rel_attn_wide", "decode_attn_wide") if wide else ()))
+            + (("flash_rel_attn_wide", "decode_attn_wide") if wide else ())
+            + (("flash_rel_attn_wide",) if mid and not wide else ()))
 
 
-def worker(root, check, train, decode, wide):
+def worker(root, check, train, decode, wide, mid):
     import importlib.util
 
     sys.path.insert(0, root)  # the package comes from root
@@ -172,12 +267,12 @@ def worker(root, check, train, decode, wide):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_all(libraries(decode, wide))
+    build_all(libraries(decode, wide, mid))
     for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd"):
         cs.print_ptxas(library_path(name), name)
         cs.print_sass_mma(library_path(name), name)
-    if wide:
-        for name in ("flash_rel_attn_wide", "decode_attn_wide"):
+    if wide or mid:
+        for name in ("flash_rel_attn_wide",) + (("decode_attn_wide",) if wide else ()):
             cs.print_ptxas(library_path(name), name)
     bf16 = torch.bfloat16
     if check:
@@ -209,8 +304,12 @@ def worker(root, check, train, decode, wide):
         out.update(decode_ms(torch, cs))
     if wide:
         out.update(wide_ms(torch, cs))
+    if mid:
+        out.update(mid_ms(torch, cs))
     if train:
         out.update(train_step(torch, cs, root))
+    if mid:
+        out.update(train_step(torch, cs, root, extra=("--n_head", "3"), key="step3"))
     print("RESULT " + json.dumps(out), flush=True)
 
 
@@ -221,10 +320,11 @@ def main():
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--mid", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker, args.check, args.train, args.decode, args.wide)
+        return worker(args.worker, args.check, args.train, args.decode, args.wide, args.mid)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "no card"
@@ -233,14 +333,15 @@ def main():
     builds = [subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
          "from midi_emotion_tpu_torch.kernels.build import build_all; "
-         "build_all(tuple(sys.argv[2:]))", root, *libraries(args.decode, args.wide)], cwd=root)
+         "build_all(tuple(sys.argv[2:]))", root, *libraries(args.decode, args.wide, args.mid)],
+        cwd=root)
         for root in dict.fromkeys(roots)]
     if any(b.wait() for b in builds):
         sys.exit("torch_flash_bench: a build failed")
     rows = []
     for root in roots:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", root]
-        flags = [f"--{f}" for f in ("check", "train", "decode", "wide") if getattr(args, f)]
+        flags = [f"--{f}" for f in ("check", "train", "decode", "wide", "mid") if getattr(args, f)]
         proc = subprocess.run(cmd + flags, cwd=root, capture_output=True, text=True, timeout=1800)
         print(proc.stdout[-20000:], proc.stderr[-4000:], sep="\n", flush=True)
         if proc.returncode != 0:

@@ -340,8 +340,9 @@ def test_flash_kernels_padded_heads_match_twins(cuda, dtype, dh):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
 
 
-# d_head past 128: kernels 1 and 4 are built for 192 and 256 (two column
-# halves, a block each); 160 and 224 reach them through the padding. Past
+# d_head past 128: kernels 1 and 4 run 192 and 256 (in bf16 kernel 1 as
+# one block of two warpgroups a query tile, kernel 4 as the wide source's
+# cluster of two parts); 160 and 224 reach them through the padding. Past
 # 256 they run their wide form (csrc/flash_rel_attn_wide.cu), and so do
 # kernels 5-9 past 128 (DECOMPOSITION_WIDE_DHS): 320 through the padding
 WIDE_DHS = [160, 192, 224, 256]
@@ -384,6 +385,61 @@ def test_wgmma_flash_kernels_bf16_wide_heads_causal(cuda, dh, T):
 def test_wgmma_flash_kernels_bf16_wide_heads_non_causal(cuda, dh):
     _check_wgmma_kernels(*_qkve(2, 2, 200, dh, 2048, torch.bfloat16, seed=14), False,
                          _pad(2, 200, cuda))
+
+
+@pytest.mark.parametrize("dh", WIDE_DHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_heads_bf16_launch_the_parts_and_cluster_forms(cuda, dh, causal):
+    """In bf16 at d_head 160-256 kernel 1's one launch is the two-warpgroup
+    kernel and kernel 4's main launch the cluster backward (each counted by
+    its wrapper), not the column-halves kernels they replaced: the bf16
+    tolerances, the fully masked row's O = 0, lse = 1e30 and dQ = 0, and a
+    second call of each bitwise the first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert fa.flash_form(1, dh, torch.bfloat16) == "parts"
+    assert fa.flash_form(4, dh, torch.bfloat16) == "cluster"
+    q, k, v, e = _qkve(2, 2, 333, dh, 2048, torch.bfloat16, seed=23)
+    pad = _pad(2, 333, cuda)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    do = (torch.randn((2, 2, 333, dh), generator=g, device="cuda") *
+          (~pad)[:, None, :, None]).to(q.dtype)
+    before = flash_rel_attention.launches, flash_rel_attention_bwd.launches
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    got = flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    assert (flash_rel_attention.launches, flash_rel_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    # the card's profiler can drop kernel records under back-to-back
+    # launches (a window may keep none): up to three windows must show both
+    seen = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_rel_attention_bwd(q, k, v, e, causal, pad, *flash_rel_attention(
+                q, k, v, e, causal, pad), do)
+            torch.cuda.synchronize()
+        seen += [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if all(any(want in n for n in seen) for want in ("flash_fwd_tc_parts_kernel",
+                                                         "wide_bwd_tc_cluster_kernel")):
+            break
+    assert any("flash_fwd_tc_parts_kernel" in n for n in seen), seen
+    assert any("wide_bwd_tc_cluster_kernel" in n for n in seen), seen
+    for old in ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel"):
+        assert not any(old in n for n in seen), (old, seen)
+    ro, rlse = flash_rel_attention_plain(q, k, v, e, causal, pad)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-3)
+    _assert_grads_bf16(("dq", "dk", "dv", "de"), got,
+                       flash_rel_attention_bwd_plain(q, k, v, e, causal, pad, o, lse, do))
+    if causal:
+        assert o[1, :, 0].eq(0).all() and lse[1, :, 0].eq(1e30).all()
+        assert got[0][1, :, 0].eq(0).all()
+    o2, lse2 = flash_rel_attention(q, k, v, e, causal, pad)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    again = flash_rel_attention_bwd(q, k, v, e, causal, pad, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv", "de"), got, again):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("impl,dqde", [("split", "column"), ("fused", "column"),

@@ -233,6 +233,28 @@ def test_padded_dh_bounds():
         fa.padded_dh(0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_form_routes(dtype):
+    """The form of kernels 1 and 4 each d_head runs on: in bf16 the built
+    tile kernel up to 128, then kernel 1's two-warpgroup form at 129-256
+    and kernel 4's cluster of two parts there, the clusters past 256 up to
+    16 parts of 128 and the streamed sweeps past them; in f32 the tile
+    kernel up to 256, then the sweeps. A kernel other than 1 or 4 raises."""
+    bf16 = dtype == torch.bfloat16
+    widths = (1, 48, 128, 129, 160, 192, 224, 256, 257, 384, 768, 2048, 2049)
+    got = [(fa.flash_form(1, d, dtype), fa.flash_form(4, d, dtype)) for d in widths]
+    if bf16:
+        want = [("tile", "tile")] * 3 + [("parts", "cluster")] * 5 + \
+            [("cluster", "cluster")] * 4 + [("streamed", "streamed")]
+    else:
+        want = [("tile", "tile")] * 8 + [("streamed", "streamed")] * 5
+    assert got == want
+    for d in range(1, 2100):  # the form follows the padded width alone
+        assert fa.flash_form(1, d, dtype) == fa.flash_form(1, fa.padded_dh(d), dtype)
+    with pytest.raises(ValueError, match="kernel 1 or 4, got 5"):
+        fa.flash_form(5, 48, dtype)
+
+
 @pytest.mark.parametrize("dh", [192, 256])
 def test_flash_backward_twin_matches_pallas_kernel_wider_heads(dh):
     """Autograd through the flash wrapper (the merged backward twin) and
