@@ -27,8 +27,12 @@ Phases, each fatal on failure:
      (cuobjdump), failing on one without any, on a bf16 kernel 1 or 4
      without a wgmma (HGMMA) instruction (kernel 1's two-warpgroup form at
      d_head 192 and 256 and kernel 4's cluster in parts of 96 and 128
-     among them) or on a missing kernel 7, 8 or 9 or wide sweep; time
-     kernel 9 on its two grids; hold each
+     among them), on a bf16 kernel 6 or 8 at d_head 16-128 without one, or
+     on a missing kernel 5, 7 or 9 or wide sweep; hold kernels 6 and 8 in
+     bf16 (their Hopper form, wgmma on TMA tiles) against their twins at
+     every d_head they are built for and at 40, causal and not, each call
+     launching that form, and two calls bitwise equal; time kernel 9 on
+     its two grids; hold each
      backward decomposition (split, fused/column, fused/dist) against the
      merged kernel, and time the whole split call beside SDPA's backward;
      past d_head 128: kernels 1 and 4 at 160, 192, 224 and 256 (160 and 224
@@ -144,7 +148,10 @@ runs with every
 kernel launch counter set to 0 just before it and read just after; the
 script fails if a kernel of that path was never launched, or if a
 decomposition run or the MIDI_EMOTION_FLASH_BWD=xla run launched the
-merged backward kernel.
+merged backward kernel; phase 5's split and fused/dist runs also fail
+unless kernels 6 and 8 launched their Hopper form, and those and phase
+5d's decomposition runs if either launched another form at d_head up to
+128.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -420,10 +427,12 @@ def check_flash_bwd(torch, B, H, T, dh, dtype, causal, tol, timed=False, launche
 # the other backward decompositions' kernels: JSON name -> (its wrapper in
 # ops/flash_attention.py, its outputs, operations / dh per visible (query,
 # key) pair, and per visible pair at a distance i - j >= 0, which alone
-# reaches the relative terms); an operation is a multiply or an add
+# reaches the relative terms); an operation is a multiply or an add. The
+# dist kernel does the column kernel's products: its dsd is the scattered
+# dS', not a second S, dP and band by distance
 BWD_KERNELS = {
     "flash_rel_attn_bwd_dq_de": ("bwd_dq_de", ("dQ", "dE"), 8, 4),
-    "flash_rel_attn_bwd_dq_de_dist": ("bwd_dq_de_dist", ("dQ", "dE"), 8, 10),
+    "flash_rel_attn_bwd_dq_de_dist": ("bwd_dq_de_dist", ("dQ", "dE"), 8, 4),
     "flash_rel_attn_bwd_dkdv_dq": ("bwd_dkdv_dq", ("dK", "dV", "dQ_qk"), 12, 0),
     "flash_rel_attn_bwd_de_dqrel": ("bwd_de_dqrel", ("dQ_rel", "dE"), 0, 10),
     "flash_rel_attn_bwd_dkdv": ("bwd_dkdv", ("dK", "dV"), 10, 0),
@@ -451,6 +460,19 @@ def bwd_decomposition(impl, dqde):
                 os.environ[k] = val
 
 
+def _bwd_args(torch, B, H, T, dh, dtype, causal):
+    """(q, k, v, e, causal, pad, lse, dsum, dO) for a backward kernel: the
+    forward kernel's lse, a cotangent zero on pad rows."""
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, e, pad = _flash_inputs(torch, B, H, T, dh, dtype)
+    o, lse = fa.flash_rel_attention(q, k, v, e, causal, pad)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(dtype)
+    dsum = (do.float() * o.float()).sum(-1)
+    return q, k, v, e, causal, pad, lse, dsum, do
+
+
 def check_bwd_kernel(torch, kernel, B, H, T, dh, dtype, causal, tol, timed=False):
     """One of the other decompositions' kernels against its twin, with a
     fully masked row and a pad tail; each output within tol * (1 + its max
@@ -459,12 +481,8 @@ def check_bwd_kernel(torch, kernel, B, H, T, dh, dtype, causal, tol, timed=False
 
     wrapper_name, names, ops_pair, ops_dist = BWD_KERNELS[kernel]
     wrapper, twin = getattr(fa, wrapper_name), getattr(fa, wrapper_name + "_plain")
-    q, k, v, e, pad = _flash_inputs(torch, B, H, T, dh, dtype)
-    o, lse = fa.flash_rel_attention(q, k, v, e, causal, pad)
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).to(dtype)
-    dsum = (do.float() * o.float()).sum(-1)
-    args = (q, k, v, e, causal, pad, lse, dsum, do)
+    args = _bwd_args(torch, B, H, T, dh, dtype, causal)
+    q, k, v, e, _, pad, lse, _, _ = args
     got = wrapper(*args)
     torch.cuda.synchronize()
     want = twin(*args)
@@ -513,6 +531,45 @@ def check_bwd_decompositions(torch, tol=2e-2):
                 fail(f"backward {impl}/{dqde} disagrees with the merged kernel on {grad}")
         print(f"backward MIDI_EMOTION_BWD={impl} DQDE={dqde} vs merged kernel, bf16 B={TRAIN_B} "
               f"H=16 T={TRAIN_T} dh=48: max err " + ", ".join(errs))
+
+
+def check_query_sweep_kernels(torch):
+    """Kernels 6 and 8 in bf16, on their Hopper form (``form``
+    "wgmma"): against their twins at every d_head they are built for and at
+    40 (padded to 48), causal and not, T 200 with a pad tail and a fully
+    masked row, at the BWD_KERNELS checks' bf16 tolerance (2e-2 of each
+    output's scale); each call launched that form; and two calls on the
+    same inputs give bitwise-equal dQ and dE (the dE partials summed in
+    block order), at T 333 and at the flagship backward shape."""
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    for kernel in QUERY_SWEEP_KERNELS:
+        wrapper = getattr(fa, BWD_KERNELS[kernel][0])
+        for dh in (*fa.DECOMPOSITION_DHS, 40):
+            for causal in (True, False):
+                before = dict(wrapper.form_launches)
+                check_bwd_kernel(torch, kernel, 2, 4, 200, dh, torch.bfloat16, causal, 2e-2)
+                grew = {f: n - before[f] for f, n in wrapper.form_launches.items() if n != before[f]}
+                if grew != {"wgmma": 1}:
+                    fail(f"{kernel} bf16 dh={dh} causal={causal}: launched {grew}, not the "
+                         f"wgmma form once")
+        for shape in ((2, 4, 333, dh, causal) for dh in fa.DECOMPOSITION_DHS
+                      for causal in (True, False)):
+            args = _bwd_args(torch, *shape[:4], torch.bfloat16, shape[4])
+            first, second = wrapper(*args), wrapper(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                fail(f"{kernel} bf16 B, H, T, dh, causal = {shape}: two calls differ")
+        args = _bwd_args(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16, True)
+        first, second = wrapper(*args), wrapper(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"{kernel} bf16 at the flagship backward shape: two calls differ")
+        print(f"{kernel}: bf16 wgmma form matches its twin at d_head "
+              f"{fa.DECOMPOSITION_DHS} and 40, causal and not; two calls give bitwise-equal "
+              f"dQ and dE at T 333 (every d_head) and B={TRAIN_B} H=16 T={TRAIN_T} dh=48")
+        del args, first, second
+        torch.cuda.empty_cache()
 
 
 def _rows(torch, rows, D, dtype, n, seed=SEED):
@@ -1026,9 +1083,9 @@ def timed_training(torch, runner, n_warmup=2, n_timed=5):
 # launch counters
 # ---------------------------------------------------------------------------
 
-# name, route, source, the TPU kernel it replaces. In bf16 kernels 1 and 4
-# run on the tensor cores by wgmma, 5-9 by mma.sync; every f32 path on the
-# CUDA cores
+# name, route, source, the TPU kernel it replaces. In bf16 kernels 1, 4, 6
+# and 8 run on the tensor cores by wgmma, 5, 7 and 9 by mma.sync; every f32
+# path on the CUDA cores
 KERNELS = (
     ("flash_rel_attn_fwd", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_fwd.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:369"),
@@ -1040,12 +1097,13 @@ KERNELS = (
      "midi_emotion_tpu/ops/pallas_attention.py:1417"),
     ("flash_rel_attn_bwd_dq_de", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:808"),
+    # kernel 6, bf16 on wgmma and TMA (wg::flash_bwd_q_wg_tc_kernel<DIST>)
     ("flash_rel_attn_bwd_dq_de_dist", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:874"),
     # kernel 7, bf16 on the tensor cores (tc::flash_bwd_kv_tc_kernel)
     ("flash_rel_attn_bwd_dkdv_dq", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_kv.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:1065"),
-    # kernel 8, bf16 on the tensor cores (tc::flash_bwd_q_tc_kernel<REL>)
+    # kernel 8, bf16 on wgmma and TMA (wg::flash_bwd_q_wg_tc_kernel<REL>)
     ("flash_rel_attn_bwd_de_dqrel", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:1127"),
     # kernel 9, bf16 on the tensor cores (tc::flash_bwd_kv_tc_kernel without dQ)
@@ -1079,7 +1137,7 @@ def counters():
 def reset_counts():
     for fn in counters().values():
         fn.launches = 0
-        for form in getattr(fn, "form_launches", {}):  # kernels 1 and 4, by form
+        for form in getattr(fn, "form_launches", {}):  # kernels 1, 4 and 5-9, by form
             fn.form_launches[form] = 0
 
 
@@ -1088,27 +1146,36 @@ def read_counts():
 
 
 def read_forms():
-    """Kernels 1 and 4's launches by flash_form's form."""
-    c = counters()
-    return {name: dict(c[name].form_launches) for name in ("flash_rel_attn_fwd",
-                                                           "flash_rel_attn_bwd")}
+    """Launches by ``form``: kernels 1, 4 and 5-9."""
+    return {name: dict(fn.form_launches) for name, fn in counters().items()
+            if hasattr(fn, "form_launches")}
 
 
-def run_path(name, required, fn, absent=(), forms=()):
+# kernels 6 and 8 at d_head up to 128 in bf16 run their Hopper form alone:
+# no (kernel, form) below may launch on a bf16 path
+QUERY_SWEEP_KERNELS = ("flash_rel_attn_bwd_dq_de_dist", "flash_rel_attn_bwd_de_dqrel")
+OLD_QUERY_SWEEP_FORMS = tuple((k, form) for k in QUERY_SWEEP_KERNELS
+                              for form in ("cuda_cores", "mma_sync"))
+
+
+def run_path(name, required, fn, absent=(), forms=(), absent_forms=()):
     """Run one main path with every counter at 0 just before and read just
     after; fail if a kernel the path needs was not launched, if a kernel
-    in ``absent`` was, or if a (kernel, form) in ``forms`` (kernels 1 and
-    4, ``flash_form``'s forms) was never launched."""
+    in ``absent`` was, if a (kernel, form) in ``forms`` (``form``'s
+    forms) was never
+    launched, or if one in ``absent_forms`` was."""
     reset_counts()
     result = fn()
     counts = read_counts()
     by_form = read_forms()
-    print(f"path {name}: kernel launches {counts}; kernels 1 and 4 by form {by_form}")
+    print(f"path {name}: kernel launches {counts}; by form "
+          f"{ {k: {f: n for f, n in v.items() if n} for k, v in by_form.items()} }")
     missing = [k for k in required if counts[k] <= 0]
     missing += [f"{k} ({form})" for k, form in forms if by_form[k][form] <= 0]
     if missing:
         fail(f"path {name}: kernels never launched: {missing}")
     stray = [k for k in absent if counts[k] != 0]
+    stray += [f"{k} ({form})" for k, form in absent_forms if by_form[k][form] != 0]
     if stray:
         fail(f"path {name}: kernels that must not run were launched: {stray}")
     return counts, result
@@ -2042,7 +2109,7 @@ def wide_heads_phase(torch, tmp, vocab, train_args, card):
     torch.cuda.empty_cache()
     train("4 layers, 3 heads of 256, f32, B 2", "wide_f32", ["--n_head", "3", "--n_layer", "4",
                                                              "--dtype", "f32", "--batch_size", "2"],
-          2, (("flash_rel_attn_fwd", "tile"), ("flash_rel_attn_bwd", "tile")))
+          2, (("flash_rel_attn_fwd", "cuda_cores"), ("flash_rel_attn_bwd", "cuda_cores")))
     torch.cuda.empty_cache()
     print(f"phase 5d (d_head past 128): {time.perf_counter() - t_phase:.1f} s; wide train "
           f"tokens/sec {tps:.1f}, {dev_ms:.2f} device ms/step; sampled tokens/sec native "
@@ -2119,7 +2186,9 @@ def wide_heads_phase(torch, tmp, vocab, train_args, card):
             c, runner = run_path(
                 f"train (4 layers, --n_head {heads}, MIDI_EMOTION_BWD={impl} DQDE={dqde})",
                 ("flash_rel_attn_fwd", *DECOMPOSITIONS[impl, dqde]), run_decomposition,
-                absent=("flash_rel_attn_bwd",))
+                absent=("flash_rel_attn_bwd",),
+                forms=tuple((k, "streamed") for k in DECOMPOSITIONS[impl, dqde]),
+                absent_forms=OLD_QUERY_SWEEP_FORMS)
             counts.append(c)
             d_losses = train_losses(runner.args.work_dir)
             if runner.train_step_num != 1 or len(d_losses) != 1 or not np.isfinite(d_losses[0]):
@@ -2332,7 +2401,7 @@ def _kernel_label(mangled):
         kern, t, dh, mode = m.groups()
         modes = {"flash_rel_attn_bwd_kv_kernel": ("dK/dV", "dK/dV/dQ_qk"),
                  "flash_rel_attn_bwd_q_kernel": ("column", "dist", "rel"),
-                 "flash_bwd_q_tc_kernel": ("column", "dist", "rel"),
+                 "flash_bwd_q_wg_tc_kernel": ("column", "dist", "rel"),
                  "flash_bwd_kv_tc_kernel": ("dK/dV", "dK/dV/dQ_qk")}
         extra = f", {modes[kern][int(mode)]}" if mode and kern in modes else ""
         # the tensor-core kernels take bf16 alone, the CUDA-core flash
@@ -2466,21 +2535,26 @@ def main():
         fail(f"tensor-core kernels without an mma instruction: {idle}")
     # kernels 1 and 4 run wgmma at every d_head they are built for: the
     # tile kernels up to 128, kernel 1's two-warpgroup form at 192 and 256,
-    # kernel 4's cluster at 192 and 256 (parts of 96 and 128)
+    # kernel 4's cluster at 192 and 256 (parts of 96 and 128); so do
+    # kernels 6 and 8 up to 128
     from midi_emotion_tpu_torch.ops.flash_attention import DECOMPOSITION_DHS
 
     wanted = [f"{kern} <bf16, dh={dh}>" for kern in ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel")
               for dh in DECOMPOSITION_DHS]
     wanted += [f"flash_fwd_tc_parts_kernel <bf16, dh={dh}>" for dh in (192, 256)]
+    # kernels 6 and 8 (DIST and REL) on wgmma at every d_head they are built for
+    wanted += [f"flash_bwd_q_wg_tc_kernel <bf16, dh={dh}, {mode}>" for dh in DECOMPOSITION_DHS
+               for mode in ("dist", "rel")]
     wanted += [f"wide_bwd_tc_cluster_kernel <bf16, part={pw}>" for pw in (96, 128)]
     no_wgmma = [k for k in wanted if tc_kernels.get(k, {"HGMMA": 0})["HGMMA"] == 0]
     if no_wgmma:
-        fail(f"kernel 1 or 4 instantiations without a wgmma (HGMMA) instruction: {no_wgmma}")
-    # kernel 7 (the key-major sweep with dQ), kernel 9 (without) and kernel
-    # 8 (REL) among them, and the wide forms' four sweeps
-    for want in ("flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV/dQ_qk>",
-                 "flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV>",
-                 "flash_bwd_q_tc_kernel <bf16, dh=48, rel>", "wide_fwd_tc_kernel",
+        fail(f"kernel 1, 4, 6 or 8 instantiations without a wgmma (HGMMA) instruction: "
+             f"{no_wgmma}")
+    # kernel 5 (COLUMN, mma.sync), kernel 7 (the key-major sweep with dQ)
+    # and kernel 9 (without) among them, and the wide forms' four sweeps
+    for want in ("flash_bwd_q_tc_kernel <bf16, dh=48>",
+                 "flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV/dQ_qk>",
+                 "flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV>", "wide_fwd_tc_kernel",
                  "wide_dq_tc_kernel", "wide_dkdv_tc_kernel", "wide_de_tc_kernel"):
         if want not in tc_kernels:
             fail(f"no tensor-core kernel {want} in the SASS")
@@ -2583,6 +2657,11 @@ def main():
         bwd_kernels[kernel] = check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48,
                                                torch.bfloat16, True, 2e-2, timed=True)
         torch.cuda.empty_cache()
+    check_query_sweep_kernels(torch)
+    for kernel in QUERY_SWEEP_KERNELS:
+        print(f"{kernel} (wgmma form): {bwd_kernels[kernel]['ms']:.4f} device ms, bound "
+              f"{bwd_kernels[kernel]['bound_ms']:.4f} ms (bf16 B={TRAIN_B} H=16 T={TRAIN_T} "
+              f"dh=48, causal, pad tail) on {card}")
     time_dkdv_grids(torch, card)
     check_bwd_decompositions(torch)
     # the whole split backward call (dsum, kernels 7 and 8, the f32 dQ sum)
@@ -2714,7 +2793,10 @@ def main():
                 f"train (flagship, dropout 0.1, MIDI_EMOTION_BWD={impl} DQDE={dqde})",
                 ("flash_rel_attn_fwd", *DECOMPOSITIONS[impl, dqde], "dropout", "dal_fwd",
                  "dal_bwd"),
-                run_decomposition, absent=("flash_rel_attn_bwd",))
+                run_decomposition, absent=("flash_rel_attn_bwd",),
+                forms=tuple((k, "wgmma") for k in DECOMPOSITIONS[impl, dqde]
+                            if k in QUERY_SWEEP_KERNELS),
+                absent_forms=OLD_QUERY_SWEEP_FORMS)
             decomposition_counts.append(counts)
             d_losses = train_losses(runner.args.work_dir)
             print(f"train CLI, MIDI_EMOTION_BWD={impl} DQDE={dqde}: logged losses {d_losses}, "

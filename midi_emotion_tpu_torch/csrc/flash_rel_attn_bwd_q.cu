@@ -28,34 +28,21 @@
 // because Mosaic could not lower the reversed shear; here the kernel reads
 // key i - d directly.
 //
-// bf16, every mode (COLUMN and DIST: the `fused` training path; REL: the
-// `split` one): tensor cores. Bound on the H100: operations. Per visible
-// tile pair the products are S = Q K^T, dP = dO V^T, the band Q E_band^T,
-// dQ += dS' K (not REL), dQ += dsd E_band and dE += dsd^T Q, every one an
-// mma.sync m16n8k16 with bf16 operands and f32 sums. mma.sync, as in
-// kernels 4 to 6 (flash_rel_attn_bwd.cu, whose phase A and products this
-// path shares): a warp's 16-row fragments are the unit of the skews; a
-// wgmma version (64-row warpgroup tiles, each B tile read once a
-// warpgroup) is the later step. REL is DIST without dQ's key term: no
-// key-column dS' tile and no dS' K product, and only key tiles at or below
-// the diagonal, since the relative terms vanish above it even in the
-// non-causal (regression) model; dsd stays 0 at negative distances, in
-// both models (the TPU docstring's "qe adjoint"). 8 warps a block, per
-// tile pair:
+// bf16 COLUMN (kernel 5, the `fused` training path with DQDE=column):
+// tensor cores (tc::flash_bwd_q_tc_kernel). Bound on the H100: operations.
+// Per visible tile pair the products are S = Q K^T, dP = dO V^T, the band
+// Q E_band^T, dQ += dS' K, dQ += dsd E_band and dE += dsd^T Q, every one
+// an mma.sync m16n8k16 with bf16 operands and f32 sums: a warp's 16-row
+// fragments are the unit of the skews. 8 warps a block, per tile pair:
 //   phase A, warp (query rows 16 (w % 4), keys 32 (w / 4)): S, dP and the
 //     band over the 48 distances its rows and keys reach; the band skewed
 //     into Srel through a per-warp f32 scratch; P = exp(s - lse) and dS' =
 //     c P (dP - dsum) by key column, dS' rounded to bf16 as the TPU kernel
-//     rounds ds, into a shared tile (not REL). Then the distance-domain tile dsd
-//     (row i, column u = i - j + BK - 1, 0 where i - j < 0):
-//       COLUMN scatters the rounded key-column dS' into it (the unskew);
-//       DIST and REL form it by distance, as _bwd_dq_de_dist_kernel does: the
-//       bias by distance is the band product itself, q.E[ms-1-d] with no
-//       skew; q.k and dO.v at j = i - d are read from the warp's f32 S and
-//       dP fragments skewed through the scratch; p_d and dsd = c p_d (dp_d
-//       - dsum) in f32, dsd rounded to bf16;
-//   phase B, warp (16-row block w / 2, channel half w % 2): dQ += dS' K (not
-//     REL) + dsd E_band, in f32 registers across the query tile's key tiles and
+//     rounds ds, into a shared tile, and scattered into the distance-domain
+//     tile dsd (row i, column u = i - j + BK - 1, 0 where i - j < 0): the
+//     unskew;
+//   phase B, warp (16-row block w / 2, channel half w % 2): dQ += dS' K +
+//     dsd E_band, in f32 registers across the query tile's key tiles and
 //     written once; dE += dsd^T Q for two 16-distance blocks into this
 //     block's f32 partial by distance. Key tiles ascend, so the band moves
 //     64 distances down a pair and a warp's lower dE block is the next
@@ -68,6 +55,48 @@
 // 64-row chunks (a pair copies one) come by cp.async, into two ring stages
 // where two blocks an SM still fit, the next pair's copies under this
 // pair's products; rows are padded by 16 bytes for ldmatrix.
+//
+// bf16 DIST and REL (kernels 6 and 8: `fused` with DQDE=dist, and
+// `split`): Hopper's warpgroup products and TMA
+// (wg::flash_bwd_q_wg_tc_kernel, on the building blocks of hopper_sm90.cuh
+// that kernel 4 uses too). Bound on the H100: operations; at B 8, H 16,
+// T 1216, d_head 48 the products the visible pairs need take 0.0824 ms
+// (DIST) and 0.0458 ms (REL) at 989 TFLOP/s. The TPU kernels form the
+// distance-domain dS by a second softmax over the band, because Mosaic
+// cannot lower the unskew. Here the unskew is a shared-memory scatter, and
+// both start from the same f32 q.k + q.E and dO.v, so the scatter of the
+// rounded key-column dS' is the dS by distance the TPU kernels round to
+// bf16, with no second exp (P's exps, 99.6 M a call at that shape, take
+// 0.025 ms at the SFU's 16 results a clock an SM). REL is DIST without
+// dQ's key term: no key-column dS' tile, no dS' K product, and only key
+// tiles at or below the diagonal, since the relative terms vanish above it
+// even in the non-causal (regression) model. Two warpgroups share each
+// tile pair, every product a wgmma with f32 sums:
+//   phase A, warpgroup h (keys 32 h ..): S = Q K_h^T and dP = dO V_h^T
+//     (m64n32), and the band Q E^T over the 96 band rows its keys reach
+//     (m64n96), skewed into Srel through a per-warp scratch; P = exp(s -
+//     lse) and dS' = c P (dP - dsum) in f32, dS' rounded to bf16 into a
+//     shared tile (DIST) and scattered by distance into dsd [i][64 - i + j]
+//     (0 at a negative distance; a band pair rewrites every entry a key
+//     reaches, the others stay 0); fence.proxy.async, then the barrier that
+//     hands the tiles to phase B;
+//   phase B, warpgroup 0: dQ += dS' K (DIST) + dsd E_band (K and the band
+//     read MN-major), in registers across the query tile's key tiles and
+//     written once; warpgroup 1: dE += dsd^T Q over the band's two
+//     64-distance halves (dsd and Q read MN-major). The upper half is
+//     complete after the pair and added to this block's f32 partial (by
+//     distance); the lower half is the next key tile's upper one and stays
+//     in registers.
+// A block owns alternate query tiles of one (b, h), as the COLUMN kernel
+// (two a (b, h), each with its own dE partial, summed in block order by
+// de_reduce_kernel: two calls give bitwise-equal dE), and walks the key
+// tiles each sees: DIST 0..qt causal and every tile non-causal (the band's
+// products only up to the diagonal), REL 0..qt in both models. Thread 0
+// copies each pair's K, V and 128-row E band (row v at distance q0 - k0 +
+// 64 - v, zero where negative) into a ring of two stages, and each query
+// tile's Q and dO into one or two slots, by TMA under mbarriers, refilling
+// a slot right after the barrier that ends its last reader. Two blocks an
+// SM up to d_head 48 (128 registers a thread), one from 64.
 //
 // f32 (the checks' path, held to 1e-4; TF32 keeps about three digits), in
 // every mode: the CUDA cores, simple and correct first:
@@ -96,10 +125,10 @@
 // CUDA-core f32 FMAs fed from shared memory bound it, and the 8 warps a
 // block gives each SM (B * H blocks: one wave at B 8, H 16).
 //
-// The device functions of the bf16 path that kernel 4 has too are copied
-// from flash_rel_attn_bwd.cu (namespace tc there), so that this file
-// includes no header of the repository and its build hash covers
-// everything it compiles.
+// The DIST and REL kernel takes Hopper's building blocks (TMA, mbarriers,
+// wgmma) from hopper_sm90.cuh, which kernels/build.py hashes into this
+// library's name; the COLUMN kernel keeps its own cp.async, ldmatrix and
+// mma.sync helpers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,6 +136,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper_sm90.cuh"
 
 namespace {
 
@@ -402,7 +433,7 @@ __global__ void de_reduce_kernel(const float* __restrict__ de_part, T* __restric
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 path of COLUMN and DIST: tensor cores
+// the bf16 path of COLUMN: tensor cores by mma.sync
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -418,17 +449,14 @@ constexpr int WB = 48;        // band rows a warp multiplies in phase A: its 47 
 constexpr int SMEM_SM = 233472;  // shared memory of an SM, 1 KB a block reserved
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DH, int MODE>
+template <int DH>
 struct Layout {
   static constexpr int RS = DH + 8;   // bf16 row stride: an odd number of 16-byte units
   static constexpr int CPR = DH / 8;  // 16-byte chunks a row
-  // a warp's f32 scratch row: the band (48 columns, not REL), and in DIST
-  // and REL S and dP by key (columns 0.. and DP_AT..)
-  static constexpr int DP_AT = 36;
-  static constexpr int WBS = MODE == COLUMN ? WB + 8 : 72;
+  static constexpr int WBS = WB + 8;  // a warp's f32 scratch row: the band's 48 columns
   static constexpr int KV_BYTES = 2 * BK * RS * 2 + BK * 4;    // K, V, key flags
   static constexpr int Q_BYTES = 2 * BQ * RS * 2 + 2 * BQ * 4;  // Q, dO, lse, dsum
-  static constexpr int DSS_BYTES = MODE == REL ? 0 : BQ * PS * 2;  // REL keeps no key-column dS'
+  static constexpr int DSS_BYTES = BQ * PS * 2;                 // the key-column dS'
   static constexpr int bytes(int stages) {
     return stages * (KV_BYTES + Q_BYTES + 2 * 64 * RS * 2) + DSS_BYTES + BQ * DS * 2 +
            NWARP * 16 * WBS * 4;
@@ -448,11 +476,11 @@ struct Layout {
   static constexpr int MIN_BLOCKS = DH <= 48 && 2 * (TOTAL + 1024) <= SMEM_SM ? 2 : 1;
 };
 
-// From flash_rel_attn_bwd.cu (namespace tc), unchanged: shared-memory
-// addresses, cp.async copies, ldmatrix, mma.sync and mma_kn.
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using sm90::pack_bf16;
+using sm90::smem_u32;
+
+// From flash_rel_attn_bwd.cu's mma.sync form: cp.async copies, ldmatrix,
+// mma.sync and mma_kn.
 // 16 (or 4) bytes global -> shared, zeros where !ok (no byte is read then)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
@@ -494,11 +522,6 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, ui
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // acc[n] += A (16 x 16, fragments a) times the 16 x (8 NH) slab of a
 // row-major [k][n] shared tile at `b` (row stride rs, first k row and
 // column already applied), read transposed by ldmatrix: lane rows
@@ -523,8 +546,8 @@ __device__ __forceinline__ void mma_kn(float (*acc)[4], const uint32_t* a,
 
 // Block s of the SPLIT a (b, h) sweeps query tiles s, s + SPLIT, ... and,
 // inside, the key tiles each sees, ascending (see the note at the top).
-template <int DH, int MODE>
-__global__ void __launch_bounds__(NTH, Layout<DH, MODE>::MIN_BLOCKS)
+template <int DH>
+__global__ void __launch_bounds__(NTH, Layout<DH>::MIN_BLOCKS)
 flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ e,
                       const uint8_t* __restrict__ pad, const __nv_bfloat16* __restrict__ dout,
@@ -532,7 +555,7 @@ flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
                       __nv_bfloat16* __restrict__ dq, float* __restrict__ de_part, int H,
                       int T_len, int max_seq, int causal, float scale, float scale_log2) {
   static_assert(BQ == 64 && BK == 64, "the band moves one 64-row chunk a key tile");
-  using L = Layout<DH, MODE>;
+  using L = Layout<DH>;
   constexpr int RS = L::RS, CPR = L::CPR, KS = DH / 16, NH = DH / 16;  // NH: n-tiles a half
   constexpr int WBS = L::WBS;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -551,9 +574,7 @@ flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   };
 
   const int n_tiles = (T_len + BQ - 1) / BQ;
-  // REL: only key tiles at or below the diagonal hold a distance >= 0, even
-  // in the non-causal model, whose relative terms vanish above it
-  auto kt_last = [&](int qt) { return causal || MODE == REL ? qt : n_tiles - 1; };
+  auto kt_last = [&](int qt) { return causal ? qt : n_tiles - 1; };
   // The last query tile of this block reaches every distance below its
   // q0 + BQ and writes each; rows above stay zero in the partial.
   const int last_qt = sp < n_tiles ? sp + (n_tiles - 1 - sp) / SPLIT * SPLIT : -1;
@@ -711,89 +732,50 @@ flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
           }
         }
       }
-      if constexpr (MODE != REL) {  // REL forms no key-column dS'
-        if (band) {
+      if (band) {
 #pragma unroll
-          for (int n = 0; n < WB / 8; ++n) {
-            *reinterpret_cast<float2*>(scr + g * WBS + 8 * n + 2 * t) =
-                make_float2(bacc[n][0], bacc[n][1]);
-            *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * n + 2 * t) =
-                make_float2(bacc[n][2], bacc[n][3]);
-          }
-        }
-        __syncwarp();
-        // P and dS' by key column
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = g + 8 * h, il = ra + r, i = q0 + il, c = 8 * n + 2 * t, jj = ka + c;
-            float ds[2];
-#pragma unroll
-            for (int x = 0; x < 2; ++x) {
-              // the skew: Srel of (row r, key c + x) is band column r - (c + x) + 31
-              const float sc = sacc[n][2 * h + x] + (band ? scr[r * WBS + r - c - x + 31] : 0.f);
-              const bool ok = i < T_len && live[jj + x] != 0.f && !(causal && k0 + jj + x > i);
-              const float p = ok ? exp2f(sc * scale_log2 - lse_s[il] * LOG2E) : 0.f;
-              ds[x] = p * (dpacc[n][2 * h + x] - dsum_s[il]) * scale;
-            }
-            const uint32_t dsb = pack_bf16(ds[0], ds[1]);
-            *reinterpret_cast<uint32_t*>(dss + il * PS + jj) = dsb;
-            if constexpr (MODE == COLUMN) {
-              if (band) {  // the unskew: key jj + x sits at u - x
-                const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
-                const __nv_bfloat16 zero = __float2bfloat16(0.f);
-                const int u = il - jj + BK - 1;
-                dsd[il * DS + u] = dist0 + u >= 0 ? d2.x : zero;
-                dsd[il * DS + u - 1] = dist0 + u - 1 >= 0 ? d2.y : zero;
-              }
-            }
-          }
-      }
-      if constexpr (MODE != COLUMN) {
-        if (band) {
-          // dS by distance: S and dP by key into the scratch, read back at
-          // key j = i - d beside the bias by distance, the band product
-          __syncwarp();  // every lane has read its band values (DIST)
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              float* row = scr + (g + 8 * h) * WBS + 8 * n + 2 * t;
-              *reinterpret_cast<float2*>(row) = make_float2(sacc[n][2 * h], sacc[n][2 * h + 1]);
-              *reinterpret_cast<float2*>(row + L::DP_AT) =
-                  make_float2(dpacc[n][2 * h], dpacc[n][2 * h + 1]);
-            }
-          __syncwarp();
-#pragma unroll
-          for (int n = 0; n < WB / 8; ++n)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-              for (int x = 0; x < 2; ++x) {
-                // band column ul of row r is key jl = r + 31 - ul of this warp's 32
-                const int r = g + 8 * h, ul = 8 * n + 2 * t + x, jl = r + 31 - ul;
-                if (jl < 0 || jl > 31) continue;
-                const int il = ra + r, i = q0 + il, u = ub + ul;
-                const bool ok = i < T_len && live[ka + jl] != 0.f && dist0 + u >= 0;
-                const float sd = scr[r * WBS + jl] + bacc[n][2 * h + x];
-                const float p = ok ? exp2f(sd * scale_log2 - lse_s[il] * LOG2E) : 0.f;
-                dsd[il * DS + u] =
-                    __float2bfloat16(p * (scr[r * WBS + L::DP_AT + jl] - dsum_s[il]) * scale);
-              }
+        for (int n = 0; n < WB / 8; ++n) {
+          *reinterpret_cast<float2*>(scr + g * WBS + 8 * n + 2 * t) =
+              make_float2(bacc[n][0], bacc[n][1]);
+          *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * n + 2 * t) =
+              make_float2(bacc[n][2], bacc[n][3]);
         }
       }
+      __syncwarp();
+      // P and dS' by key column
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = g + 8 * h, il = ra + r, i = q0 + il, c = 8 * n + 2 * t, jj = ka + c;
+          float ds[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            // the skew: Srel of (row r, key c + x) is band column r - (c + x) + 31
+            const float sc = sacc[n][2 * h + x] + (band ? scr[r * WBS + r - c - x + 31] : 0.f);
+            const bool ok = i < T_len && live[jj + x] != 0.f && !(causal && k0 + jj + x > i);
+            const float p = ok ? exp2f(sc * scale_log2 - lse_s[il] * LOG2E) : 0.f;
+            ds[x] = p * (dpacc[n][2 * h + x] - dsum_s[il]) * scale;
+          }
+          const uint32_t dsb = pack_bf16(ds[0], ds[1]);
+          *reinterpret_cast<uint32_t*>(dss + il * PS + jj) = dsb;
+          if (band) {  // the unskew: key jj + x sits at u - x
+            const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
+            const __nv_bfloat16 zero = __float2bfloat16(0.f);
+            const int u = il - jj + BK - 1;
+            dsd[il * DS + u] = dist0 + u >= 0 ? d2.x : zero;
+            dsd[il * DS + u - 1] = dist0 + u - 1 >= 0 ? d2.y : zero;
+          }
+        }
     }
     __syncthreads();
 
-    // ---- phase B: dQ += dS' K (not REL) + dsd E_band, rows 16 mq.., in registers
-    if constexpr (MODE != REL) {
+    // ---- phase B: dQ += dS' K + dsd E_band, rows 16 mq.., in registers
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, dss + (16 * mq + lrow) * PS + 16 * kk + lcol);
-        mma_kn<NH>(qacc, a, ks + 16 * kk * RS + c0, RS, lane);
-      }
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, dss + (16 * mq + lrow) * PS + 16 * kk + lcol);
+      mma_kn<NH>(qacc, a, ks + 16 * kk * RS + c0, RS, lane);
     }
     if (band) {
       // The dE partial rows this warp adds to are loaded first, so their
@@ -887,6 +869,461 @@ flash_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// the bf16 path of DIST and REL: Hopper's wgmma, TMA and mbarriers
+// ---------------------------------------------------------------------------
+
+// The switches of scripts/torch_query_sweep_ablation.py, which defines
+// them ahead of a copy of this file; the libraries as built define none,
+// so each takes the value below.
+#ifndef BWD_Q_SPLIT
+#define BWD_Q_SPLIT 2       // blocks a (b, h)
+#endif
+#ifndef BWD_Q_ONE_BLOCK
+#define BWD_Q_ONE_BLOCK 0   // 1: one block an SM at every d_head
+#endif
+#ifndef BWD_Q_HALF_BAND
+#define BWD_Q_HALF_BAND -1  // phase A's band in halves: -1 at two blocks an SM, 0 never, 1 always
+#endif
+#ifndef BWD_Q_DE_PARTIAL
+#define BWD_Q_DE_PARTIAL 2  // the dE partial's rows: 2 read and written; 1 written over, 0
+#endif                      // neither (both give a wrong dE: they time the traffic)
+
+namespace wg {
+
+using namespace sm90;
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // keys per tile
+constexpr int EB = BQ + BK;   // band rows staged per tile pair (the first one unused)
+constexpr int NCW = 8;        // warps: two warpgroups
+constexpr int NTH = 32 * NCW;
+constexpr int SPLIT = BWD_Q_SPLIT;  // blocks a (b, h), each with its own dE partial
+constexpr int WB = 48;        // band columns a warp reads in phase A: its 47 distances
+constexpr int WBS = WB + 8;   // row stride of a warp's band scratch (floats)
+constexpr int ALIGN = 256;    // the 32-byte swizzle's period: slabs start on it
+constexpr int SMEM_SM = 233472;  // shared memory of an SM, 1 KB a block reserved
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH, int MODE>
+struct Layout {
+  static_assert(DH <= 128, "a 64 x d_head f32 accumulator in a warpgroup's registers");
+  static constexpr int TILE = BQ * DH * 2;      // a 64-row bf16 tile in slabs: Q, dO, K or V
+  static constexpr int SLAB = TILE / (DH / 16);  // = 2048: its slab stride
+  static constexpr int E_TILE = EB * DH * 2;    // the E band, slab stride 4096
+  static constexpr int ST = 2 * TILE + E_TILE;  // a pair's stage: K, V, the E band
+  static constexpr int NST = 2;                 // the pair ring
+  static constexpr int QT = 2 * TILE;           // a query tile's Q and dO
+  static constexpr int DS_BYTES = MODE == DIST ? BQ * BK * 2 : 0;  // the key-column dS'
+  static constexpr int DSD_BYTES = BQ * EB * 2;                   // dsd [64 q][128 v]
+  static constexpr int SCR_BYTES = NCW * 16 * WBS * 4;
+  static constexpr int bytes(int nq) {
+    return NST * ST + nq * QT + DS_BYTES + DSD_BYTES + SCR_BYTES + 8 * (NST + nq) + ALIGN;
+  }
+  // two blocks an SM at d_head <= 48, where a thread's 128 registers hold
+  // its accumulators (kernel 4's bound); then a second query-tile slot
+  // where it still fits, so the next tile's Q and dO land under this one's
+  static constexpr int MIN_BLOCKS =
+      !BWD_Q_ONE_BLOCK && DH <= 48 && 2 * (bytes(1) + 1024) <= SMEM_SM ? 2 : 1;
+  // at 128 registers a thread, phase A's band product in two m64n48
+  // halves: S, dP and a half (56 accumulators) fit beside dQ or the dE
+  // carry, where S, dP and the whole band (80) spilled; at one block an
+  // SM nothing spills and the whole band's one product is the faster
+  static constexpr bool HALF_BAND = BWD_Q_HALF_BAND < 0 ? MIN_BLOCKS == 2 : BWD_Q_HALF_BAND == 1;
+  static constexpr int BUDGET = MIN_BLOCKS == 2 ? SMEM_SM / 2 - 1024 : 232448;
+  static constexpr int NQ = bytes(2) <= BUDGET ? 2 : 1;
+  static constexpr int Q_AT = NST * ST;
+  static constexpr int DS_AT = Q_AT + NQ * QT;
+  static constexpr int DSD_AT = DS_AT + DS_BYTES;
+  static constexpr int SCR_AT = DSD_AT + DSD_BYTES;
+  static constexpr int BAR_AT = SCR_AT + SCR_BYTES;
+  static constexpr int TOTAL = bytes(NQ);
+  static_assert(TOTAL <= BUDGET, "a block's shared memory");
+  static_assert(TILE % ALIGN == 0 && ST % ALIGN == 0 && DS_AT % ALIGN == 0 &&
+                    DSD_AT % ALIGN == 0,
+                "aligned slabs");
+};
+
+struct Maps {
+  CUtensorMap q, k, v, d, e;  // q, k, v, dO: [B*H][T][dh]; e: [max_seq][dh], in slabs
+};
+
+// Block s of the SPLIT a (b, h) sweeps query tiles s, s + SPLIT, ... and,
+// inside, the key tiles each sees, ascending (see the note at the top).
+// The 8 warps are two warpgroups; warp w of a warpgroup owns rows 16 w ..
+// 16 w + 15 of each of its 64-row accumulators.
+template <int DH, int MODE>
+__global__ void __launch_bounds__(NTH, Layout<DH, MODE>::MIN_BLOCKS)
+flash_bwd_q_wg_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ pad,
+                         const float* __restrict__ lse, const float* __restrict__ dsum,
+                         __nv_bfloat16* __restrict__ dq, float* __restrict__ de_part, int H,
+                         int T_len, int max_seq, int causal, float scale, float scale_log2) {
+  static_assert(MODE == DIST || MODE == REL, "COLUMN runs tc::flash_bwd_q_tc_kernel");
+  using L = Layout<DH, MODE>;
+  constexpr int NST = L::NST, NQ = L::NQ, KS = DH / 16, SLAB = L::SLAB, R = DH / 2;
+  constexpr bool KEY_TERM = MODE == DIST;  // the key-column dS' tile and dQ += dS' K
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_AT);
+  uint64_t* q_full = full + NST;
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_index();
+  const int g = lane >> 2, t = lane & 3;
+  const int wgi = warp >> 2, wq = warp & 3;  // warpgroup (phase A: keys 32 wgi ..); warp in it
+  const int bh = blockIdx.x / SPLIT, sp = blockIdx.x % SPLIT, b = bh / H;
+  const size_t base_q = (size_t)bh * T_len * DH, rbase = (size_t)bh * T_len;
+  // this block's dE partial [T][DH], row = distance
+  float* dep = de_part + ((size_t)sp * (gridDim.x / SPLIT) + bh) * T_len * DH;
+  const int n_tiles = (T_len + BQ - 1) / BQ;
+  const int n_mine = sp < n_tiles ? (n_tiles - 1 - sp) / SPLIT + 1 : 0;  // query tiles
+  auto kt_last = [&](int qt) { return causal || MODE == REL ? qt : n_tiles - 1; };
+
+  // zeros: dsd's entries no key reaches, and the partial's rows past the
+  // distances this block's last query tile reaches (it writes every row
+  // below q0 + BQ); everything when the block has no query tile
+  {
+    uint32_t* dsd_w = reinterpret_cast<uint32_t*>(smem + L::DSD_AT);
+    for (int x = tid; x < L::DSD_BYTES / 4; x += NTH) dsd_w[x] = 0u;
+    const int reach = min(T_len, n_mine > 0 ? (sp + (n_mine - 1) * SPLIT + 1) * BQ : 0);
+    for (int x = reach * DH + tid; x < T_len * DH; x += NTH) dep[x] = 0.f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < NST + NQ; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (n_mine == 0) return;
+
+  // the producer's place (thread 0's alone): the next pair to copy (query
+  // tile index c_qi, key tile c_kt), and how many pairs and query tiles
+  // were copied
+  int c_qi = 0, c_kt = 0, n_pairs = 0, n_q = 0;
+  // copy every query tile and pair whose slot is free: tiles_done query
+  // tiles and pairs_done pairs have been consumed
+  auto produce = [&](int pairs_done, int tiles_done) {
+    while (n_q < n_mine && n_q < tiles_done + NQ) {
+      const int s = n_q % NQ, q0 = (sp + n_q * SPLIT) * BQ;
+      unsigned char* qs = smem + L::Q_AT + s * L::QT;
+      mbar_expect_tx(&q_full[s], L::QT);
+      tma_load(qs, &maps.q, 0, q0, 0, bh, &q_full[s]);
+      tma_load(qs + L::TILE, &maps.d, 0, q0, 0, bh, &q_full[s]);
+      ++n_q;
+    }
+    while (c_qi < n_mine && n_pairs < pairs_done + NST) {
+      const int qt = sp + c_qi * SPLIT, kt = c_kt, s = n_pairs % NST;
+      const int dist0 = (qt - kt) * BQ - (BK - 1);
+      const bool band = kt <= qt;
+      unsigned char* st = smem + s * L::ST;
+      mbar_expect_tx(&full[s], band ? L::ST : 2 * L::TILE);
+      tma_load(st, &maps.k, 0, kt * BK, 0, bh, &full[s]);
+      tma_load(st + L::TILE, &maps.v, 0, kt * BK, 0, bh, &full[s]);
+      if (band) tma_load(st + 2 * L::TILE, &maps.e, 0, max_seq - EB - dist0, 0, 0, &full[s]);
+      ++n_pairs;
+      if (++c_kt > kt_last(qt)) {
+        c_kt = 0;
+        ++c_qi;
+      }
+    }
+  };
+  if (tid == 0) produce(0, 0);
+
+  const uint32_t ds_t = base + L::DS_AT, dsd_t = base + L::DSD_AT;
+  unsigned char* ds_s = smem + L::DS_AT;
+  unsigned char* dsd_s = smem + L::DSD_AT;
+  float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
+  // warpgroup 0: the query tile's dQ over its key tiles. Warpgroup 1: the
+  // dE block carried to the next pair (the current pair's lower band
+  // half, rows 64.., which is the next key tile's upper one), and the
+  // pair's lower half
+  float acc[R], lo[R];
+#pragma unroll
+  for (int x = 0; x < R; ++x) acc[x] = 0.f;
+
+  // row rl (0..63) of this thread's accumulator rows: 16 wq + g + 8 hh.
+  // add_rows: the partial's rows row0 - rl (those in [0, T)) += src, with
+  // the old value read only below `fresh` (rows this block wrote before)
+  // or taken from `old`, read ahead by load_rows
+  auto load_rows = [&](float* old, int row0, int fresh) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 - (16 * wq + g + 8 * hh);
+      const bool ok = BWD_Q_DE_PARTIAL == 2 && row >= 0 && row < fresh;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c) {
+        const float2 x =
+            ok ? *reinterpret_cast<const float2*>(dep + (size_t)row * DH + 8 * c + 2 * t)
+               : make_float2(0.f, 0.f);
+        old[4 * c + 2 * hh] = x.x;
+        old[4 * c + 2 * hh + 1] = x.y;
+      }
+    }
+  };
+  auto add_rows = [&](const float* src, const float* old, int row0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 - (16 * wq + g + 8 * hh);
+      if (BWD_Q_DE_PARTIAL == 0 || row < 0 || row >= T_len) continue;
+      float* at = dep + (size_t)row * DH + 2 * t;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c)
+        *reinterpret_cast<float2*>(at + 8 * c) =
+            make_float2(old[4 * c + 2 * hh] + src[4 * c + 2 * hh],
+                        old[4 * c + 2 * hh + 1] + src[4 * c + 2 * hh + 1]);
+    }
+  };
+
+  int pi = 0;
+  for (int qi = 0; qi < n_mine; ++qi) {
+    const int qt = sp + qi * SPLIT, q0 = qt * BQ, last_kt = kt_last(qt);
+    // rows of the partial this block's earlier query tiles wrote
+    const int fresh = qt >= SPLIT ? min(T_len, (qt - SPLIT + 1) * BQ) : 0;
+    const uint32_t q_t = base + L::Q_AT + (qi % NQ) * L::QT, d_t = q_t + L::TILE;
+    float lse_r[2], dsum_r[2];  // lse in log2 units, and dsum, of this thread's rows
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = q0 + 16 * wq + g + 8 * hh;
+      lse_r[hh] = i < T_len ? lse[rbase + i] * LOG2E : 0.f;
+      dsum_r[hh] = i < T_len ? dsum[rbase + i] : 0.f;
+    }
+    mbar_wait(&q_full[qi % NQ], (qi / NQ) & 1);
+    for (int kt = 0; kt <= last_kt; ++kt) {
+      const int s = pi % NST, kb = kt * BK;
+      const bool band = kt <= qt;  // some distance of the pair is >= 0
+      const uint32_t k_t = base + s * L::ST, v_t = k_t + L::TILE, e_t = k_t + 2 * L::TILE;
+      // key 32 wgi + x of the key tile is live at bit x
+      const int key = kb + 32 * wgi + lane;
+      const uint32_t live = __ballot_sync(
+          0xffffffffu, key < T_len && !(pad != nullptr && pad[(size_t)b * T_len + key]));
+      mbar_wait(&full[s], (pi / NST) & 1);
+
+      // ---- phase A
+      {
+        float sacc[16], pacc[16];
+        // the skew: band column (from row 32 wgi) of row r, key 32 wgi + j
+        // is 64 - (16 wq + r) + j; the warp keeps columns 48 - 16 wq .. 95 -
+        // 16 wq (8-column chunks 6 - 2 wq ..), so it reads scratch column
+        // 16 - r + j. keep(b, c0, n): chunks c0 .. c0 + n of the band from b
+        auto keep = [&](const float* b, int c0, int n) {
+#pragma unroll
+          for (int c = 0; c < n; ++c) {
+            const int cc = c0 + c - (6 - 2 * wq);
+            if (cc >= 0 && cc < WB / 8) {
+              *reinterpret_cast<float2*>(scr + g * WBS + 8 * cc + 2 * t) =
+                  make_float2(b[4 * c], b[4 * c + 1]);
+              *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * cc + 2 * t) =
+                  make_float2(b[4 * c + 2], b[4 * c + 3]);
+            }
+          }
+        };
+        if (band && L::HALF_BAND) {
+          float bacc[24];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            const uint64_t da = desc_k(q_t + kk * SLAB);
+            mma_ss<32, 0, 0>(sacc, da, desc_k(k_t + 1024 * wgi + kk * SLAB), kk > 0);
+            mma_ss<32, 0, 0>(pacc, desc_k(d_t + kk * SLAB), desc_k(v_t + 1024 * wgi + kk * SLAB),
+                             kk > 0);
+            mma_ss<48, 0, 0>(bacc, da, desc_k(e_t + 1024 * wgi + kk * 2 * SLAB), kk > 0);
+          }
+          wg_commit();
+          wg_wait0();
+          fence_regs<16>(sacc);
+          fence_regs<16>(pacc);
+          fence_regs<24>(bacc);
+          keep(bacc, 0, 6);
+          wg_fence();  // the band's second half, 48 rows on
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            mma_ss<48, 0, 0>(bacc, desc_k(q_t + kk * SLAB),
+                             desc_k(e_t + 1024 * wgi + 1536 + kk * 2 * SLAB), kk > 0);
+          wg_commit();
+          wg_wait0();
+          fence_regs<24>(bacc);
+          keep(bacc, 6, 6);
+          __syncwarp();
+        } else if (band) {
+          float bacc[48];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            const uint64_t da = desc_k(q_t + kk * SLAB);
+            mma_ss<32, 0, 0>(sacc, da, desc_k(k_t + 1024 * wgi + kk * SLAB), kk > 0);
+            mma_ss<32, 0, 0>(pacc, desc_k(d_t + kk * SLAB), desc_k(v_t + 1024 * wgi + kk * SLAB),
+                             kk > 0);
+            mma_ss<96, 0, 0>(bacc, da, desc_k(e_t + 1024 * wgi + kk * 2 * SLAB), kk > 0);
+          }
+          wg_commit();
+          wg_wait0();
+          fence_regs<16>(sacc);
+          fence_regs<16>(pacc);
+          fence_regs<48>(bacc);
+          keep(bacc, 0, 12);
+          __syncwarp();
+        } else {  // DIST, non-causal, above the diagonal: no relative term
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            mma_ss<32, 0, 0>(sacc, desc_k(q_t + kk * SLAB), desc_k(k_t + 1024 * wgi + kk * SLAB),
+                             kk > 0);
+            mma_ss<32, 0, 0>(pacc, desc_k(d_t + kk * SLAB), desc_k(v_t + 1024 * wgi + kk * SLAB),
+                             kk > 0);
+          }
+          wg_commit();
+          wg_wait0();
+          fence_regs<16>(sacc);
+          fence_regs<16>(pacc);
+        }
+        const __nv_bfloat16 zero = __float2bfloat16(0.f);
+        // whether any of the warp's pairs is masked: a row past T, a dead
+        // key, or a key past a row under the causal mask
+        const bool masked = q0 + 16 * wq + 15 >= T_len || live != 0xffffffffu ||
+                            (causal && kb + 32 * wgi + 31 > q0 + 16 * wq);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = g + 8 * hh, il = 16 * wq + r, i = q0 + il;
+            const int jl = 8 * n + 2 * t, j = 32 * wgi + jl;
+            float ds[2];
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const float sc =
+                  sacc[4 * n + 2 * hh + x] + (band ? scr[r * WBS + 16 - r + jl + x] : 0.f);
+              const bool ok = !masked || (i < T_len && ((live >> (jl + x)) & 1) &&
+                                          !(causal && kb + j + x > i));
+              const float p = ok ? exp2f(sc * scale_log2 - lse_r[hh]) : 0.f;
+              ds[x] = p * (pacc[4 * n + 2 * hh + x] - dsum_r[hh]) * scale;
+            }
+            const uint32_t dsb = pack_bf16(ds[0], ds[1]);  // rounded as the TPU rounds ds
+            if constexpr (KEY_TERM)
+              *reinterpret_cast<uint32_t*>(ds_s + (j >> 4) * 2048 + sw32(il, j & 15)) = dsb;
+            if (band) {
+              // the unskew: distance i - (kb + j + x) sits at band column
+              // 64 - il + j + x; 0 where negative
+              const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
+              const int v = 64 - il + j, dist = i - (kb + j);
+              *reinterpret_cast<__nv_bfloat16*>(dsd_s + (v >> 4) * 2048 + sw32(il, v & 15)) =
+                  dist >= 0 ? d2.x : zero;
+              *reinterpret_cast<__nv_bfloat16*>(dsd_s + ((v + 1) >> 4) * 2048 +
+                                                sw32(il, (v + 1) & 15)) =
+                  dist - 1 >= 0 ? d2.y : zero;
+            }
+          }
+      }
+      fence_async_smem();
+      named_barrier(1, NTH);  // dS' and dsd are in place
+
+      // ---- phase B
+      if (wgi == 0) {  // dQ += dS' K + dsd E_band, over the query tile
+        if (band) {
+          wg_fence();
+          if constexpr (KEY_TERM) {
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+              mma_ss<DH, 0, 1>(acc, desc_k(ds_t + 2048 * kk), desc_mn(k_t + 512 * kk, SLAB));
+          }
+#pragma unroll
+          for (int kv = 0; kv < EB / 16; ++kv)
+            mma_ss<DH, 0, 1>(acc, desc_k(dsd_t + 2048 * kv), desc_mn(e_t + 512 * kv, 2 * SLAB));
+          wg_commit();
+          wg_wait0();
+          fence_regs<R>(acc);
+        } else if constexpr (KEY_TERM) {
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            mma_ss<DH, 0, 1>(acc, desc_k(ds_t + 2048 * kk), desc_mn(k_t + 512 * kk, SLAB));
+          wg_commit();
+          wg_wait0();
+          fence_regs<R>(acc);
+        }
+        if (kt == last_kt) {  // the query tile's last pair: its dQ, cast once
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i = q0 + 16 * wq + g + 8 * hh;
+            if (i < T_len) {
+              __nv_bfloat16* row = dq + base_q + (size_t)i * DH + 2 * t;
+#pragma unroll
+              for (int c = 0; c < DH / 8; ++c)
+                *reinterpret_cast<uint32_t*>(row + 8 * c) =
+                    pack_bf16(acc[4 * c + 2 * hh], acc[4 * c + 2 * hh + 1]);
+            }
+          }
+#pragma unroll
+          for (int x = 0; x < R; ++x) acc[x] = 0.f;
+        }
+      } else if (band) {
+        // dE += dsd^T Q: band rows 0..63 (distances q0 - kb + 64 - rl) add
+        // to the carried block, which is then complete; rows 64..127
+        // (q0 - kb - rl) start the next pair's
+        const int hi_row0 = q0 - kb + 64;
+        float old[DH <= 96 ? R : 1];  // the partial rows the pair finishes, read ahead
+        if constexpr (DH <= 96) load_rows(old, hi_row0, fresh);
+        wg_fence();
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq) {
+          const uint64_t dq_ = desc_mn(q_t + 512 * kq, SLAB);
+          mma_ss<DH, 1, 1>(acc, desc_mn(dsd_t + 512 * kq, 2048), dq_);
+          mma_ss<DH, 1, 1>(lo, desc_mn(dsd_t + 8192 + 512 * kq, 2048), dq_, kq > 0);
+        }
+        wg_commit();
+        wg_wait0();
+        fence_regs<R>(acc);
+        fence_regs<R>(lo);
+        if constexpr (DH <= 96) {
+          add_rows(acc, old, hi_row0);
+        } else {
+          float old2[R];
+          load_rows(old2, hi_row0, fresh);
+          add_rows(acc, old2, hi_row0);
+        }
+        if (kt == qt) {  // the query tile's last band pair: the lower half too
+          float old2[R];
+          load_rows(old2, q0 - kb, fresh);
+          add_rows(lo, old2, q0 - kb);
+#pragma unroll
+          for (int x = 0; x < R; ++x) acc[x] = 0.f;
+        } else {
+#pragma unroll
+          for (int x = 0; x < R; ++x) acc[x] = lo[x];
+        }
+      }
+      named_barrier(1, NTH);  // every product of the pair is done with its tiles
+      ++pi;
+      if (tid == 0) produce(pi, qi + (kt == last_kt));
+    }
+  }
+}
+
+template <int DH, int MODE>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
+                   const void* dout, const void* lse, const void* dsum, void* dq, void* de_part,
+                   int B, int H, int T_len, int max_seq, int causal, float scale,
+                   cudaStream_t stream) {
+  Maps maps;
+  cudaError_t err;
+  if ((err = sm90_host::slab_map(&maps.q, q, B * H, T_len, DH, BQ)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.k, k, B * H, T_len, DH, BK)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.v, v, B * H, T_len, DH, BK)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.d, dout, B * H, T_len, DH, BQ)) != cudaSuccess ||
+      (err = sm90_host::slab_map(&maps.e, e, 1, max_seq, DH, EB)) != cudaSuccess)
+    return err;
+  auto kernel = flash_bwd_q_wg_tc_kernel<DH, MODE>;
+  const int smem = Layout<DH, MODE>::TOTAL;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * H * SPLIT, NTH, smem, stream>>>(
+      maps, static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<__nv_bfloat16*>(dq),
+      static_cast<float*>(de_part), H, T_len, max_seq, causal, scale, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+
 
 template <typename T, int DH, int MODE>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
@@ -895,10 +1332,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
                    cudaStream_t stream) {
   cudaError_t err;
   int parts = B * H;  // dE partials, one a block
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && MODE != COLUMN) {
+    err = wg::launch<DH, MODE>(q, k, v, e, pad, dout, lse, dsum, dq, de_part, B, H, T_len,
+                               max_seq, causal, scale, stream);
+    if (err != cudaSuccess) return err;
+    parts = B * H * wg::SPLIT;
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     using B16 = __nv_bfloat16;
-    auto kernel = tc::flash_bwd_q_tc_kernel<DH, MODE>;
-    const int smem = tc::Layout<DH, MODE>::TOTAL;
+    auto kernel = tc::flash_bwd_q_tc_kernel<DH>;
+    const int smem = tc::Layout<DH>::TOTAL;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     parts = B * H * tc::SPLIT;
@@ -956,8 +1398,8 @@ extern "C" {
 // Each returns a cudaError_t: 0 when both launches were accepted. dtype: 0 =
 // float32, 1 = bfloat16 (q, k, v, e, dout, dq, de); lse and dsum are f32
 // [B, H, T]; pad may be null. de_part is f32 scratch [2*B*H, T, dh], filled
-// by the kernel (the bf16 COLUMN and DIST paths use all of it, one partial
-// a block; the others the first B*H). scale is c = 1/sqrt(d_head) of the
+// by the kernel (every bf16 path uses all of it, one partial a block; the
+// f32 paths the first B*H). scale is c = 1/sqrt(d_head) of the
 // caller's heads, which may have fewer columns than dh (zero columns padded
 // up to an instantiated dh add nothing). Launches on `stream` and does not
 // synchronise.

@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the flash attention kernels 1 and 4
-// (flash_rel_attn_fwd.cu, flash_rel_attn_bwd.cu): warpgroup matrix products
+// Hopper building blocks shared by the flash attention kernels 1, 4, 6 and
+// 8 (flash_rel_attn_fwd.cu, flash_rel_attn_bwd.cu, flash_rel_attn_bwd_q.cu)
+// and the wide forms (flash_rel_attn_wide.cu): warpgroup matrix products
 // (wgmma), tensor-memory-accelerator copies (TMA) and mbarriers, in inline
-// PTX for sm_90a. Included by both sources; kernels/build.py hashes it into
-// both libraries' names, so an edit here rebuilds both.
+// PTX for sm_90a. kernels/build.py hashes it into each including library's
+// name, so an edit here rebuilds them all.
 //
 // Shared-memory operand layout. Every bf16 tile a wgmma reads is an [R][C]
 // matrix stored as C/16 slabs of [R][16]: a 32-byte row per slab, slabs

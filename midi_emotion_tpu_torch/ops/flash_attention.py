@@ -58,7 +58,7 @@ cluster of one CTA a part splits the score side by columns and sums it
 through distributed shared memory. In bf16 at d_head 192 and 256 kernel 1
 is one block a query tile whose two warpgroups each own half the columns
 and sum their partial scores in the block's shared memory, and kernel 4
-is the cluster backward in two parts (of 96 at 192). ``flash_form`` names
+is the cluster backward in two parts (of 96 at 192). ``form`` names
 the form each (kernel, d_head, dtype) runs on. bf16 operands must be
 16-byte aligned (the kernels copy 16-byte units); fresh and contiguous
 tensors are.
@@ -172,16 +172,19 @@ fed from shared memory; every bf16 path on the tensor cores (below):
   * their tiles are 64 rows, 32 at d_head 128, so the f32 staging fits a
     block's shared memory.
   * bf16 ``bwd_dq_de``, ``bwd_dq_de_dist`` (the ``fused`` training path)
-    and ``bwd_de_dqrel`` (``split``): bound by operations; kernel 4's phase
-    A (S, dP and the band by ``mma.sync``, the band skewed through shared
-    memory) and products, query-major: dQ in f32 registers across a query
-    tile's key tiles, dS' rounded to bf16 and put into the distance domain
-    (``column``: the unskew of the key-column dS'; ``dist`` and
-    ``de_dqrel``: dS recomputed by distance from the bias by distance and
-    the S and dP fragments skewed through shared memory), where dQ_rel and
-    dE are plain products; ``de_dqrel`` forms no dQ key term and visits
-    only key tiles at or below the diagonal; two blocks a (b, h) on
-    alternate query tiles, each with its own dE partial;
+    and ``bwd_de_dqrel`` (``split``): bound by operations; query-major: dQ
+    in f32 registers across a query tile's key tiles, dS' rounded to bf16
+    (as the TPU kernels round ds) and scattered into the distance domain
+    (the unskew; the TPU kernels of ``dist`` and ``de_dqrel`` recompute dS
+    by distance instead, because Mosaic cannot lower the unskew, and both
+    start from the same f32 scores, so the scatter gives the same dS), where
+    dQ_rel and dE are plain products; ``de_dqrel`` forms no dQ key term and
+    visits only key tiles at or below the diagonal; two blocks a (b, h) on
+    alternate query tiles, each with its own dE partial. ``bwd_dq_de``
+    runs S, dP and the band by ``mma.sync`` (kernel 4's earlier phase A);
+    ``bwd_dq_de_dist`` and ``bwd_de_dqrel`` run every product as a Hopper
+    warpgroup product (``wgmma``) on tiles TMA copies under ``mbarrier``s,
+    two warpgroups a tile pair (``form`` "wgmma");
   * bf16 ``bwd_dkdv_dq`` (``split``): bound by operations; kernel 4's
     tensor-core kernel without its distance-domain half: S, the band (P
     needs Srel), dP, dV, dK and dQ's key term by ``mma.sync``; two blocks
@@ -271,13 +274,21 @@ def padded_dh(dh: int) -> int:
     return -(-dh // WIDE_PART) * WIDE_PART
 
 
-def flash_form(kernel: int, dh: int, dtype: torch.dtype) -> str:
-    """The form of kernel 1 (``kernel=1``, the forward) or kernel 4 (4, the
-    merged backward) that runs heads of ``dh`` columns in ``dtype`` on the
-    card, at ``padded_dh(dh)``:
-      * ``"tile"``: the kernel built for that d_head, ``csrc/
-        flash_rel_attn_fwd.cu`` or ``_bwd.cu`` (f32 up to 256, bf16 up to
-        128): a block's warpgroup holds its tile's whole d_head;
+FORMS = ("cuda_cores", "mma_sync", "wgmma", "parts", "cluster", "streamed")  # form's answers
+
+
+def form(kernel: int, dh: int, dtype: torch.dtype) -> str:
+    """The form of attention kernel ``kernel`` (1, the forward; 4, the merged
+    backward; 5-9, the ``split`` and ``fused`` decompositions' kernels) that
+    runs heads of ``dh`` columns in ``dtype`` on the card, at
+    ``padded_dh(dh)``:
+      * ``"cuda_cores"``: f32, the kernel built for that d_head (kernels 1
+        and 4 up to 256, 5-9 up to 128);
+      * ``"wgmma"``: bf16 up to 128, kernels 1, 4, 6 and 8 (``csrc/
+        flash_rel_attn_fwd.cu``, ``_bwd.cu``, ``_bwd_q.cu``): Hopper's
+        warpgroup products on tiles TMA copies, a warpgroup holding its
+        tile's whole d_head;
+      * ``"mma_sync"``: bf16 up to 128, kernels 5, 7 and 9, on ``mma.sync``;
       * ``"parts"``: kernel 1 in bf16 at 192 and 256, ``tc::
         flash_fwd_tc_parts_kernel`` of ``flash_rel_attn_fwd.cu``: two
         warpgroups of one block, a column part each;
@@ -286,16 +297,23 @@ def flash_form(kernel: int, dh: int, dtype: torch.dtype) -> str:
         columns (96 at 192), ``csrc/flash_rel_attn_wide.cu``;
       * ``"streamed"``: past those, ``flash_rel_attn_wide.cu``'s sweeps.
     Any d_head >= 1."""
-    if kernel not in (1, 4):
-        raise ValueError(f"flash_form: kernel 1 or 4, got {kernel}")
+    if kernel not in (1, 4, 5, 6, 7, 8, 9):
+        raise ValueError(f"form: kernel 1 or 4-9, got {kernel}")
     dh_k = padded_dh(dh)
-    if dtype == torch.bfloat16:
-        if dh_k <= DECOMPOSITION_DHS[-1]:
-            return "tile"
-        if kernel == 1 and dh_k <= KERNEL_DHS[-1]:
-            return "parts"
-        return "cluster" if dh_k <= CLUSTER_MAX_PARTS * WIDE_PART else "streamed"
-    return "tile" if dh_k <= KERNEL_DHS[-1] else "streamed"
+    bf16 = dtype == torch.bfloat16
+    if kernel >= 5:
+        if dh_k > DECOMPOSITION_DHS[-1]:
+            return "streamed"
+        if not bf16:
+            return "cuda_cores"
+        return "wgmma" if kernel in (6, 8) else "mma_sync"
+    if not bf16:
+        return "cuda_cores" if dh_k <= KERNEL_DHS[-1] else "streamed"
+    if dh_k <= DECOMPOSITION_DHS[-1]:
+        return "wgmma"
+    if kernel == 1 and dh_k <= KERNEL_DHS[-1]:
+        return "parts"
+    return "cluster" if dh_k <= CLUSTER_MAX_PARTS * WIDE_PART else "streamed"
 
 
 def pad_heads(dh_to: int, *tensors: Optional[torch.Tensor]):
@@ -565,15 +583,14 @@ def _fwd(q, k, v, e, causal, pad_keys):
     q, k, v, e = pad_heads(dh_k, q, k, v, e)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    form = flash_form(1, dh_k, q.dtype)
-    wide = form in ("cluster", "streamed")
-    _launch("flash_rel_attn_wide_fwd" if wide else "flash_rel_attn_fwd",
+    how = form(1, dh_k, q.dtype)
+    _launch("flash_rel_attn_wide_fwd" if how in ("cluster", "streamed") else "flash_rel_attn_fwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(), _ptr(pad_keys),
             o.data_ptr(), lse.data_ptr(),
             B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_rel_attention.launches += 1
-    flash_rel_attention.form_launches[form] += 1
+    flash_rel_attention.form_launches[how] += 1
     return _cut(dh, o)[0], lse
 
 
@@ -582,10 +599,10 @@ def _launch_wide_bwd(kernel, q, k, v, e, causal, pad_keys, lse, dsum, do, outs, 
     on heads already padded: ``outs`` maps "dq", "dk", "dv", "de" to the
     outputs that kernel writes; an f32 dE partial [B*H, T, dh] per (b, h)
     is allocated where it writes dE, and for kernel 4's cluster backward
-    (``flash_form`` "cluster") a dQ and a dE partial per split of up to
+    (``form`` "cluster") a dQ and a dE partial per split of up to
     ``WIDE_BWD_SPLITS``."""
     B, H, T, dh_k = q.shape
-    cluster = kernel == 4 and flash_form(4, dh_k, q.dtype) == "cluster"
+    cluster = kernel == 4 and form(4, dh_k, q.dtype) == "cluster"
     slabs = 2 * WIDE_BWD_SPLITS if cluster else 1
     de_part = (torch.empty((slabs * B * H, T, dh_k), dtype=torch.float32, device=q.device)
                if "de" in outs else None)
@@ -628,6 +645,12 @@ def _launch_bwd(name, kernel, q, k, v, e, causal, pad_keys, lse, dsum, do, like,
     return _cut(dh, *outs)
 
 
+def _count(wrapper, kernel, q):
+    """One launch of ``wrapper``'s kernel, also by its ``form``."""
+    wrapper.launches += 1
+    wrapper.form_launches[form(kernel, q.shape[-1], q.dtype)] += 1
+
+
 def _dsum(o, do):
     """rowsum(dO * O) in f32 [B, H, T]: on a CUDA tensor the backward
     source's own kernel (o and do already checked), on a CPU tensor torch."""
@@ -662,7 +685,7 @@ def bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do, split=None):
         raise ValueError(f"bwd_dkdv: split must be at least 1, got {split}")
     dk, dv = _launch_bwd("flash_rel_attn_bwd_dkdv", 9, q, k, v, e, causal, pad_keys, lse, dsum, do,
                          ("k", "v"), None, (split,))
-    bwd_dkdv.launches += 1
+    _count(bwd_dkdv, 9, q)
     return dk, dv
 
 
@@ -673,7 +696,7 @@ def bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do):
         return bwd_dkdv_dq_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     dk, dv, dq_qk = _launch_bwd("flash_rel_attn_bwd_dkdv_dq", 7, q, k, v, e, causal, pad_keys, lse,
                                 dsum, do, ("k", "v", "q"), "dq")
-    bwd_dkdv_dq.launches += 1
+    _count(bwd_dkdv_dq, 7, q)
     return dk, dv, dq_qk
 
 
@@ -684,7 +707,7 @@ def bwd_dq_de(q, k, v, e, causal, pad_keys, lse, dsum, do):
         return bwd_dq_de_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de", 5, q, k, v, e, causal, pad_keys, lse, dsum, do,
                          ("q", "e"), "de")
-    bwd_dq_de.launches += 1
+    _count(bwd_dq_de, 5, q)
     return dq, de
 
 
@@ -695,7 +718,7 @@ def bwd_dq_de_dist(q, k, v, e, causal, pad_keys, lse, dsum, do):
         return bwd_dq_de_dist_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     dq, de = _launch_bwd("flash_rel_attn_bwd_dq_de_dist", 6, q, k, v, e, causal, pad_keys, lse, dsum,
                          do, ("q", "e"), "de")
-    bwd_dq_de_dist.launches += 1
+    _count(bwd_dq_de_dist, 6, q)
     return dq, de
 
 
@@ -706,12 +729,13 @@ def bwd_de_dqrel(q, k, v, e, causal, pad_keys, lse, dsum, do):
         return bwd_de_dqrel_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     dq_rel, de = _launch_bwd("flash_rel_attn_bwd_de_dqrel", 8, q, k, v, e, causal, pad_keys, lse,
                              dsum, do, ("q", "e"), "de")
-    bwd_de_dqrel.launches += 1
+    _count(bwd_de_dqrel, 8, q)
     return dq_rel, de
 
 
 for _wrapper in (bwd_dkdv, bwd_dkdv_dq, bwd_dq_de, bwd_dq_de_dist, bwd_de_dqrel):
     _wrapper.launches = 0  # kernel launches since the last reset
+    _wrapper.form_launches = dict.fromkeys(FORMS, 0)  # the same by form
 
 
 def flash_rel_attention_bwd(
@@ -756,12 +780,12 @@ def flash_rel_attention_bwd(
     dh_k = padded_dh(dh)
     q, k, v, e, do = pad_heads(dh_k, q, k, v, e, do)
     dq, dk, dv, de = (torch.empty_like(t) for t in (q, k, v, e))
-    form = flash_form(4, dh_k, q.dtype)
-    if form != "tile":
+    how = form(4, dh_k, q.dtype)
+    if how in ("cluster", "streamed"):
         _launch_wide_bwd(4, q, k, v, e, causal, pad_keys, lse, dsum, do,
                          {"dq": dq, "dk": dk, "dv": dv, "de": de}, 1.0 / math.sqrt(dh))
         flash_rel_attention_bwd.launches += 1
-        flash_rel_attention_bwd.form_launches[form] += 1
+        flash_rel_attention_bwd.form_launches[how] += 1
         return tuple(_cut(dh, dq, dk, dv, de))
     # f32 scratch: a dQ and a dE partial for each of the (up to) two blocks
     # that share a (b, h), summed in a fixed order by the kernel's reductions
@@ -774,14 +798,12 @@ def flash_rel_attention_bwd(
             B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_rel_attention_bwd.launches += 1
-    flash_rel_attention_bwd.form_launches[form] += 1
+    flash_rel_attention_bwd.form_launches[how] += 1
     return tuple(_cut(dh, dq, dk, dv, de))
 
 
-FORMS = ("tile", "parts", "cluster", "streamed")  # flash_form's answers
 flash_rel_attention_bwd.launches = 0  # merged kernel launches since the last reset
-# the same launches by flash_form's form of kernel 4
-flash_rel_attention_bwd.form_launches = dict.fromkeys(FORMS, 0)
+flash_rel_attention_bwd.form_launches = dict.fromkeys(FORMS, 0)  # the same by form
 
 
 def flash_rel_attention_bwd_xla(
@@ -848,4 +870,4 @@ def flash_rel_attention(
 
 
 flash_rel_attention.launches = 0  # forward kernel launches since the last reset
-flash_rel_attention.form_launches = dict.fromkeys(FORMS, 0)  # the same by flash_form's form
+flash_rel_attention.form_launches = dict.fromkeys(FORMS, 0)  # the same by form

@@ -5,6 +5,7 @@
     python3 scripts/torch_flash_bench.py --roots A B B A --check --train --decode
     python3 scripts/torch_flash_bench.py --roots A B B A --wide
     python3 scripts/torch_flash_bench.py --roots A B B A --mid --train
+    python3 scripts/torch_flash_bench.py --roots A B B A --decomp --train
 
 Each root is a checkout of this repository (an unpacked ``git archive`` of
 another commit, say). For each root in the order given, a fresh process
@@ -46,6 +47,25 @@ padded to 256) and, at 192, kernel 4's cluster on heads padded to 256
 cut); and the 20-layer ``--n_head 3`` train step at B 8 (``step3_*``, as
 ``--train`` measures the flagship's). Each library's ptxas report is
 printed.
+With ``--decomp``, also the other backward decompositions' kernels 5-9
+(``MIDI_EMOTION_BWD=split|fused``; their library ``flash_rel_attn_bwd_q``'s
+and ``_bwd_kv``'s ptxas reports are printed): each first held to its twin
+by ``chip_smoke.check_bwd_kernel`` in bf16 at every d_head it is built for
+and at 40 (padded), T 200, causal and not, a pad tail and a fully masked
+row, at that check's tolerance (2e-2 of each output's scale); then each
+wrapper's call timed alone (``k5``..``k9``: the kernel and its reduction)
+and its main kernel apart (``k5_main``..``k9_main``) in bf16 at B 8, H 16,
+T 1216, d_head 48, causal, with a pad tail; the inputs of the exp
+floor: the 64 x 64 tile pairs a query-major kernel visits at that shape
+(``tile_pairs``; each forms P of 4096 entries a pass), the visible (query,
+key) pairs (``visible_pairs``, what the data needs), and the SFU's exp
+rate (``exps_per_ms``: 16 results a clock an SM, the CUDA C++ Programming
+Guide's throughput table for sm_90, times the card's SMs and its maximum
+SM clock from ``nvidia-smi``); and, with ``--train``, the
+flagship's train step under ``MIDI_EMOTION_BWD=split`` (``split_*``, with
+kernels 7's and 8's ms a step) and under ``fused`` with
+``MIDI_EMOTION_DQDE=dist`` (``dist_*``, with kernels 6's and 9's), measured
+as the merged step is.
 With ``--train``, also the default (merged) train step of the flagship at
 B 8, T 1216, bf16, dropout 0.1 (``chip_smoke.py``'s CLI arguments, on its
 synthetic shards): after 2 warm-up steps, 3 steps under the profiler,
@@ -67,10 +87,12 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def train_step(torch, cs, root, steps=3, extra=(), key="step"):
+def train_step(torch, cs, root, steps=3, extra=(), key="step", kernels=None):
     """The merged train step's device ms, wall ms and kernels 1 and 4's ms,
     a step, on the flagship (see the module docstring), or with ``extra``
-    CLI arguments (``--n_head 3``), into keys starting with ``key``."""
+    CLI arguments (``--n_head 3``), into keys starting with ``key``;
+    ``kernels`` (label -> a substring of kernel names): those kernels' ms a
+    step too."""
     import tempfile
     import time
 
@@ -106,8 +128,51 @@ def train_step(torch, cs, root, steps=3, extra=(), key="step"):
     device = per_step(events)
     k4 = per_step([e for e in events if any(only in e.key for _, only in cs.BWD_LAUNCHES)])
     k1 = per_step([e for e in events if "flash_fwd_tc_" in e.key])
-    return {f"{key}_device_ms": device, f"{key}_wall_ms": wall * 1e3 / steps,
-            f"{key}_busy": device / (wall * 1e3 / steps), f"{key}_k4_ms": k4, f"{key}_k1_ms": k1}
+    out = {f"{key}_device_ms": device, f"{key}_wall_ms": wall * 1e3 / steps,
+           f"{key}_busy": device / (wall * 1e3 / steps), f"{key}_k4_ms": k4, f"{key}_k1_ms": k1}
+    for label, only in (kernels or {}).items():
+        out[f"{key}_{label}_ms"] = per_step([e for e in events if only in e.key])
+    return out
+
+
+# kernels 5-9: chip_smoke's name -> (label, a substring of its main kernel's name)
+DECOMP_KERNELS = {
+    "flash_rel_attn_bwd_dq_de": ("k5", "flash_bwd_q_tc_kernel"),
+    "flash_rel_attn_bwd_dq_de_dist": ("k6", "flash_bwd_q_"),
+    "flash_rel_attn_bwd_dkdv_dq": ("k7", "flash_bwd_kv_tc_kernel"),
+    "flash_rel_attn_bwd_de_dqrel": ("k8", "flash_bwd_q_"),
+    "flash_rel_attn_bwd_dkdv": ("k9", "flash_bwd_kv_tc_kernel"),
+}
+# (label, MIDI_EMOTION_BWD, MIDI_EMOTION_DQDE, the kernels timed a step)
+DECOMP_STEPS = (("split", "split", "column", {"k7": "flash_bwd_kv_", "k8": "flash_bwd_q_"}),
+                ("dist", "fused", "dist", {"k6": "flash_bwd_q_", "k9": "flash_bwd_kv_"}))
+
+
+def decomp_ms(torch, cs):
+    """Kernels 5-9 (see the module docstring): held to their twins, then
+    CUPTI device ms of one call and of its main kernel."""
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    n_tiles = -(-cs.TRAIN_T // 64)
+    out = {"tile_pairs": cs.TRAIN_B * 16 * n_tiles * (n_tiles + 1) // 2}
+    pad = cs._flash_inputs(torch, cs.TRAIN_B, 1, cs.TRAIN_T, 16, bf16)[4]
+    out["visible_pairs"] = cs.visible_pairs(torch, pad, 16, True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out["exps_per_ms"] = 16 * sms * float(smi.stdout.split()[0]) * 1e3  # MHz -> a ms
+    for kernel, (label, only) in DECOMP_KERNELS.items():
+        for dh in (*fa.DECOMPOSITION_DHS, 40):
+            for causal in (True, False):
+                cs.check_bwd_kernel(torch, kernel, 2, 4, 200, dh, bf16, causal, 2e-2)
+        wrapper = getattr(fa, cs.BWD_KERNELS[kernel][0])
+        args = cs._bwd_args(torch, cs.TRAIN_B, 16, cs.TRAIN_T, 48, bf16, True)
+        out[label] = cs.device_ms(torch, lambda: wrapper(*args), per_call=2)
+        out[f"{label}_main"] = cs.device_ms(torch, lambda: wrapper(*args), only=only)
+        del args
+        torch.cuda.empty_cache()
+    return out
 
 
 def decode_ms(torch, cs):
@@ -244,14 +309,15 @@ def mid_ms(torch, cs):
     return out
 
 
-def libraries(decode, wide, mid):
+def libraries(decode, wide, mid, decomp=False):
     return (("flash_rel_attn_fwd", "flash_rel_attn_bwd")
+            + (("flash_rel_attn_bwd_kv", "flash_rel_attn_bwd_q") if decomp else ())
             + (("decode_attn_stacked",) if decode else ())
             + (("flash_rel_attn_wide", "decode_attn_wide") if wide else ())
             + (("flash_rel_attn_wide",) if mid and not wide else ()))
 
 
-def worker(root, check, train, decode, wide, mid):
+def worker(root, check, train, decode, wide, mid, decomp):
     import importlib.util
 
     sys.path.insert(0, root)  # the package comes from root
@@ -267,10 +333,13 @@ def worker(root, check, train, decode, wide, mid):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_all(libraries(decode, wide, mid))
+    build_all(libraries(decode, wide, mid, decomp))
     for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd"):
         cs.print_ptxas(library_path(name), name)
         cs.print_sass_mma(library_path(name), name)
+    if decomp:
+        for name in ("flash_rel_attn_bwd_q", "flash_rel_attn_bwd_kv"):
+            cs.print_ptxas(library_path(name), name)
     if wide or mid:
         for name in ("flash_rel_attn_wide",) + (("decode_attn_wide",) if wide else ()):
             cs.print_ptxas(library_path(name), name)
@@ -306,8 +375,15 @@ def worker(root, check, train, decode, wide, mid):
         out.update(wide_ms(torch, cs))
     if mid:
         out.update(mid_ms(torch, cs))
+    if decomp:
+        out.update(decomp_ms(torch, cs))
     if train:
         out.update(train_step(torch, cs, root))
+    if train and decomp:
+        for key, impl, dqde, kernels in DECOMP_STEPS:
+            os.environ.update({"MIDI_EMOTION_BWD": impl, "MIDI_EMOTION_DQDE": dqde})
+            out.update(train_step(torch, cs, root, key=key, kernels=kernels))
+        os.environ.update({"MIDI_EMOTION_BWD": "merged", "MIDI_EMOTION_DQDE": "column"})
     if mid:
         out.update(train_step(torch, cs, root, extra=("--n_head", "3"), key="step3"))
     print("RESULT " + json.dumps(out), flush=True)
@@ -321,10 +397,12 @@ def main():
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--wide", action="store_true")
     ap.add_argument("--mid", action="store_true")
+    ap.add_argument("--decomp", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker, args.check, args.train, args.decode, args.wide, args.mid)
+        return worker(args.worker, args.check, args.train, args.decode, args.wide, args.mid,
+                      args.decomp)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "no card"
@@ -333,7 +411,8 @@ def main():
     builds = [subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
          "from midi_emotion_tpu_torch.kernels.build import build_all; "
-         "build_all(tuple(sys.argv[2:]))", root, *libraries(args.decode, args.wide, args.mid)],
+         "build_all(tuple(sys.argv[2:]))", root,
+         *libraries(args.decode, args.wide, args.mid, args.decomp)],
         cwd=root)
         for root in dict.fromkeys(roots)]
     if any(b.wait() for b in builds):
@@ -341,7 +420,8 @@ def main():
     rows = []
     for root in roots:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", root]
-        flags = [f"--{f}" for f in ("check", "train", "decode", "wide", "mid") if getattr(args, f)]
+        flags = [f"--{f}" for f in ("check", "train", "decode", "wide", "mid", "decomp")
+                 if getattr(args, f)]
         proc = subprocess.run(cmd + flags, cwd=root, capture_output=True, text=True, timeout=1800)
         print(proc.stdout[-20000:], proc.stderr[-4000:], sep="\n", flush=True)
         if proc.returncode != 0:

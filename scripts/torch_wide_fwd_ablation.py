@@ -69,12 +69,12 @@ def card_name():
     return smi.stdout.strip().splitlines()[0]
 
 
-def build_variants(texts, kernel):
-    """Each variant's flash_rel_attn_wide.cu (``texts``: name -> source)
-    built into build/ablation/<name>/, one nvcc each, all at once (the
-    other sources copied beside it load the libraries built from them as
-    they are); prints
-    the registers and spills of ``kernel``. Returns name -> directory."""
+def build_variants(texts, kernel, source="flash_rel_attn_wide"):
+    """Each variant's csrc/<source>.cu (``texts``: name -> source) built
+    into build/ablation/<name>/, one nvcc each, all at once (the other
+    sources copied beside it load the libraries built from them as they
+    are); prints the registers and spills of ``kernel``. Returns name ->
+    directory."""
     import chip_smoke as cs
     from midi_emotion_tpu_torch.kernels import build
 
@@ -85,14 +85,14 @@ def build_variants(texts, kernel):
         d.mkdir(parents=True, exist_ok=True)
         for other in (*src_dir.glob("*.cuh"), *src_dir.glob("*.cu")):  # the same hashes
             shutil.copy(other, d)
-        (d / "flash_rel_attn_wide.cu").write_text(src)
+        (d / f"{source}.cu").write_text(src)
         dirs[name] = d
         build.CSRC_DIR = d
-        started.append((name, *build._start_build("flash_rel_attn_wide")))
+        started.append((name, *build._start_build(source)))
     for name, proc, tmp in started:
         build.CSRC_DIR = dirs[name]
-        build._finish_build("flash_rel_attn_wide", proc, tmp)
-        for kern, regs, spilled in cs.ptxas_report(build.library_path("flash_rel_attn_wide"))[0]:
+        build._finish_build(source, proc, tmp)
+        for kern, regs, spilled in cs.ptxas_report(build.library_path(source))[0]:
             if kernel in kern:
                 print(f"{name}: {kern}: {regs} registers, {spilled} bytes spilled")
     build.CSRC_DIR = src_dir

@@ -28,8 +28,10 @@ def test_header_edit_changes_the_includers_libraries(csrc):
     header = csrc / "hopper_sm90.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = _paths()
-    for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd"):
+    for name in ("flash_rel_attn_fwd", "flash_rel_attn_bwd", "flash_rel_attn_bwd_q",
+                 "flash_rel_attn_wide"):
         assert after[name] != before[name], name
+        assert '#include "hopper_sm90.cuh"' in (csrc / f"{name}.cu").read_text(), name
 
 
 def test_decode_header_edit_changes_both_decode_libraries(csrc):

@@ -397,8 +397,8 @@ def test_wide_heads_bf16_launch_the_parts_and_cluster_forms(cuda, dh, causal):
     second call of each bitwise the first."""
     from torch.profiler import ProfilerActivity, profile
 
-    assert fa.flash_form(1, dh, torch.bfloat16) == "parts"
-    assert fa.flash_form(4, dh, torch.bfloat16) == "cluster"
+    assert fa.form(1, dh, torch.bfloat16) == "parts"
+    assert fa.form(4, dh, torch.bfloat16) == "cluster"
     q, k, v, e = _qkve(2, 2, 333, dh, 2048, torch.bfloat16, seed=23)
     pad = _pad(2, 333, cuda)
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -704,6 +704,33 @@ def test_split_kernel_deterministic(cuda, kernel, dtype):
     second = getattr(fa, kernel)(q, k, v, e, True, pad, lse, dsum, do)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["bwd_dq_de_dist", "bwd_de_dqrel"])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128] + PADDED_DHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_query_sweep_kernel_runs_the_wgmma_form(cuda, kernel, dh, causal):
+    """Kernels 6 and 8 in bf16 at every d_head up to 128 (40 and 80
+    through the padding) launch their Hopper form, ``form``
+    "wgmma", and no other; its outputs are within 2e-2 of each output's
+    scale of the twin's, and a second call on the same inputs gives them
+    bitwise (the dE partials summed in block order). In f32 the same
+    wrapper launches the CUDA-core form."""
+    wrapper = getattr(fa, kernel)
+    q, k, v, e = _qkve(2, 3, 200, dh, 512, torch.bfloat16, seed=16)
+    pad = _pad(2, 200, cuda)
+    before = dict(wrapper.form_launches)
+    got, want = _bwd_kernel_pair(kernel, q, k, v, e, causal, pad)
+    grew = {f: n - before[f] for f, n in wrapper.form_launches.items() if n != before[f]}
+    assert grew == {"wgmma": 1} and fa.form(6, dh, torch.bfloat16) == "wgmma"
+    _assert_grads_bf16(BWD_KERNELS[kernel], got, want)
+    again, _ = _bwd_kernel_pair(kernel, q, k, v, e, causal, pad)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    before = dict(wrapper.form_launches)
+    _bwd_kernel_pair(kernel, *(t.float() for t in (q, k, v, e)), causal, pad)
+    grew = {f: n - before[f] for f, n in wrapper.form_launches.items() if n != before[f]}
+    assert grew == {"cuda_cores": 1}
 
 
 @pytest.mark.parametrize("split", [None, 2], ids=["tile-grid", "split2-grid"])

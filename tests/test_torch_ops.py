@@ -236,23 +236,60 @@ def test_padded_dh_bounds():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_flash_form_routes(dtype):
     """The form of kernels 1 and 4 each d_head runs on: in bf16 the built
-    tile kernel up to 128, then kernel 1's two-warpgroup form at 129-256
-    and kernel 4's cluster of two parts there, the clusters past 256 up to
-    16 parts of 128 and the streamed sweeps past them; in f32 the tile
-    kernel up to 256, then the sweeps. A kernel other than 1 or 4 raises."""
+    wgmma tile kernel up to 128, then kernel 1's two-warpgroup form at
+    129-256 and kernel 4's cluster of two parts there, the clusters past
+    256 up to 16 parts of 128 and the streamed sweeps past them; in f32 the
+    CUDA-core tile kernel up to 256, then the sweeps. A kernel outside 1
+    and 4-9 raises."""
     bf16 = dtype == torch.bfloat16
     widths = (1, 48, 128, 129, 160, 192, 224, 256, 257, 384, 768, 2048, 2049)
-    got = [(fa.flash_form(1, d, dtype), fa.flash_form(4, d, dtype)) for d in widths]
+    got = [(fa.form(1, d, dtype), fa.form(4, d, dtype)) for d in widths]
     if bf16:
-        want = [("tile", "tile")] * 3 + [("parts", "cluster")] * 5 + \
+        want = [("wgmma", "wgmma")] * 3 + [("parts", "cluster")] * 5 + \
             [("cluster", "cluster")] * 4 + [("streamed", "streamed")]
     else:
-        want = [("tile", "tile")] * 8 + [("streamed", "streamed")] * 5
+        want = [("cuda_cores", "cuda_cores")] * 8 + [("streamed", "streamed")] * 5
     assert got == want
     for d in range(1, 2100):  # the form follows the padded width alone
-        assert fa.flash_form(1, d, dtype) == fa.flash_form(1, fa.padded_dh(d), dtype)
-    with pytest.raises(ValueError, match="kernel 1 or 4, got 5"):
-        fa.flash_form(5, 48, dtype)
+        assert fa.form(1, d, dtype) == fa.form(1, fa.padded_dh(d), dtype)
+    for kernel in (0, 2, 3, 10):
+        with pytest.raises(ValueError, match=f"kernel 1 or 4-9, got {kernel}"):
+            fa.form(kernel, 48, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_decomposition_form_routes(dtype):
+    """The form of kernels 5-9 each d_head runs on: up to 128 in bf16
+    kernels 6 and 8 on wgmma and TMA, 5, 7 and 9 on mma.sync, in f32 all
+    on the CUDA cores; past 128 the streamed sweeps. It follows the padded
+    width alone."""
+    bf16 = dtype == torch.bfloat16
+    for d in range(1, 400):
+        for kernel in (5, 6, 7, 8, 9):
+            form = fa.form(kernel, d, dtype)
+            if fa.padded_dh(d) > 128:
+                assert form == "streamed", (kernel, d)
+            elif not bf16:
+                assert form == "cuda_cores", (kernel, d)
+            else:
+                assert form == ("wgmma" if kernel in (6, 8) else "mma_sync"), (kernel, d)
+            assert form in fa.FORMS
+
+
+@pytest.mark.parametrize("impl", [("split", "column"), ("fused", "dist"), ("fused", "column")],
+                         ids=["split", "fused-dist", "fused-column"])
+def test_decomposition_wrappers_count_nothing_on_the_cpu(monkeypatch, impl):
+    """On CPU tensors the wrappers run their twins: no launch is counted,
+    by wrapper or by form."""
+    monkeypatch.setenv("MIDI_EMOTION_BWD", impl[0])
+    monkeypatch.setenv("MIDI_EMOTION_DQDE", impl[1])
+    wrappers = (fa.bwd_dkdv, fa.bwd_dkdv_dq, fa.bwd_dq_de, fa.bwd_dq_de_dist, fa.bwd_de_dqrel)
+    before = [(w.launches, dict(w.form_launches)) for w in wrappers]
+    q = torch.randn((1, 2, 9, 16), requires_grad=True)
+    o, _ = fa.flash_rel_attention(q, q.detach(), q.detach(), torch.randn((16, 16)))
+    o.sum().backward()
+    assert torch.isfinite(q.grad).all()
+    assert [(w.launches, dict(w.form_launches)) for w in wrappers] == before
 
 
 @pytest.mark.parametrize("dh", [192, 256])

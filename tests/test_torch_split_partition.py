@@ -4,9 +4,9 @@ in torch and held to the plain twins on the CPU.
 
 The bf16 paths of ``bwd_dkdv_dq`` (``csrc/flash_rel_attn_bwd_kv.cu``,
 ``tc::flash_bwd_kv_tc_kernel``) and ``bwd_de_dqrel``
-(``csrc/flash_rel_attn_bwd_q.cu``, ``tc::flash_bwd_q_tc_kernel<REL>``) run
-only on the card. Their index algebra is restated here tile by tile, in
-f32, and held to ``bwd_dkdv_dq_plain`` and ``bwd_de_dqrel_plain``:
+(``csrc/flash_rel_attn_bwd_q.cu``) run only on the card. Their index
+algebra is restated here tile by tile, in f32, and held to
+``bwd_dkdv_dq_plain`` and ``bwd_de_dqrel_plain``:
 
   * kernel 7: two blocks a (b, h) on alternate 64-key tiles, each sweeping
     the query tiles that see its key tile (causal: from the diagonal on);
@@ -17,9 +17,11 @@ f32, and held to ``bwd_dkdv_dq_plain`` and ``bwd_de_dqrel_plain``:
   * kernel 8: two blocks a (b, h) on alternate 64-row query tiles, each
     sweeping key tiles 0..qt (the relative terms vanish above the diagonal,
     in the non-causal model too); per pair the distance-domain tile
-    ``dsd[i, u]``, ``u = i - j + 63``, zero at negative distance; dQ_rel +=
-    dsd E_band, and dE by distance into one f32 partial a block, summed in
-    block order;
+    ``dsd[i, u]``, ``u = i - j + 63``, zero at negative distance, formed
+    by distance as the TPU kernel forms it (the card's kernel scatters the
+    key-column dS' instead: ``tests/test_torch_query_sweep_partition.py``);
+    dQ_rel += dsd E_band, and dE by distance into one f32 partial a block,
+    summed in block order;
   * kernel 9 (``bwd_dkdv``, ``fused``): kernel 7's sweep without dQ, on a
     grid of ``split`` blocks a (b, h) numbered key-tile-major, block s
     taking key tiles s, s + split, ... (one block per key tile by default);
