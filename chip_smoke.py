@@ -27,12 +27,15 @@ Phases, each fatal on failure:
      (cuobjdump), failing on one without any, on a bf16 kernel 1 or 4
      without a wgmma (HGMMA) instruction (kernel 1's two-warpgroup form at
      d_head 192 and 256 and kernel 4's cluster in parts of 96 and 128
-     among them), on a bf16 kernel 6 or 8 at d_head 16-128 without one, or
-     on a missing kernel 5, 7 or 9 or wide sweep; hold kernels 6 and 8 in
-     bf16 (their Hopper form, wgmma on TMA tiles) against their twins at
-     every d_head they are built for and at 40, causal and not, each call
-     launching that form, and two calls bitwise equal; time kernel 9 on
-     its two grids; hold each
+     among them), on a bf16 kernel 6, 7 or 8 at d_head 16-128 without one,
+     or on a missing kernel 9 or wide sweep; hold kernels 5-8 in bf16
+     (their Hopper form, wgmma on TMA tiles; kernel 5 runs kernel 6's
+     instantiation, and its outputs must be kernel 6's bit for bit)
+     against their twins at every d_head they are built for and at 40,
+     causal and not (kernel 7 on one and on two blocks a (b, h)), each
+     call launching that form, and two calls bitwise equal; time kernel 9
+     on its two grids (bitwise equal, within 2e-2 of
+     kernel 7's dK and dV); hold each
      backward decomposition (split, fused/column, fused/dist) against the
      merged kernel, and time the whole split call beside SDPA's backward;
      past d_head 128: kernels 1 and 4 at 160, 192, 224 and 256 (160 and 224
@@ -148,10 +151,10 @@ runs with every
 kernel launch counter set to 0 just before it and read just after; the
 script fails if a kernel of that path was never launched, or if a
 decomposition run or the MIDI_EMOTION_FLASH_BWD=xla run launched the
-merged backward kernel; phase 5's split and fused/dist runs also fail
-unless kernels 6 and 8 launched their Hopper form, and those and phase
-5d's decomposition runs if either launched another form at d_head up to
-128.
+merged backward kernel; phase 5's split, fused/column and fused/dist runs
+also fail unless kernels 5-8 launched their Hopper form, and those and
+phase 5d's decomposition runs if one of them launched another form at
+d_head up to 128.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -222,9 +225,12 @@ def device_ms(torch, fn, iters=20, warmup=3, only=None, per_call=1):
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and (only is None or only in e.key)]
         # the card's profiler can drop kernel records under back-to-back
-        # launches; every call launches at least per_call kernels, so a
-        # window with fewer records lost some: profile it again
-        if sum(e.count for e in events) >= iters * per_call:
+        # launches; every call launches at least per_call kernels, and each
+        # kernel as often as every other call, so a window with fewer
+        # records, or with a kernel's count not a multiple of the calls,
+        # lost some: profile it again
+        if (sum(e.count for e in events) >= iters * per_call
+                and all(e.count % iters == 0 for e in events)):
             break
     else:
         print(f"device_ms: the profiler kept {sum(e.count for e in events)} kernel records "
@@ -473,20 +479,22 @@ def _bwd_args(torch, B, H, T, dh, dtype, causal):
     return q, k, v, e, causal, pad, lse, dsum, do
 
 
-def check_bwd_kernel(torch, kernel, B, H, T, dh, dtype, causal, tol, timed=False):
+def check_bwd_kernel(torch, kernel, B, H, T, dh, dtype, causal, tol, timed=False, **kw):
     """One of the other decompositions' kernels against its twin, with a
     fully masked row and a pad tail; each output within tol * (1 + its max
-    |value|), and a zero dQ on the masked row."""
+    |value|), and a zero dQ on the masked row. ``kw`` goes to the kernel's
+    wrapper (kernel 7's ``split``)."""
     from midi_emotion_tpu_torch.ops import flash_attention as fa
 
     wrapper_name, names, ops_pair, ops_dist = BWD_KERNELS[kernel]
     wrapper, twin = getattr(fa, wrapper_name), getattr(fa, wrapper_name + "_plain")
     args = _bwd_args(torch, B, H, T, dh, dtype, causal)
     q, k, v, e, _, pad, lse, _, _ = args
-    got = wrapper(*args)
+    got = wrapper(*args, **kw)
     torch.cuda.synchronize()
     want = twin(*args)
-    name = f"{kernel} {dtype_name(dtype)} B={B} H={H} T={T} dh={dh} causal={causal}"
+    name = (f"{kernel} {dtype_name(dtype)} B={B} H={H} T={T} dh={dh} causal={causal}"
+            + "".join(f" {key}={val}" for key, val in kw.items()))
     worst = 0.0
     for grad, a, b in zip(names, got, want):
         err, scale = _rel_err(a, b)
@@ -503,7 +511,8 @@ def check_bwd_kernel(torch, kernel, B, H, T, dh, dtype, causal, tol, timed=False
              + visible_pairs(torch, pad, H, True) * ops_dist) * dh
     out = {"max_abs_err": worst}
     out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops, dtype_name(dtype))
-    return _report(torch, out, timed, name, lambda: wrapper(*args), lambda: twin(*args), iters=5)
+    return _report(torch, out, timed, name, lambda: wrapper(*args, **kw), lambda: twin(*args),
+                   iters=5)
 
 
 def check_bwd_decompositions(torch, tol=2e-2):
@@ -533,43 +542,78 @@ def check_bwd_decompositions(torch, tol=2e-2):
               f"H=16 T={TRAIN_T} dh=48: max err " + ", ".join(errs))
 
 
-def check_query_sweep_kernels(torch):
-    """Kernels 6 and 8 in bf16, on their Hopper form (``form``
-    "wgmma"): against their twins at every d_head they are built for and at
-    40 (padded to 48), causal and not, T 200 with a pad tail and a fully
-    masked row, at the BWD_KERNELS checks' bf16 tolerance (2e-2 of each
-    output's scale); each call launched that form; and two calls on the
-    same inputs give bitwise-equal dQ and dE (the dE partials summed in
-    block order), at T 333 and at the flagship backward shape."""
+def check_query_sweep_kernels(torch, kernels):
+    """Kernels 5, 6 and 8 (``QUERY_SWEEP_KERNELS``) or 7
+    (``KEY_SWEEP_KERNELS``, on one and on two blocks a (b, h): its
+    ``split``) in bf16, on their Hopper form (``form`` "wgmma"): against
+    their twins at every d_head they are built for and at 40 (padded to
+    48), causal and not, T 200 with a pad tail and a fully masked row, at
+    the BWD_KERNELS checks' bf16 tolerance (2e-2 of each output's scale);
+    each call launched that form; and two calls on the same inputs give
+    bitwise-equal outputs (the dQ or dE partials summed in block order), at
+    T 333 and at the flagship backward shape; kernel 7's dK and dV bitwise
+    equal on its two splits (each key tile sums its query tiles in one
+    order)."""
     from midi_emotion_tpu_torch.ops import flash_attention as fa
 
-    for kernel in QUERY_SWEEP_KERNELS:
+    for kernel in kernels:
         wrapper = getattr(fa, BWD_KERNELS[kernel][0])
-        for dh in (*fa.DECOMPOSITION_DHS, 40):
-            for causal in (True, False):
-                before = dict(wrapper.form_launches)
-                check_bwd_kernel(torch, kernel, 2, 4, 200, dh, torch.bfloat16, causal, 2e-2)
-                grew = {f: n - before[f] for f, n in wrapper.form_launches.items() if n != before[f]}
-                if grew != {"wgmma": 1}:
-                    fail(f"{kernel} bf16 dh={dh} causal={causal}: launched {grew}, not the "
-                         f"wgmma form once")
+        splits = ({"split": 1}, {"split": 2}) if kernel in KEY_SWEEP_KERNELS else ({},)
+        for kw in splits:
+            for dh in (*fa.DECOMPOSITION_DHS, 40):
+                for causal in (True, False):
+                    before = dict(wrapper.form_launches)
+                    check_bwd_kernel(torch, kernel, 2, 4, 200, dh, torch.bfloat16, causal, 2e-2,
+                                     **kw)
+                    grew = {f: n - before[f] for f, n in wrapper.form_launches.items()
+                            if n != before[f]}
+                    if grew != {"wgmma": 1}:
+                        fail(f"{kernel} bf16 dh={dh} causal={causal} {kw}: launched {grew}, not "
+                             f"the wgmma form once")
         for shape in ((2, 4, 333, dh, causal) for dh in fa.DECOMPOSITION_DHS
                       for causal in (True, False)):
             args = _bwd_args(torch, *shape[:4], torch.bfloat16, shape[4])
-            first, second = wrapper(*args), wrapper(*args)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(first, second)):
-                fail(f"{kernel} bf16 B, H, T, dh, causal = {shape}: two calls differ")
+            outs = []
+            for kw in splits:
+                first, second = wrapper(*args, **kw), wrapper(*args, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                    fail(f"{kernel} bf16 B, H, T, dh, causal = {shape} {kw}: two calls differ")
+                outs.append(first)
+            if len(outs) == 2 and not all(torch.equal(a, b)
+                                          for a, b in zip(outs[0][:2], outs[1][:2])):
+                fail(f"{kernel} bf16 B, H, T, dh, causal = {shape}: dK, dV differ between splits")
         args = _bwd_args(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16, True)
         first, second = wrapper(*args), wrapper(*args)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             fail(f"{kernel} bf16 at the flagship backward shape: two calls differ")
         print(f"{kernel}: bf16 wgmma form matches its twin at d_head "
-              f"{fa.DECOMPOSITION_DHS} and 40, causal and not; two calls give bitwise-equal "
-              f"dQ and dE at T 333 (every d_head) and B={TRAIN_B} H=16 T={TRAIN_T} dh=48")
+              f"{fa.DECOMPOSITION_DHS} and 40, causal and not"
+              + (", on one and two blocks a (b, h)" if len(splits) == 2 else "")
+              + f"; two calls give bitwise-equal outputs at T 333 (every d_head) and "
+              f"B={TRAIN_B} H=16 T={TRAIN_T} dh=48")
         del args, first, second
         torch.cuda.empty_cache()
+
+
+def check_column_is_dist(torch):
+    """Kernel 5 in bf16 runs kernel 6's instantiation (the two compute the
+    same products on the same tiles on the card): their dQ and dE bitwise
+    equal at every d_head and 40, causal and not, T 333, and at the
+    flagship backward shape."""
+    from midi_emotion_tpu_torch.ops import flash_attention as fa
+
+    shapes = [(2, 4, 333, dh, causal) for dh in (*fa.DECOMPOSITION_DHS, 40)
+              for causal in (True, False)] + [(TRAIN_B, 16, TRAIN_T, 48, True)]
+    for shape in shapes:
+        args = _bwd_args(torch, *shape[:4], torch.bfloat16, shape[4])
+        column, dist = fa.bwd_dq_de(*args), fa.bwd_dq_de_dist(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(column, dist)):
+            fail(f"kernel 5 bf16 B, H, T, dh, causal = {shape}: dQ, dE not bitwise kernel 6's")
+    print(f"kernel 5: bf16 dQ and dE bitwise kernel 6's at d_head {fa.DECOMPOSITION_DHS} and 40, "
+          f"causal and not, and B={TRAIN_B} H=16 T={TRAIN_T} dh=48")
 
 
 def _rows(torch, rows, D, dtype, n, seed=SEED):
@@ -785,11 +829,12 @@ def time_ln_bwd_passes(torch, rows, D, card):
               f"reduction (col_sum over {part.shape[1]} partials) {sum_ms:.4f} ms on {card}")
 
 
-def time_dkdv_grids(torch, card):
+def time_dkdv_grids(torch, card, tol=2e-2):
     """Kernel 9 (bf16, the flagship backward shape, causal, pad tail) on
     its two grids: one block per (b, h, key tile), the wrapper's default,
-    and two blocks a (b, h) on alternate key tiles, kernel 7's; dK and dV
-    bitwise kernel 7's on each."""
+    and two blocks a (b, h) on alternate key tiles; dK and dV bitwise
+    equal on the two, and within tol of each output's scale of kernel 7's
+    (the same sums in the same order, on wgmma there, mma.sync here)."""
     from midi_emotion_tpu_torch.ops import flash_attention as fa
 
     q, k, v, e, pad = _flash_inputs(torch, TRAIN_B, 16, TRAIN_T, 48, torch.bfloat16)
@@ -797,17 +842,19 @@ def time_dkdv_grids(torch, card):
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).bfloat16()
     args = (q, k, v, e, True, pad, lse, (do.float() * o.float()).sum(-1), do)
-    # each key tile sums the same products in the same order as kernel 7's
-    split_kernel = fa.bwd_dkdv_dq(*args)[:2]
-    for split in (None, 2):
-        if not all(torch.equal(a, b) for a, b in zip(fa.bwd_dkdv(*args, split=split),
-                                                    split_kernel)):
-            fail(f"kernel 9 (split={split}): dK, dV not bitwise kernel 7's")
+    # each key tile sums the same products in the same order on either grid
+    grids = [fa.bwd_dkdv(*args, split=split) for split in (None, 2)]
+    if not all(torch.equal(a, b) for a, b in zip(*grids)):
+        fail("kernel 9: dK, dV differ between its two grids")
+    for grad, a, b in zip(("dK", "dV"), grids[0], fa.bwd_dkdv_dq(*args)[:2]):
+        err, scale = _rel_err(a, b)
+        if err > tol * (1 + scale):
+            fail(f"kernel 9: {grad} off kernel 7's by {err:.3e} (tol {tol * (1 + scale):.3e})")
     times = {split: device_ms(torch, lambda: fa.bwd_dkdv(*args, split=split), iters=20)
              for split in (None, 2, None, 2)}  # each twice, in turns; the second kept
     print(f"kernel 9 grids, bf16 B={TRAIN_B} H=16 T={TRAIN_T} dh=48: one block per key tile "
           f"{times[None]:.4f} ms, two blocks a (b, h) {times[2]:.4f} ms, dK and dV bitwise "
-          f"kernel 7's on both, on {card}")
+          f"equal on both and within {tol} of kernel 7's, on {card}")
 
 
 # the flagship's serving cache: W 1408 is w_max for window 1216 with the
@@ -1083,9 +1130,9 @@ def timed_training(torch, runner, n_warmup=2, n_timed=5):
 # launch counters
 # ---------------------------------------------------------------------------
 
-# name, route, source, the TPU kernel it replaces. In bf16 kernels 1, 4, 6
-# and 8 run on the tensor cores by wgmma, 5, 7 and 9 by mma.sync; every f32
-# path on the CUDA cores
+# name, route, source, the TPU kernel it replaces. In bf16 kernels 1 and
+# 4-8 run on the tensor cores by wgmma, 9 by mma.sync; every f32 path on
+# the CUDA cores
 KERNELS = (
     ("flash_rel_attn_fwd", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_fwd.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:369"),
@@ -1095,12 +1142,13 @@ KERNELS = (
      "midi_emotion_tpu/ops/layernorm.py:63"),
     ("flash_rel_attn_bwd", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:1417"),
+    # kernel 5, bf16 on kernel 6's instantiation (wg::flash_bwd_q_wg_tc_kernel<DIST>)
     ("flash_rel_attn_bwd_dq_de", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:808"),
     # kernel 6, bf16 on wgmma and TMA (wg::flash_bwd_q_wg_tc_kernel<DIST>)
     ("flash_rel_attn_bwd_dq_de_dist", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_q.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:874"),
-    # kernel 7, bf16 on the tensor cores (tc::flash_bwd_kv_tc_kernel)
+    # kernel 7, bf16 on wgmma and TMA (wg::flash_bwd_kv_wg_tc_kernel)
     ("flash_rel_attn_bwd_dkdv_dq", "cuda", "midi_emotion_tpu_torch/csrc/flash_rel_attn_bwd_kv.cu",
      "midi_emotion_tpu/ops/pallas_attention.py:1065"),
     # kernel 8, bf16 on wgmma and TMA (wg::flash_bwd_q_wg_tc_kernel<REL>)
@@ -1151,11 +1199,14 @@ def read_forms():
             if hasattr(fn, "form_launches")}
 
 
-# kernels 6 and 8 at d_head up to 128 in bf16 run their Hopper form alone:
-# no (kernel, form) below may launch on a bf16 path
-QUERY_SWEEP_KERNELS = ("flash_rel_attn_bwd_dq_de_dist", "flash_rel_attn_bwd_de_dqrel")
-OLD_QUERY_SWEEP_FORMS = tuple((k, form) for k in QUERY_SWEEP_KERNELS
-                              for form in ("cuda_cores", "mma_sync"))
+# kernels 5-8 at d_head up to 128 in bf16 run their Hopper form alone:
+# the query-major 5, 6 and 8 and the key-major 7; no (kernel, form) in
+# OLD_WGMMA_FORMS may launch on a bf16 path
+QUERY_SWEEP_KERNELS = ("flash_rel_attn_bwd_dq_de", "flash_rel_attn_bwd_dq_de_dist",
+                       "flash_rel_attn_bwd_de_dqrel")
+KEY_SWEEP_KERNELS = ("flash_rel_attn_bwd_dkdv_dq",)
+WGMMA_KERNELS = QUERY_SWEEP_KERNELS + KEY_SWEEP_KERNELS
+OLD_WGMMA_FORMS = tuple((k, form) for k in WGMMA_KERNELS for form in ("cuda_cores", "mma_sync"))
 
 
 def run_path(name, required, fn, absent=(), forms=(), absent_forms=()):
@@ -2188,7 +2239,7 @@ def wide_heads_phase(torch, tmp, vocab, train_args, card):
                 ("flash_rel_attn_fwd", *DECOMPOSITIONS[impl, dqde]), run_decomposition,
                 absent=("flash_rel_attn_bwd",),
                 forms=tuple((k, "streamed") for k in DECOMPOSITIONS[impl, dqde]),
-                absent_forms=OLD_QUERY_SWEEP_FORMS)
+                absent_forms=OLD_WGMMA_FORMS)
             counts.append(c)
             d_losses = train_losses(runner.args.work_dir)
             if runner.train_step_num != 1 or len(d_losses) != 1 or not np.isfinite(d_losses[0]):
@@ -2401,8 +2452,7 @@ def _kernel_label(mangled):
         kern, t, dh, mode = m.groups()
         modes = {"flash_rel_attn_bwd_kv_kernel": ("dK/dV", "dK/dV/dQ_qk"),
                  "flash_rel_attn_bwd_q_kernel": ("column", "dist", "rel"),
-                 "flash_bwd_q_wg_tc_kernel": ("column", "dist", "rel"),
-                 "flash_bwd_kv_tc_kernel": ("dK/dV", "dK/dV/dQ_qk")}
+                 "flash_bwd_q_wg_tc_kernel": ("column", "dist", "rel")}
         extra = f", {modes[kern][int(mode)]}" if mode and kern in modes else ""
         # the tensor-core kernels take bf16 alone, the CUDA-core flash
         # kernels of kernels 1 and 4 f32 alone; the others name their type
@@ -2536,25 +2586,25 @@ def main():
     # kernels 1 and 4 run wgmma at every d_head they are built for: the
     # tile kernels up to 128, kernel 1's two-warpgroup form at 192 and 256,
     # kernel 4's cluster at 192 and 256 (parts of 96 and 128); so do
-    # kernels 6 and 8 up to 128
+    # kernels 5-8 up to 128
     from midi_emotion_tpu_torch.ops.flash_attention import DECOMPOSITION_DHS
 
     wanted = [f"{kern} <bf16, dh={dh}>" for kern in ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel")
               for dh in DECOMPOSITION_DHS]
     wanted += [f"flash_fwd_tc_parts_kernel <bf16, dh={dh}>" for dh in (192, 256)]
-    # kernels 6 and 8 (DIST and REL) on wgmma at every d_head they are built for
+    # kernels 6 and 8 (DIST and REL; kernel 5 runs DIST's) and 7 on wgmma at
+    # every d_head they are built for
     wanted += [f"flash_bwd_q_wg_tc_kernel <bf16, dh={dh}, {mode}>" for dh in DECOMPOSITION_DHS
                for mode in ("dist", "rel")]
+    wanted += [f"flash_bwd_kv_wg_tc_kernel <bf16, dh={dh}>" for dh in DECOMPOSITION_DHS]
     wanted += [f"wide_bwd_tc_cluster_kernel <bf16, part={pw}>" for pw in (96, 128)]
     no_wgmma = [k for k in wanted if tc_kernels.get(k, {"HGMMA": 0})["HGMMA"] == 0]
     if no_wgmma:
-        fail(f"kernel 1, 4, 6 or 8 instantiations without a wgmma (HGMMA) instruction: "
+        fail(f"kernel 1, 4, 6, 7 or 8 instantiations without a wgmma (HGMMA) instruction: "
              f"{no_wgmma}")
-    # kernel 5 (COLUMN, mma.sync), kernel 7 (the key-major sweep with dQ)
-    # and kernel 9 (without) among them, and the wide forms' four sweeps
-    for want in ("flash_bwd_q_tc_kernel <bf16, dh=48>",
-                 "flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV/dQ_qk>",
-                 "flash_bwd_kv_tc_kernel <bf16, dh=48, dK/dV>", "wide_fwd_tc_kernel",
+    # kernel 9 (the key-major sweep without dQ, mma.sync) among them, and
+    # the wide forms' four sweeps
+    for want in ("flash_bwd_kv_tc_kernel <bf16, dh=48>", "wide_fwd_tc_kernel",
                  "wide_dq_tc_kernel", "wide_dkdv_tc_kernel", "wide_de_tc_kernel"):
         if want not in tc_kernels:
             fail(f"no tensor-core kernel {want} in the SASS")
@@ -2657,8 +2707,10 @@ def main():
         bwd_kernels[kernel] = check_bwd_kernel(torch, kernel, TRAIN_B, 16, TRAIN_T, 48,
                                                torch.bfloat16, True, 2e-2, timed=True)
         torch.cuda.empty_cache()
-    check_query_sweep_kernels(torch)
-    for kernel in QUERY_SWEEP_KERNELS:
+    check_query_sweep_kernels(torch, QUERY_SWEEP_KERNELS)
+    check_query_sweep_kernels(torch, KEY_SWEEP_KERNELS)
+    check_column_is_dist(torch)
+    for kernel in WGMMA_KERNELS:
         print(f"{kernel} (wgmma form): {bwd_kernels[kernel]['ms']:.4f} device ms, bound "
               f"{bwd_kernels[kernel]['bound_ms']:.4f} ms (bf16 B={TRAIN_B} H=16 T={TRAIN_T} "
               f"dh=48, causal, pad tail) on {card}")
@@ -2795,8 +2847,8 @@ def main():
                  "dal_bwd"),
                 run_decomposition, absent=("flash_rel_attn_bwd",),
                 forms=tuple((k, "wgmma") for k in DECOMPOSITIONS[impl, dqde]
-                            if k in QUERY_SWEEP_KERNELS),
-                absent_forms=OLD_QUERY_SWEEP_FORMS)
+                            if k in WGMMA_KERNELS),
+                absent_forms=OLD_WGMMA_FORMS)
             decomposition_counts.append(counts)
             d_losses = train_losses(runner.args.work_dir)
             print(f"train CLI, MIDI_EMOTION_BWD={impl} DQDE={dqde}: logged losses {d_losses}, "

@@ -31,7 +31,9 @@
 // T 1216, dh 48 the nine products over the visible pairs are about 72
 // GFLOP, 73 us at the tensor cores' 989 TFLOP/s. Design
 // (tc::flash_bwd_tc_kernel), on Hopper's wgmma, TMA and mbarriers (the
-// building blocks in hopper_sm90.cuh): two warpgroups share each tile pair,
+// building blocks in hopper_sm90.cuh; the sweep's layout, walk, producer,
+// phase A, row helpers and dQ reduction in bwd_key_major.cuh, which
+// kernel 7 shares): two warpgroups share each tile pair,
 // every product a wgmma with f32 sums, per pair:
 //   1. warpgroup h, keys 32 h ..: S = Q K^T, dP = dO V^T and the band Q
 //      E_band^T, skewed into Srel through a per-warp scratch; P = exp(s -
@@ -47,7 +49,9 @@
 // its last reader. A block sweeps groups of key tiles of one (b, h) (two
 // up to d_head 48, their f32 dK and dV kept in shared memory between
 // pairs); two blocks share a (b, h) on alternate groups, or one where B *
-// H alone fills 7/8 of the SMs, each with its own f32 dQ and dE partials:
+// H alone fills 7/8 of the SMs (the wrapper chooses:
+// ops/flash_attention.py::bwd_split), each with its own f32 dQ and dE
+// partials:
 // a query tile's dQ, and each 64-distance dE block, stays in registers
 // until the group is done with it, so a partial row is read and written
 // once a group. The bf16 path is built up to d_head 128: at 192 and 256 a
@@ -81,6 +85,7 @@
 
 #include <type_traits>
 
+#include "bwd_key_major.cuh"
 #include "hopper_sm90.cuh"
 
 namespace {
@@ -402,72 +407,25 @@ __global__ void dsum_vec_kernel(const __nv_bfloat16* __restrict__ dout,
 
 
 // ---------------------------------------------------------------------------
-// the bf16 path: tensor cores
+// the bf16 path: tensor cores, the key-major sweep of bwd_key_major.cuh
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
-using namespace sm90;
+using namespace km;
 
-constexpr int BQ = 64;              // query rows per tile
-constexpr int BK = 64;              // keys per tile
-constexpr int EB = BQ + BK;         // band rows staged per tile pair (the first one unused)
-constexpr int NCW = 8;              // warps: two warpgroups
-constexpr int NTH = 32 * NCW;
-constexpr int MAX_SPLIT = 2;        // blocks a (b, h), at most (the scratch has room for 2)
-constexpr int WB = 48;              // band columns a warp reads in phase A: its 47 distances
-constexpr int WBS = WB + 8;         // row stride of a warp's band scratch (floats)
-constexpr float LOG2E = 1.4426950408889634f;
-
+// groups of two key tiles up to d_head 48, where shared memory holds both
+// key tiles' f32 dK and dV between pairs, else one; the caller's own
+// tiles: dS' by distance, [64 q][128 v] in slabs
 template <int DH>
-struct Layout {
-  static_assert(DH <= 128, "a 64 x d_head f32 accumulator in a warpgroup's registers");
-  static constexpr int G = DH <= 48 ? 2 : 1;   // key tiles a block sweeps the query tiles with
-  static constexpr int TILE = BQ * DH * 2;     // a 64-row bf16 tile in slabs: Q, dO, K or V
-  static constexpr int SLAB = TILE / (DH / 16);  // = 2048: its slab stride
-  static constexpr int E_TILE = EB * DH * 2;   // the E band, slab stride 4096
-  static constexpr int ST = 2 * TILE + E_TILE;  // a pair's stage: Q, dO, the E band
-  static constexpr int KV = 2 * G * TILE;       // a group's K, V of each key tile
-  static constexpr int NST = 2;                 // the pair ring
-  static constexpr int NKV = DH <= 96 ? 2 : 1;  // the group ring, where it fits
-  static constexpr int KV_AT = NST * ST;
-  static constexpr int P_AT = KV_AT + NKV * KV;  // P, then dS': [64 q][64 k] in slabs
-  static constexpr int DSD_AT = P_AT + 2 * 8192;  // dS' by distance: [64 q][128 v] in slabs
-  static constexpr int SCR_AT = DSD_AT + 16384;
-  // G = 2: each key tile's f32 dV (warpgroup 0) and dK (1), between pairs
-  static constexpr int ACC_AT = SCR_AT + NCW * 16 * WBS * 4;
-  static constexpr int BAR_AT = ACC_AT + (G == 2 ? G * 2 * BK * DH * 4 : 0);
-  static constexpr int TOTAL = BAR_AT + 8 * (NST + NKV) + 1024;  // + room to align to 1024
-  static_assert(TOTAL <= 232448, "a block's shared memory");
-  static_assert(TILE % 1024 == 0 && ST % 1024 == 0 && SCR_AT % 1024 == 0, "aligned slabs");
-};
+using Layout = km::Layout<DH, DH <= 48 ? 2 : 1, 16384>;
 
-struct Maps {
-  CUtensorMap q, k, v, d, e;  // q, k, v, dO: [B*H][T][dh]; e: [max_seq][dh], in slabs
-};
-
-// Block s of the nsplit a (b, h) sweeps groups s, s + nsplit, ... of G
-// consecutive key tiles (G = 2 up to d_head 48, where shared memory holds
-// both key tiles' f32 dK and dV between pairs, else 1) and, inside, the
-// query tiles that
-// see them, as the TPU's sequential grid did; a query tile meets the
-// group's key tiles one after the other (pairs whose keys all lie past its
-// rows under the causal mask are skipped). Thread 0 is also the producer:
-// it copies each group's K and V into a ring of NKV, and each pair's Q, dO
-// and E band (128 rows, row v at distance dist0 + 127 - v, zero where
-// negative) into a ring of NST, by TMA, each slot's arrival counted by an
-// mbarrier; it refills a slot right after the barrier that ends the slot's
-// last reader. (A ninth, producer warp would put three warps on one of the
-// SM's four schedulers and cap every thread at 168 registers.) The 8 warps
-// are two warpgroups; warp w of a warpgroup owns rows 16 w .. 16 w + 15 of
-// each of its 64-row accumulators. Per tile pair:
-//   phase A, warpgroup h (keys 32 h ..): S = Q K_h^T, dP = dO V_h^T (m64n32)
-//     and the band Q E^T over the 96 rows its keys reach (m64n96), by wgmma
-//     from shared memory; the band skewed into Srel through a per-warp
-//     scratch; P = exp(s - lse), dS' = c P (dP - dsum) in f32, both rounded
-//     to bf16 into shared tiles, and dS' also scattered by distance into dsd
-//     [i][64 - i + j] (0 where the distance is negative); entries no key
-//     reaches stay 0;
+// Block s of the nsplit a (b, h) walks its groups of key tiles as
+// bwd_key_major.cuh sets out, thread 0 copying. Per tile pair:
+//   phase A (km::phase_a), warpgroup h (keys 32 h ..): S, dP and the band
+//     skewed into Srel; P and dS' rounded to bf16 into shared tiles, and
+//     dS' also scattered by distance into dsd [i][64 - i + j] (0 where the
+//     distance is negative); entries no key reaches stay 0;
 //   phase B, warpgroup 0: dV += P^T dO (P read MN-major) and dQ += dS' K +
 //     dsd E_band, in registers across the group; warpgroup 1: dK += dS'^T Q
 //     and dE += dsd^T Q over the band's two 64-row halves (dsd read
@@ -487,35 +445,29 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
                     float* __restrict__ dq_acc, float* __restrict__ de_part, int H, int T_len,
                     int max_seq, int causal, float scale, float scale_log2, int nsplit) {
   using L = Layout<DH>;
-  constexpr int G = L::G, NST = L::NST, NKV = L::NKV, KS = DH / 16, SLAB = L::SLAB, R = DH / 2;
+  constexpr int G = L::G, NST = L::NST, NKV = L::NKV, R = DH / 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_AT);
   uint64_t* kv_full = full + NST;
   const int tid = threadIdx.x, lane = tid & 31, warp = warp_index();
-  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x / nsplit, sp = blockIdx.x % nsplit, b = bh / H;
   const size_t base_q = (size_t)bh * T_len * DH, rbase = (size_t)bh * T_len;
   const size_t part = ((size_t)sp * (gridDim.x / nsplit) + bh) * T_len * DH;  // this block's
   float* dqa = dq_acc + part;   // [T][DH]
   float* dep = de_part + part;  // [T][DH], row = distance
   const int n_tiles = (T_len + BK - 1) / BK;
-  auto first_q = [&](int grp) { return causal ? grp * G : 0; };  // a group's first query tile
-  // whether key tile u of group grp meets query tile qt
-  auto meets = [&](int grp, int qt, int u) {
-    const int kt = grp * G + u;
-    return kt < n_tiles && !(causal && kt > qt);
-  };
+  const Walk<G> walk{n_tiles, causal, sp, nsplit};
 
   // zeros: dsd's entries no key reaches; the dQ rows (query tiles before
   // the block's first group's first) and dE distances (past those its first
   // group reaches) the block never writes; everything when it has no group
   {
-    uint32_t* dsd_w = reinterpret_cast<uint32_t*>(smem + L::DSD_AT);
+    uint32_t* dsd_w = reinterpret_cast<uint32_t*>(smem + L::EXTRA_AT);
     for (int x = tid; x < 16384 / 4; x += NTH) dsd_w[x] = 0u;
     const bool none = sp * G >= n_tiles;
-    const int dq_zero = none ? T_len : min(T_len, first_q(sp) * BQ);
+    const int dq_zero = none ? T_len : min(T_len, walk.first_q(sp) * BQ);
     const int de_from = none ? 0 : min(T_len, (n_tiles - sp * G) * BK + 1);
     for (int x = tid; x < dq_zero * DH; x += NTH) dqa[x] = 0.f;
     for (int x = de_from * DH + tid; x < T_len * DH; x += NTH) dep[x] = 0.f;
@@ -529,67 +481,20 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
   __syncthreads();
   if (sp * G >= n_tiles) return;
 
-  // the producer's place in the pair sequence (thread 0's alone): the next
-  // pair to copy (group c_g, query tile c_qt, its key tile G - 1 - c_uu: a
-  // query tile meets the group's key tiles from the last down), and how many
-  // pairs and groups were copied
-  int c_g = sp, c_qt = first_q(sp), c_uu = 0, n_pairs = 0, n_kv = 0;
-  auto settle = [&]() {  // on to the first pair from here that exists
-    while (c_g * G < n_tiles && !meets(c_g, c_qt, G - 1 - c_uu)) {
-      if (++c_uu == G) {
-        c_uu = 0;
-        if (++c_qt == n_tiles) c_qt = first_q(c_g += nsplit);
-      }
-    }
-  };
-  settle();
-  // copy every pair whose slot is free: pairs_done pairs and groups_done
-  // groups have been consumed
-  auto produce = [&](int pairs_done, int groups_done) {
-    while (c_g * G < n_tiles && n_pairs < pairs_done + NST) {
-      const int gi = (c_g - sp) / nsplit, kt0 = c_g * G;
-      if (n_kv == gi) {  // the pair opens a group: its K and V first
-        if (gi >= groups_done + NKV) return;
-        const int ks = gi % NKV, nt = min(G, n_tiles - kt0);
-        unsigned char* kv = smem + L::KV_AT + ks * L::KV;
-        mbar_expect_tx(&kv_full[ks], nt * 2 * L::TILE);
-        for (int u = 0; u < nt; ++u) {
-          tma_load(kv + 2 * u * L::TILE, &maps.k, 0, (kt0 + u) * BK, 0, bh, &kv_full[ks]);
-          tma_load(kv + (2 * u + 1) * L::TILE, &maps.v, 0, (kt0 + u) * BK, 0, bh, &kv_full[ks]);
-        }
-        ++n_kv;
-      }
-      const int kt = kt0 + G - 1 - c_uu;
-      const int s = n_pairs % NST, q0 = c_qt * BQ, dist0 = q0 - kt * BK - (BK - 1);
-      unsigned char* st = smem + s * L::ST;
-      mbar_expect_tx(&full[s], L::ST);
-      tma_load(st, &maps.q, 0, q0, 0, bh, &full[s]);
-      tma_load(st + L::TILE, &maps.d, 0, q0, 0, bh, &full[s]);
-      tma_load(st + 2 * L::TILE, &maps.e, 0, max_seq - EB - dist0, 0, 0, &full[s]);
-      ++n_pairs;
-      if (++c_uu == G) {
-        c_uu = 0;
-        if (++c_qt == n_tiles) c_qt = first_q(c_g += nsplit);
-      }
-      settle();
-    }
-  };
-  if (tid == 0) produce(0, 0);
+  Producer<L> prod(walk, bh, max_seq);
+  if (tid == 0) prod.produce(smem, maps, full, kv_full, 0, 0);
 
   const int wg = warp >> 2, wq = warp & 3;  // warpgroup (phase A: keys 32 wg ..); warp in it
-  const uint32_t p_t = base + L::P_AT, ds_t = p_t + 8192, dsd_t = base + L::DSD_AT;
+  const Rows<DH> rows{wq, lane >> 2, lane & 3, T_len};
+  const uint32_t p_t = base + L::P_AT, ds_t = p_t + 8192, dsd_t = base + L::EXTRA_AT;
   unsigned char* p_s = smem + L::P_AT;
   unsigned char* ds_s = p_s + 8192;
-  unsigned char* dsd_s = smem + L::DSD_AT;
+  unsigned char* dsd_s = smem + L::EXTRA_AT;
   float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
   // warpgroup 0: dV of the pair's key tile, 1: dK (rows = keys); with G = 2
-  // read from and written back to shared memory around each pair's
-  // products (a thread's own values, in a layout without bank conflicts)
+  // read from and written back to shared memory around each pair's products
   float acc[R];
-  float4* acc_s = reinterpret_cast<float4*>(smem + L::ACC_AT) + (tid & 127);
-  auto acc_at = [&](int u, int x4) -> float4& {
-    return acc_s[((u * 2 + wg) * (R / 4) + x4) * 128];
-  };
+  const AccSlab<DH> slab{reinterpret_cast<float4*>(smem + L::ACC_AT) + (tid & 127), wg};
   // warpgroup 0: ec[0] is the query tile's dQ over the group. Warpgroup 1:
   // dE blocks in flight. At a query tile with first band distance D = q0 -
   // k0 - 63 (k0: the group's first key), the pair with key tile u adds its
@@ -610,62 +515,11 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
     for (int x = 0; x < R; ++x) ec[u][x] = 0.f;
   if (G == 2)
 #pragma unroll
-    for (int u = 0; u < G; ++u)
-#pragma unroll
-      for (int x4 = 0; x4 < R / 4; ++x4) acc_at(u, x4) = make_float4(0.f, 0.f, 0.f, 0.f);
-  // key tile kt0 + u's dK (warpgroup 1) or dV (0) from acc, cast to bf16
-  int kt0 = 0;  // the group's first key tile
-  auto store_out = [&](int u) {
-    __nv_bfloat16* out = wg == 0 ? dv : dk;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int key = (kt0 + u) * BK + 16 * wq + g + 8 * hh;
-      if (key < T_len) {
-        __nv_bfloat16* row = out + base_q + (size_t)key * DH + 2 * t;
-#pragma unroll
-        for (int c = 0; c < DH / 8; ++c)
-          *reinterpret_cast<uint32_t*>(row + 8 * c) =
-              pack_bf16(acc[4 * c + 2 * hh], acc[4 * c + 2 * hh + 1]);
-      }
-    }
-  };
-
-  // row rl (0..63) of this thread's accumulator rows: 16 wq + g + 8 hh.
-  // load_rows: dst = the partial's rows row0 + step * rl (0 in the block's
-  // first group, or outside [0, T)); add_rows: those rows = old + add
-  auto load_rows = [&](float* dst, const float* src, int row0, int step, bool first) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = row0 + step * (16 * wq + g + 8 * hh);
-      const bool ok = !first && row >= 0 && row < T_len;
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c) {
-        const float2 x = ok ? *reinterpret_cast<const float2*>(src + (size_t)row * DH + 8 * c +
-                                                               2 * t)
-                            : make_float2(0.f, 0.f);
-        dst[4 * c + 2 * hh] = x.x;
-        dst[4 * c + 2 * hh + 1] = x.y;
-      }
-    }
-  };
-  auto add_rows = [&](float* dst, const float* add, const float* old, int row0, int step) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = row0 + step * (16 * wq + g + 8 * hh);
-      if (row < 0 || row >= T_len) continue;
-      float* at = dst + (size_t)row * DH + 2 * t;
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c)
-        *reinterpret_cast<float2*>(at + 8 * c) =
-            make_float2(old[4 * c + 2 * hh] + add[4 * c + 2 * hh],
-                        old[4 * c + 2 * hh + 1] + add[4 * c + 2 * hh + 1]);
-    }
-  };
+    for (int u = 0; u < G; ++u) slab.zero(u);
 
   int pi = 0, gi = 0;
   for (int grp = sp; grp * G < n_tiles; grp += nsplit, ++gi) {
     const int ks = gi % NKV, k0 = grp * G * BK;
-    kt0 = grp * G;
     const bool first = gi == 0;  // the block's first group: partial rows not yet written
     const uint32_t kv_t = base + L::KV_AT + ks * L::KV;
     uint32_t live[G];  // key 32 wg + x of key tile u is live at bit x of live[u]
@@ -675,23 +529,15 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
       live[u] = __ballot_sync(0xffffffffu,
                               key < T_len && !(pad != nullptr && pad[(size_t)b * T_len + key]));
     }
-    // lse (in log2 units) and dsum of this thread's rows of query tile qt:
+    // lse (in log2 units) and dsum of this thread's rows of a query tile:
     // read one query tile ahead, so their latency passes under its pairs
     float lse_n[2], dsum_n[2];
-    auto load_rowstats = [&](int qt) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int i = qt * BQ + 16 * wq + g + 8 * hh;
-        lse_n[hh] = i < T_len ? lse[rbase + i] * LOG2E : 0.f;
-        dsum_n[hh] = i < T_len ? dsum[rbase + i] : 0.f;
-      }
-    };
-    load_rowstats(first_q(grp));
+    rows.stats(lse_n, dsum_n, lse + rbase, dsum + rbase, walk.first_q(grp) * BQ);
     mbar_wait(&kv_full[ks], (gi / NKV) & 1);
-    for (int qt = first_q(grp); qt < n_tiles; ++qt) {
+    for (int qt = walk.first_q(grp); qt < n_tiles; ++qt) {
       const int q0 = qt * BQ, D = q0 - k0 - (BK - 1);
       const float lse_r[2] = {lse_n[0], lse_n[1]}, dsum_r[2] = {dsum_n[0], dsum_n[1]};
-      if (qt + 1 < n_tiles) load_rowstats(qt + 1);
+      if (qt + 1 < n_tiles) rows.stats(lse_n, dsum_n, lse + rbase, dsum + rbase, q0 + BQ);
       if (wg == 0) {
 #pragma unroll
         for (int x = 0; x < R; ++x) ec[0][x] = 0.f;
@@ -701,96 +547,36 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
 #pragma unroll
       for (int uu = 0; uu < G; ++uu) {
         const int u = G - 1 - uu;  // the key tiles from the last down
-        if (!meets(grp, qt, u)) continue;
-        const int kt = grp * G + u, s = pi % NST;
-        const bool top = uu == 0 || !meets(grp, qt, u + 1);  // the query tile's first pair
+        if (!walk.meets(grp, qt, u)) continue;
+        const int kt = grp * G + u, s = pi % NST, kb = kt * BK;
+        const bool top = uu == 0 || !walk.meets(grp, qt, u + 1);  // the query tile's first pair
         const uint32_t q_t = base + s * L::ST, d_t = q_t + L::TILE, e_t = q_t + 2 * L::TILE;
-        const uint32_t k_t = kv_t + 2 * u * L::TILE, v_t = k_t + L::TILE;
+        const uint32_t k_t = kv_t + 2 * u * L::TILE;
         mbar_wait(&full[s], (pi / NST) & 1);
 
-        // ---- phase A
-        {
-          float sacc[16], pacc[16], bacc[48];
-          wg_fence();
-#pragma unroll
-          for (int kk = 0; kk < KS; ++kk) {
-            const uint64_t da = desc_k(q_t + kk * SLAB);
-            mma_ss<32, 0, 0>(sacc, da, desc_k(k_t + 1024 * wg + kk * SLAB), kk > 0);
-            mma_ss<32, 0, 0>(pacc, desc_k(d_t + kk * SLAB), desc_k(v_t + 1024 * wg + kk * SLAB),
-                             kk > 0);
-            mma_ss<96, 0, 0>(bacc, da, desc_k(e_t + 1024 * wg + kk * 2 * SLAB), kk > 0);
-          }
-          wg_commit();
-          wg_wait0();
-          fence_regs<16>(sacc);
-          fence_regs<16>(pacc);
-          fence_regs<48>(bacc);
-          // the skew: band column (from row 32 wg) of row r, key 32 wg + j is
-          // 64 - (16 wq + r) + j; the warp keeps columns 48 - 16 wq .. 95 -
-          // 16 wq (chunks 6 - 2 wq ..), so it reads scratch column 16 - r + j
-#pragma unroll
-          for (int c = 0; c < 12; ++c) {
-            const int cc = c - (6 - 2 * wq);
-            if (cc >= 0 && cc < WB / 8) {
-              *reinterpret_cast<float2*>(scr + g * WBS + 8 * cc + 2 * t) =
-                  make_float2(bacc[4 * c], bacc[4 * c + 1]);
-              *reinterpret_cast<float2*>(scr + (g + 8) * WBS + 8 * cc + 2 * t) =
-                  make_float2(bacc[4 * c + 2], bacc[4 * c + 3]);
-            }
-          }
-          __syncwarp();
-          const __nv_bfloat16 zero = __float2bfloat16(0.f);
-          const int kb = kt * BK;  // the key tile's first key
-          // whether any of the warp's pairs is masked: a row past T, a dead
-          // key, or a key past a row under the causal mask
-          const bool masked = q0 + 16 * wq + 15 >= T_len || live[u] != 0xffffffffu ||
-                              (causal && kb + 32 * wg + 31 > q0 + 16 * wq);
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int r = g + 8 * hh, il = 16 * wq + r, i = q0 + il;
-              const int jl = 8 * n + 2 * t, j = 32 * wg + jl;
-              float p[2], ds[2];
-#pragma unroll
-              for (int x = 0; x < 2; ++x) {
-                const float sc = sacc[4 * n + 2 * hh + x] + scr[r * WBS + 16 - r + jl + x];
-                const bool ok = !masked || (i < T_len && ((live[u] >> (jl + x)) & 1) &&
-                                            !(causal && kb + j + x > i));
-                p[x] = ok ? exp2f(sc * scale_log2 - lse_r[hh]) : 0.f;
-                ds[x] = p[x] * (pacc[4 * n + 2 * hh + x] - dsum_r[hh]) * scale;
-              }
-              const uint32_t at = (j >> 4) * 2048 + sw32(il, j & 15);
-              *reinterpret_cast<uint32_t*>(p_s + at) = pack_bf16(p[0], p[1]);
-              const uint32_t dsb = pack_bf16(ds[0], ds[1]);
-              *reinterpret_cast<uint32_t*>(ds_s + at) = dsb;
-              const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
-              // distance (q0 + il) - (kb + j + x) sits at band column 64 - il + j + x
-              const int v = 64 - il + j, dist = i - (kb + j);
-              *reinterpret_cast<__nv_bfloat16*>(dsd_s + (v >> 4) * 2048 + sw32(il, v & 15)) =
-                  dist >= 0 ? d2.x : zero;
-              *reinterpret_cast<__nv_bfloat16*>(dsd_s + ((v + 1) >> 4) * 2048 +
-                                                sw32(il, (v + 1) & 15)) =
-                  dist - 1 >= 0 ? d2.y : zero;
-            }
-        }
+        // ---- phase A, and dS' by distance into dsd
+        phase_a<DH>(q_t, k_t, p_s, ds_s, scr, wg, wq, lane, q0, kb, live[u], T_len, causal,
+                    lse_r, dsum_r, scale, scale_log2, [&](int il, int j, uint32_t dsb) {
+                      const __nv_bfloat16 zero = __float2bfloat16(0.f);
+                      const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dsb);
+                      // distance (q0 + il) - (kb + j + x) sits at band column 64 - il + j + x
+                      const int v = 64 - il + j, dist = q0 + il - (kb + j);
+                      *reinterpret_cast<__nv_bfloat16*>(dsd_s + (v >> 4) * 2048 +
+                                                        sw32(il, v & 15)) =
+                          dist >= 0 ? d2.x : zero;
+                      *reinterpret_cast<__nv_bfloat16*>(dsd_s + ((v + 1) >> 4) * 2048 +
+                                                        sw32(il, (v + 1) & 15)) =
+                          dist - 1 >= 0 ? d2.y : zero;
+                    });
         fence_async_smem();
-        named_barrier(1, 32 * NCW);  // P, dS' and dsd are in place
+        named_barrier(1, NTH);  // P, dS' and dsd are in place
 
         // ---- phase B. The partial rows the query tile finishes are read
         // under products, so their latency passes there (not at d_head
         // 128, where the registers are not there).
-        if (G == 2)
-#pragma unroll
-          for (int x4 = 0; x4 < R / 4; ++x4) {
-            const float4 v = acc_at(u, x4);
-            acc[4 * x4] = v.x;
-            acc[4 * x4 + 1] = v.y;
-            acc[4 * x4 + 2] = v.z;
-            acc[4 * x4 + 3] = v.w;
-          }
+        if (G == 2) slab.load(u, acc);
         if (wg == 0) {
-          if (u == 0 && DH <= 96) load_rows(old, dqa, q0, 1, first);
+          if (u == 0 && DH <= 96) rows.load(old, dqa, q0, 1, first);
           wg_fence();
 #pragma unroll
           for (int kq = 0; kq < BQ / 16; ++kq)  // dV += P^T dO
@@ -806,8 +592,8 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
           fence_regs<R>(acc);
           fence_regs<R>(ec[0]);
         } else {
-          if (top && (G == 2 || DH <= 96)) load_rows(old, dep, fin, -1, first);
-          if (G == 2 && top && u == 0) add_rows(dep, ec[0], old, fin, -1);  // block -1 had no pair
+          if (top && (G == 2 || DH <= 96)) rows.load(old, dep, fin, -1, first);
+          if (G == 2 && top && u == 0) rows.add(dep, ec[0], old, fin, -1);  // block -1 had no pair
           // band rows 64..127 to block -u; rows 0..63 to block 1 - u, which
           // is block 1 at u = 0: en (G = 1), or ec[0], block -1's registers
           // once that is written (G = 2)
@@ -826,30 +612,26 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
           fence_regs<R>(acc);
           fence_regs<R>(lo);
           fence_regs<R>(hi);
-          if (G == 2 && top && u == 1) add_rows(dep, ec[0], old, fin, -1);  // block -1 is done
+          if (G == 2 && top && u == 1) rows.add(dep, ec[0], old, fin, -1);  // block -1 is done
         }
-        if (G == 2)  // back to shared memory (zeros for the next group)
-#pragma unroll
-          for (int x4 = 0; x4 < R / 4; ++x4)
-            acc_at(u, x4) = qt == n_tiles - 1 ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                           : make_float4(acc[4 * x4], acc[4 * x4 + 1],
-                                                         acc[4 * x4 + 2], acc[4 * x4 + 3]);
+        if (G == 2) slab.save(u, acc, qt == n_tiles - 1);  // zeros for the next group
         if (qt == n_tiles - 1) {  // the key tile's last query tile: its dK or dV out
-          store_out(u);
+          rows.store((wg == 0 ? dv : dk) + base_q, kb, acc);
 #pragma unroll
           for (int x = 0; x < R; ++x) acc[x] = 0.f;
         }
-        named_barrier(1, 32 * NCW);  // every product of the pair is done with its tiles
+        named_barrier(1, NTH);  // every product of the pair is done with its tiles
         ++pi;
-        if (tid == 0) produce(pi, gi + (qt == n_tiles - 1 && u == 0));
+        if (tid == 0)
+          prod.produce(smem, maps, full, kv_full, pi, gi + (qt == n_tiles - 1 && u == 0));
       }
       // the query tile has met the group
       if (wg == 0) {
-        if (DH > 96) load_rows(old, dqa, q0, 1, first);
-        add_rows(dqa, ec[0], old, q0, 1);
+        if (DH > 96) rows.load(old, dqa, q0, 1, first);
+        rows.add(dqa, ec[0], old, q0, 1);
       } else if (G == 1) {
-        if (DH > 96) load_rows(old, dep, fin, -1, first);
-        add_rows(dep, ec[0], old, fin, -1);
+        if (DH > 96) rows.load(old, dep, fin, -1, first);
+        rows.add(dep, ec[0], old, fin, -1);
 #pragma unroll
         for (int x = 0; x < R; ++x) ec[0][x] = en[x];
       } else {  // blocks 0 and 1 move down to -1 and 0
@@ -869,44 +651,13 @@ flash_bwd_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict
       for (int j = 0; j < G; ++j) {
         float prev[R];
         const int row0 = D + (j - (G - 1)) * BK + 63;
-        load_rows(prev, dep, row0, -1, first);
-        add_rows(dep, ec[j], prev, row0, -1);
+        rows.load(prev, dep, row0, -1, first);
+        rows.add(dep, ec[j], prev, row0, -1);
 #pragma unroll
         for (int x = 0; x < R; ++x) ec[j][x] = 0.f;
       }
     }
   }
-}
-// dQ = the nsplit blocks' partials summed in block order, cast once; 4
-// values a thread (n is a multiple of 16)
-__global__ void dq_reduce_kernel(const float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq,
-                                 size_t n, int nsplit) {
-  const size_t x = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (x >= n) return;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int s = 0; s < MAX_SPLIT; ++s) {
-    if (s == nsplit) break;
-    const float4 v = *reinterpret_cast<const float4*>(dq_acc + s * n + x);
-    acc.x += v.x;
-    acc.y += v.y;
-    acc.z += v.z;
-    acc.w += v.w;
-  }
-  *reinterpret_cast<uint2*>(dq + x) = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
-}
-
-// Blocks a (b, h): one where the (b, h) alone nearly fill the card (at
-// least 7/8 of its SMs, one block an SM), so each partial has one block
-// and the reductions read half as much; else two, on alternate groups.
-inline int split_for(int B, int H) {
-  static int sms[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return MAX_SPLIT;
-  if (sms[dev] == 0 &&
-      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    sms[dev] = 132;
-  return B * H >= sms[dev] - sms[dev] / 8 ? 1 : MAX_SPLIT;
 }
 
 template <int DH>
@@ -915,13 +666,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
                    void* dq_acc, void* de_part, int B, int H, int T_len, int max_seq, int causal,
                    float scale, int nsplit, cudaStream_t stream) {
   Maps maps;
-  cudaError_t err;
-  if ((err = sm90_host::slab_map(&maps.q, q, B * H, T_len, DH, BQ)) != cudaSuccess ||
-      (err = sm90_host::slab_map(&maps.k, k, B * H, T_len, DH, BK)) != cudaSuccess ||
-      (err = sm90_host::slab_map(&maps.v, v, B * H, T_len, DH, BK)) != cudaSuccess ||
-      (err = sm90_host::slab_map(&maps.d, dout, B * H, T_len, DH, BQ)) != cudaSuccess ||
-      (err = sm90_host::slab_map(&maps.e, e, 1, max_seq, DH, EB)) != cudaSuccess)
-    return err;
+  cudaError_t err = make_maps(&maps, q, k, v, dout, e, B * H, T_len, DH, max_seq);
+  if (err != cudaSuccess) return err;
   auto kernel = flash_bwd_tc_kernel<DH>;
   const int smem = Layout<DH>::TOTAL;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -933,14 +679,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
       H, T_len, max_seq, causal, scale, scale * LOG2E, nsplit);
   return cudaGetLastError();
 }
-
 }  // namespace tc
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    const void* dout, const void* lse, const void* dsum, void* dq, void* dk,
                    void* dv, void* de, void* dq_acc, void* de_part, int B, int H, int T_len,
-                   int max_seq, int causal, float scale, cudaStream_t stream) {
+                   int max_seq, int causal, float scale, int nsplit, cudaStream_t stream) {
   cudaError_t err;
   int parts = B * H;  // dE partials to sum: one per (b, h) in f32, nsplit in bf16
   if constexpr (std::is_same<T, float>::value) {
@@ -958,13 +703,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* e, c
   } else if constexpr (DH > 128) {
     return cudaErrorInvalidValue;  // bf16 past 128: flash_rel_attn_wide.cu's cluster backward
   } else {
-    const int nsplit = tc::split_for(B, H);
+    if (nsplit < 1 || nsplit > km::MAX_SPLIT) return cudaErrorInvalidValue;
     err = tc::launch<DH>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq_acc, de_part, B, H, T_len,
                          max_seq, causal, scale, nsplit, stream);
     if (err != cudaSuccess) return err;
-    const size_t n = (size_t)B * H * T_len * DH;
-    tc::dq_reduce_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
-        static_cast<const float*>(dq_acc), static_cast<__nv_bfloat16*>(dq), n, nsplit);
+    err = km::reduce_dq(dq_acc, dq, (size_t)B * H * T_len * DH, nsplit, stream);
+    if (err != cudaSuccess) return err;
     parts *= nsplit;
   }
   err = cudaGetLastError();
@@ -980,11 +724,11 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
                         const void* pad, const void* dout, const void* lse, const void* dsum,
                         void* dq, void* dk, void* dv, void* de, void* dq_acc, void* de_part,
                         int B, int H, int T_len, int dh, int max_seq, int causal,
-                        float scale, cudaStream_t s) {
+                        float scale, int split, cudaStream_t s) {
 #define FLASH_BWD_CASE(D)                                                                    \
   case D:                                                                                    \
     return launch<T, D>(q, k, v, e, pad, dout, lse, dsum, dq, dk, dv, de, dq_acc, de_part, B, \
-                        H, T_len, max_seq, causal, scale, s);
+                        H, T_len, max_seq, causal, scale, split, s);
   switch (dh) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)
@@ -1008,8 +752,9 @@ extern "C" {
 // past it flash_rel_attn_wide_bwd runs kernel 4); lse and dsum are
 // f32 [B, H, T]; pad may be null. dq_acc is f32 scratch [2, B, H, T, dh] and
 // de_part f32 scratch [2*B*H, T, dh] (the f32 path uses their first halves,
-// the bf16 path one half per block of a (b, h), one or two blocks); the
-// kernels fill what they use.
+// the bf16 path one half per block of a (b, h)); the kernels fill what they
+// use. bf16: `split` (1 or 2) blocks a (b, h) on alternate groups of key
+// tiles; f32 ignores it (one block per (b, h)).
 // scale is c = 1/sqrt(d_head) of the caller's heads, which may have fewer
 // columns than dh (zero columns padded up to an instantiated dh add nothing).
 // Launches on `stream` and does not synchronise.
@@ -1017,15 +762,16 @@ int flash_rel_attn_bwd(const void* q, const void* k, const void* v, const void* 
                        const void* pad, const void* dout, const void* lse, const void* dsum,
                        void* dq, void* dk, void* dv, void* de, void* dq_acc, void* de_part,
                        int B, int H, int T_len, int dh, int max_seq, int causal, int dtype,
-                       float scale, void* stream) {
+                       float scale, int split, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || T_len > max_seq) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_dh<float>(q, k, v, e, pad, dout, lse, dsum, dq, dk, dv, de, dq_acc, de_part,
-                              B, H, T_len, dh, max_seq, causal, scale, s);
+                              B, H, T_len, dh, max_seq, causal, scale, split, s);
   if (dtype == 1)
     return dispatch_dh<__nv_bfloat16>(q, k, v, e, pad, dout, lse, dsum, dq, dk, dv, de, dq_acc,
-                                      de_part, B, H, T_len, dh, max_seq, causal, scale, s);
+                                      de_part, B, H, T_len, dh, max_seq, causal, scale, split,
+                                      s);
   return cudaErrorInvalidValue;
 }
 

@@ -19,27 +19,52 @@
 // bf16 (the `split` and `fused` training paths): tensor cores. Bound on
 // the H100: operations. Per visible tile pair the products are S = Q K^T,
 // the band Q E_band^T (P needs Srel), dP = dO V^T, dV += P^T dO, dK +=
-// dS'^T Q and, with the dQ term, dQ += dS' K, every one an mma.sync
-// m16n8k16 with bf16 operands and f32 sums: flash_rel_attn_bwd.cu's
-// tensor-core kernel (kernel 4) without its distance-domain half (the dsd
-// scatter, dQ_rel, dE, the dE partials and their carry). mma.sync, as in
-// kernels 4 to 6: a warp's 16-row fragments are the unit of the skew; a
-// wgmma version (64-row warpgroup tiles, each B tile read once a
-// warpgroup) is the later step.
-//   * with dQ (kernel 7): two blocks share a (b, h), on alternate key tiles
-//     (at B 8, H 16, 256 blocks, two an SM at d_head <= 48), each with its
-//     own f32 dQ partial [2, B, H, T, dh]; dq_reduce_kernel sums the two in
-//     block order and casts once, as the TPU casts its f32 dq scratch once:
-//     no atomics, two calls give bitwise-equal outputs;
-//   * dK/dV alone (kernel 9): the same kernel without dQ (WITH_DQ = false),
-//     so a key tile carries no state across tiles and the grid is free:
-//     `split` blocks a (b, h), block s taking key tiles s, s + split, ...,
-//     numbered key-tile-major so that the longest (causal: the first) key
-//     tiles start first. The wrapper passes split = the number of key tiles
-//     (one block per (b, h, key tile), 2 432 blocks at the flagship shape)
-//     or 2 (kernel 7's grid). dK and dV are bitwise kernel 7's: each key
-//     tile sums the same products over the same query tiles in the same
-//     order.
+// dS'^T Q and, with the dQ term, dQ += dS' K: flash_rel_attn_bwd.cu's
+// kernel 4 without its distance-domain half (the dsd scatter, dQ_rel, dE,
+// the dE partials and their carry).
+//   * with dQ (kernel 7, wg::flash_bwd_kv_wg_tc_kernel): kernel 4's Hopper
+//     design, the key-major sweep of bwd_key_major.cuh (the layout, the
+//     walk and its TMA producer, phase A, the row helpers and the dQ
+//     reduction, shared with kernel 4). At B 8, H 16,
+//     T 1216, d_head 48 the products the visible pairs need take 0.0550 ms
+//     at 989 TFLOP/s. Two warpgroups share each tile pair, every product a
+//     wgmma with f32 sums, per pair:
+//       phase A, warpgroup h (keys 32 h ..): S = Q K_h^T, dP = dO V_h^T
+//         (m64n32) and the band Q E^T over the 96 band rows its keys reach
+//         (m64n96), skewed into Srel through a per-warp scratch; P = exp(s
+//         - lse), dS' = c P (dP - dsum) in f32, both rounded to bf16 into
+//         shared tiles (as the TPU kernel rounds ds); fence.proxy.async,
+//         then the barrier that hands them to phase B;
+//       phase B, warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS'^T Q (P,
+//         dS', Q and dO read MN-major); warpgroup DQ_WG: dQ += dS' K (K read
+//         MN-major), in registers while the query tile meets the group.
+//     Thread 0 copies by TMA under mbarriers: each group's K and V into a
+//     ring of NKV, each pair's Q, dO and 128-row E band into a ring of two,
+//     refilling a slot right after the barrier that ends its last reader. A
+//     block sweeps groups of G key tiles of one (b, h) (two up to d_head
+//     48, their f32 dK and dV kept in shared memory between pairs) and,
+//     inside, the query tiles that see them; a query tile meets the group's
+//     key tiles one after the other, so its dQ partial rows are read and
+//     written once a group (the block's first group stores without
+//     reading; rows it never reaches are zeroed first). Blocks a (b, h):
+//     one where B * H fills 7/8 of the SMs (one block an SM; 30 MB of f32
+//     partial at the flagship shape, inside the 50 MB L2), else two on
+//     alternate groups (the wrapper chooses, by kernel 4's rule:
+//     ops/flash_attention.py::bwd_split); the partials [2, B, H, T, dh]
+//     are summed in block order and cast once by km::dq_reduce_kernel, as
+//     the TPU casts its f32 dq scratch once: no atomics, two calls give
+//     bitwise-equal outputs.
+//   * dK/dV alone (kernel 9, tc::flash_bwd_kv_tc_kernel): the
+//     earlier mma.sync form of the same sweep without dQ, m16n8k16 with
+//     bf16 operands and f32 sums, cp.async copies; a key tile carries no
+//     state across tiles, so the grid is free: `split` blocks a (b, h),
+//     block s taking key tiles s, s + split, ..., numbered key-tile-major
+//     so that the longest (causal: the first) key tiles start first. The
+//     wrapper passes split = the number of key tiles (one block per (b, h,
+//     key tile), 2 432 blocks at the flagship shape) or 2. Its dK and dV
+//     sum the same products over the same query tiles in the same order as
+//     kernel 7's, on other instructions: within bf16 rounding of them, not
+//     bit for bit.
 //
 // f32 (the checks' path, held to 1e-4; TF32 keeps about three digits): the
 // CUDA cores, simple and correct first:
@@ -59,11 +84,11 @@
 //     (query row, 16 keys): P and dS' into shared [BQ][BK] tiles; B, thread =
 //     (key row, dh/4 columns): dV and dK; C (dQ term only), thread = (query
 //     row, dh/4 columns): dQ_qk.
-// CUDA-core f32 FMAs fed from shared memory bound that path. The device
-// functions of the bf16 path that kernel 4 has too are copied from
-// flash_rel_attn_bwd.cu (namespace tc there), so that this file includes no
-// header of the repository and its build hash covers everything it
-// compiles.
+// CUDA-core f32 FMAs fed from shared memory bound that path. Kernel 9's
+// mma.sync helpers are copied from the earlier flash_rel_attn_bwd.cu
+// (namespace tc here); kernel 7 takes the sweep from bwd_key_major.cuh and
+// Hopper's building blocks (TMA, mbarriers, wgmma) from hopper_sm90.cuh,
+// which kernels/build.py hashes into this library's name.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,6 +96,9 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "bwd_key_major.cuh"
+#include "hopper_sm90.cuh"
 
 namespace {
 
@@ -311,7 +339,6 @@ constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
 constexpr int NWARP = 8;
 constexpr int NTH = 32 * NWARP;
-constexpr int SPLIT = 2;      // blocks a (b, h): block s takes key tiles s, s + SPLIT, ...
 constexpr int PS = BK + 8;    // bf16 row stride of the P and dS' tiles
 constexpr int WB = 48;        // band rows a warp multiplies in phase A: its 47 distances
 constexpr int WBS = WB + 8;   // row stride of a warp's band scratch (floats)
@@ -415,42 +442,37 @@ __device__ __forceinline__ void mma_kn(float (*acc)[4], const uint32_t* a,
   }
 }
 
-// Block s of the nsp a (b, h) (SPLIT with dQ, `split` without) sweeps key
-// tiles s, s + nsp, ... and, inside, the query tiles that see them (causal:
-// those at or below the diagonal), with 8 warps. Per tile pair:
+// Block s of the `split` a (b, h) sweeps key tiles s, s + split, ... and,
+// inside, the query tiles that see them (causal: those at or below the
+// diagonal), with 8 warps. Per tile pair:
 //   phase A, warp (rows 16 (w % 4), keys 32 (w / 4)): S = Q K^T, the band
 //     Q E_band^T over its 48 distances and dP = dO V^T on the tensor cores;
 //     the band skewed into Srel through a per-warp scratch (P needs it);
 //     P = exp(s - lse) and dS' = c P (dP - dsum) in f32, both rounded to
 //     bf16 into shared tiles;
 //   phase B, warp (16-row block w / 2, channel half w % 2): dV += P^T dO and
-//     dK += dS'^T Q (registers, the key tile's own) and, WITH_DQ, dQ += dS' K
-//     (this block's f32 partial, read and written once a pair).
-// Blocks are numbered (b, h)-major with dQ (kernel 7) and key-tile-major
-// without (kernel 9: block s of every (b, h) before block s + 1).
-template <int DH, bool WITH_DQ>
+//     dK += dS'^T Q (registers, the key tile's own).
+// Blocks are numbered key-tile-major: block s of every (b, h) before block
+// s + 1.
+template <int DH>
 __global__ void __launch_bounds__(NTH, Layout<DH>::MIN_BLOCKS)
 flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ e,
                        const uint8_t* __restrict__ pad, const __nv_bfloat16* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ dsum,
-                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                       float* __restrict__ dq_acc, int H, int T_len, int max_seq, int causal,
-                       float scale, float scale_log2, int split) {
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
+                       int T_len, int max_seq, int causal, float scale, float scale_log2,
+                       int split) {
   static_assert(BQ == 64 && BK == 64, "the band moves one 64-row chunk a query tile");
   using L = Layout<DH>;
   constexpr int RS = L::RS, CPR = L::CPR, KS = DH / 16, NH = DH / 16;  // NH: n-tiles a half
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int nsp = WITH_DQ ? SPLIT : split;  // blocks a (b, h)
-  const int n_bh = gridDim.x / nsp;
-  const int bh = WITH_DQ ? blockIdx.x / SPLIT : blockIdx.x % n_bh;
-  const int sp = WITH_DQ ? blockIdx.x % SPLIT : blockIdx.x / n_bh;
+  const int n_bh = gridDim.x / split;
+  const int bh = blockIdx.x % n_bh, sp = blockIdx.x / n_bh;
   const int b = bh / H;
   const size_t base = (size_t)bh * T_len * DH, rbase = (size_t)bh * T_len;
-  // this block's dQ partial [T][DH] (of [SPLIT][B*H][T][DH])
-  float* dqa = WITH_DQ ? dq_acc + ((size_t)sp * n_bh + bh) * T_len * DH : nullptr;
   __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + L::P_AT);  // P [BQ][PS]
   __nv_bfloat16* dss = ps + BQ * PS;                                      // dS' [BQ][PS]
   float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
@@ -461,12 +483,6 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
   const int n_tiles = (T_len + BK - 1) / BK;
   auto first_q = [&](int kt) { return causal ? kt : 0; };
-  if constexpr (WITH_DQ) {
-    // dQ rows no pair of this block reaches (query tiles above its first
-    // key tile, or all when it has none) are zero in its partial
-    const int dq_zero = sp >= n_tiles ? T_len : min(T_len, first_q(sp) * BQ);
-    for (int x = tid; x < dq_zero * DH; x += NTH) dqa[x] = 0.f;
-  }
   if (sp >= n_tiles) return;
   // The E band of a pair (row u at distance q0 - k0 - (BK - 1) + u, zero
   // where negative) is two chunks of 64 rows in a ring of NSLOT: the next
@@ -501,7 +517,7 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     hi = n_chunks++;
     load_chunk(hi, dist0 + 64);
     if (qt == first_q(kt)) {
-      __nv_bfloat16* ks = kv_buf(kt / nsp % L::STAGES);
+      __nv_bfloat16* ks = kv_buf(kt / split % L::STAGES);
       __nv_bfloat16* vs = ks + BK * RS;
       float* live = reinterpret_cast<float*>(vs + BK * RS);
       for (int x = tid; x < BK * CPR; x += NTH) {
@@ -546,7 +562,7 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
   int kt = sp, qt = first_q(sp), nk = kt, nq = qt;
   auto next = [&](int& a, int& c) {
-    if (++c == n_tiles) c = first_q(a += nsp);
+    if (++c == n_tiles) c = first_q(a += split);
   };
   next(nk, nq);
   int lo = 0, hi = 0, nlo = 0, nhi = 0;  // this pair's band chunks, and the next pair's
@@ -560,7 +576,7 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     nhi = hi;
     if (L::STAGES > 1 && more) load(nk, nq, (pair + 1) % L::STAGES, nlo, nhi);
     const int k0 = kt * BK, q0 = qt * BQ;
-    const __nv_bfloat16* ks = kv_buf(kt / nsp % L::STAGES);
+    const __nv_bfloat16* ks = kv_buf(kt / split % L::STAGES);
     const __nv_bfloat16* vs = ks + BK * RS;
     const float* live = reinterpret_cast<const float*>(vs + BK * RS);
     const __nv_bfloat16* qs = st_buf(s);
@@ -634,21 +650,7 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     }
     __syncthreads();
 
-    // ---- phase B. The dQ partial rows this warp adds to are loaded first,
-    // so their latency passes under the products.
-    [[maybe_unused]] float2 qold[2][NH];
-    if constexpr (WITH_DQ) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = q0 + 16 * mq + g + 8 * h;
-#pragma unroll
-        for (int n = 0; n < NH; ++n)
-          qold[h][n] =  // a query tile's first pair is with key tile sp
-              kt > sp && i < T_len
-                  ? *reinterpret_cast<const float2*>(dqa + (size_t)i * DH + c0 + 8 * n + 2 * t)
-                  : make_float2(0.f, 0.f);
-      }
-    }
+    // ---- phase B
 #pragma unroll
     for (int kq = 0; kq < BQ / 16; ++kq) {  // dV += P^T dO, dK += dS'^T Q
       uint32_t pa[4], sa[4];
@@ -657,29 +659,6 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
       mma_kn<NH>(dva, pa, dos + 16 * kq * RS + c0, RS, lane);
       mma_kn<NH>(dka, sa, qs + 16 * kq * RS + c0, RS, lane);
     }
-    if constexpr (WITH_DQ) {  // dQ += dS' K, rows 16 mq..
-      float qacc[NH][4];
-#pragma unroll
-      for (int n = 0; n < NH; ++n)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) qacc[n][x] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, dss + (16 * mq + lrow) * PS + 16 * kk + lcol);
-        mma_kn<NH>(qacc, a, ks + 16 * kk * RS + c0, RS, lane);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = q0 + 16 * mq + g + 8 * h;
-        if (i >= T_len) continue;
-#pragma unroll
-        for (int n = 0; n < NH; ++n)
-          *reinterpret_cast<float2*>(dqa + (size_t)i * DH + c0 + 8 * n + 2 * t) =
-              make_float2(qold[h][n].x + qacc[n][2 * h], qold[h][n].y + qacc[n][2 * h + 1]);
-      }
-    }
-
     if (qt == n_tiles - 1) {  // the key tile's last pair: its dK and dV
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -709,49 +688,246 @@ flash_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   }
 }
 
-// dQ = the SPLIT blocks' partials summed in block order, cast once
-__global__ void dq_reduce_kernel(const float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq,
-                                 size_t n) {
-  const size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= n) return;
-  float acc = 0.f;
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// the bf16 path of dK, dV and dQ_qk (kernel 7): the key-major sweep of
+// bwd_key_major.cuh
+// ---------------------------------------------------------------------------
+
+// The switches of scripts/torch_key_sweep_ablation.py, which defines them
+// ahead of a copy of this file; the libraries as built define none, so
+// each takes the value below.
+#ifndef BWD_KV_DQ_WG
+#define BWD_KV_DQ_WG 0  // the warpgroup that forms dQ += dS' K: 0 (beside dV) or 1 (beside dK)
+#endif
+#ifndef BWD_KV_G
+#define BWD_KV_G 0      // key tiles a group up to d_head 48: 0 as built (2), or 1 or 2
+#endif
+#ifndef BWD_KV_AHEAD
+#define BWD_KV_AHEAD 48  // up to this d_head, dQ partial rows are read under the products
+#endif
+
+namespace wg {
+
+using namespace km;
+
+constexpr int DQ_WG = BWD_KV_DQ_WG;
+static_assert(DQ_WG == 0 || DQ_WG == 1, "dQ on one of the two warpgroups");
+
+// key tiles a block sweeps the query tiles with: two up to d_head 48,
+// where shared memory holds both key tiles' f32 dK and dV between pairs;
+// no tiles of its own
+template <int DH>
+using Layout = km::Layout<DH, (DH > 48 ? 1 : BWD_KV_G > 0 ? BWD_KV_G : 2), 0>;
+
+// Block s of the nsplit a (b, h) walks its groups of key tiles as
+// bwd_key_major.cuh sets out, thread 0 copying. Per tile pair: phase A
+// (km::phase_a); phase B, warpgroup 0: dV += P^T dO, warpgroup 1: dK +=
+// dS'^T Q, warpgroup DQ_WG: dQ += dS' K, in registers while the query
+// tile meets the group; then its rows of this block's f32 dQ partial are
+// read and written once (see the note at the top).
+template <int DH>
+__global__ void __launch_bounds__(NTH, 1)
+flash_bwd_kv_wg_tc_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ pad,
+                          const float* __restrict__ lse, const float* __restrict__ dsum,
+                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                          float* __restrict__ dq_acc, int H, int T_len, int max_seq, int causal,
+                          float scale, float scale_log2, int nsplit) {
+  using L = Layout<DH>;
+  constexpr int G = L::G, NST = L::NST, NKV = L::NKV, R = DH / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_AT);
+  uint64_t* kv_full = full + NST;
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_index();
+  const int wgi = warp >> 2, wq = warp & 3;  // warpgroup (phase A: keys 32 wgi ..); warp in it
+  const int bh = blockIdx.x / nsplit, sp = blockIdx.x % nsplit, b = bh / H;
+  const size_t base_q = (size_t)bh * T_len * DH, rbase = (size_t)bh * T_len;
+  // this block's dQ partial [T][DH] (of [nsplit][B*H][T][DH])
+  float* dqa = dq_acc + ((size_t)sp * (gridDim.x / nsplit) + bh) * T_len * DH;
+  const int n_tiles = (T_len + BK - 1) / BK;
+  const Walk<G> walk{n_tiles, causal, sp, nsplit};
+
+  // zeros: the dQ rows the block never writes (query tiles before its
+  // first group's first; all when it has no group)
+  {
+    const bool none = sp * G >= n_tiles;
+    const int dq_zero = none ? T_len : min(T_len, walk.first_q(sp) * BQ);
+    for (int x = tid; x < dq_zero * DH; x += NTH) dqa[x] = 0.f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < NKV; ++s) mbar_init(&kv_full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (sp * G >= n_tiles) return;
+
+  Producer<L> prod(walk, bh, max_seq);
+  if (tid == 0) prod.produce(smem, maps, full, kv_full, 0, 0);
+
+  const Rows<DH> rows{wq, lane >> 2, lane & 3, T_len};
+  const uint32_t p_t = base + L::P_AT, ds_t = p_t + 8192;
+  unsigned char* p_s = smem + L::P_AT;
+  unsigned char* ds_s = p_s + 8192;
+  float* scr = reinterpret_cast<float*>(smem + L::SCR_AT) + warp * 16 * WBS;
+  // warpgroup 0: dV of the pair's key tile, 1: dK (rows = keys); with G = 2
+  // read from and written back to shared memory around each pair's
+  // products. Warpgroup DQ_WG: the query tile's dQ over the group (rows =
+  // queries).
+  float acc[R], dqr[R];
+  const AccSlab<DH> slab{reinterpret_cast<float4*>(smem + L::ACC_AT) + (tid & 127), wgi};
 #pragma unroll
-  for (int s = 0; s < SPLIT; ++s) acc += dq_acc[s * n + x];
-  dq[x] = __float2bfloat16(acc);
+  for (int x = 0; x < R; ++x) acc[x] = dqr[x] = 0.f;
+  if (G == 2)
+#pragma unroll
+    for (int u = 0; u < G; ++u) slab.zero(u);
+
+  auto mma_dq = [&](uint32_t k_t) {  // dQ += dS' K
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      mma_ss<DH, 0, 1>(dqr, desc_k(ds_t + 2048 * kk), desc_mn(k_t + 512 * kk, SLAB));
+  };
+
+  int pi = 0, gi = 0;
+  for (int grp = sp; grp * G < n_tiles; grp += nsplit, ++gi) {
+    const int ks = gi % NKV, k0 = grp * G * BK;
+    const bool first = gi == 0;  // the block's first group: partial rows not yet written
+    const uint32_t kv_t = base + L::KV_AT + ks * L::KV;
+    uint32_t live[G];  // key 32 wgi + x of key tile u is live at bit x of live[u]
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int key = k0 + u * BK + 32 * wgi + lane;
+      live[u] = __ballot_sync(0xffffffffu,
+                              key < T_len && !(pad != nullptr && pad[(size_t)b * T_len + key]));
+    }
+    // lse (in log2 units) and dsum of this thread's rows of a query tile:
+    // read one query tile ahead, so their latency passes under its pairs
+    float lse_n[2], dsum_n[2];
+    rows.stats(lse_n, dsum_n, lse + rbase, dsum + rbase, walk.first_q(grp) * BQ);
+    mbar_wait(&kv_full[ks], (gi / NKV) & 1);
+    for (int qt = walk.first_q(grp); qt < n_tiles; ++qt) {
+      const int q0 = qt * BQ;
+      const float lse_r[2] = {lse_n[0], lse_n[1]}, dsum_r[2] = {dsum_n[0], dsum_n[1]};
+      if (qt + 1 < n_tiles) rows.stats(lse_n, dsum_n, lse + rbase, dsum + rbase, q0 + BQ);
+      float old[R];  // the partial rows the query tile adds to
+#pragma unroll
+      for (int uu = 0; uu < G; ++uu) {
+        const int u = G - 1 - uu;  // the key tiles from the last down; u = 0 always meets
+        if (!walk.meets(grp, qt, u)) continue;
+        const int kt = grp * G + u, s = pi % NST, kb = kt * BK;
+        const uint32_t q_t = base + s * L::ST, d_t = q_t + L::TILE;
+        const uint32_t k_t = kv_t + 2 * u * L::TILE;
+        mbar_wait(&full[s], (pi / NST) & 1);
+
+        phase_a<DH>(q_t, k_t, p_s, ds_s, scr, wgi, wq, lane, q0, kb, live[u], T_len, causal,
+                    lse_r, dsum_r, scale, scale_log2, [](int, int, uint32_t) {});
+        fence_async_smem();
+        named_barrier(1, NTH);  // P and dS' are in place
+
+        // ---- phase B. The partial rows the query tile adds to are read
+        // at its last pair, under the products, up to d_head BWD_KV_AHEAD,
+        // and after the products past it, where each way was faster on the
+        // card (scripts/torch_key_sweep_ablation.py: reading after cost
+        // 3-5% at 32 and 48; reading ahead cost 7% at 64, with 221
+        // registers against 188, and at 96 spilled).
+        // Each warpgroup's products run from one fence to one wait, as
+        // kernel 4's: a branch joining between them would have ptxas
+        // serialize the wgmma.
+        if (G == 2) slab.load(u, acc);
+        if (wgi == DQ_WG && u == 0 && DH <= BWD_KV_AHEAD) rows.load(old, dqa, q0, 1, first);
+        if (wgi == 0) {
+          wg_fence();
+#pragma unroll
+          for (int kq = 0; kq < BQ / 16; ++kq)  // dV += P^T dO
+            mma_ss<DH, 1, 1>(acc, desc_mn(p_t + 512 * kq, 2048), desc_mn(d_t + 512 * kq, SLAB));
+          if constexpr (DQ_WG == 0) mma_dq(k_t);
+          wg_commit();
+          wg_wait0();
+        } else {
+          wg_fence();
+#pragma unroll
+          for (int kq = 0; kq < BQ / 16; ++kq)  // dK += dS'^T Q
+            mma_ss<DH, 1, 1>(acc, desc_mn(ds_t + 512 * kq, 2048), desc_mn(q_t + 512 * kq, SLAB));
+          if constexpr (DQ_WG == 1) mma_dq(k_t);
+          wg_commit();
+          wg_wait0();
+        }
+        fence_regs<R>(acc);
+        fence_regs<R>(dqr);
+        if (G == 2) slab.save(u, acc, qt == n_tiles - 1);  // zeros for the next group
+        if (qt == n_tiles - 1) {  // the key tile's last query tile: its dK or dV out
+          rows.store((wgi == 0 ? dv : dk) + base_q, kb, acc);
+#pragma unroll
+          for (int x = 0; x < R; ++x) acc[x] = 0.f;
+        }
+        named_barrier(1, NTH);  // every product of the pair is done with its tiles
+        ++pi;
+        if (tid == 0)
+          prod.produce(smem, maps, full, kv_full, pi, gi + (qt == n_tiles - 1 && u == 0));
+      }
+      // the query tile has met the group: its dQ into the partial, once
+      if (wgi == DQ_WG) {
+        if (DH > BWD_KV_AHEAD) rows.load(old, dqa, q0, 1, first);
+        rows.add(dqa, dqr, old, q0, 1);
+#pragma unroll
+        for (int x = 0; x < R; ++x) dqr[x] = 0.f;
+      }
+    }
+  }
 }
 
-}  // namespace tc
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
+                   const void* dout, const void* lse, const void* dsum, void* dk, void* dv,
+                   void* dq, void* dq_acc, int B, int H, int T_len, int max_seq, int causal,
+                   float scale, int nsplit, cudaStream_t stream) {
+  Maps maps;
+  cudaError_t err = make_maps(&maps, q, k, v, dout, e, B * H, T_len, DH, max_seq);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_kv_wg_tc_kernel<DH>;
+  const int smem = Layout<DH>::TOTAL;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * H * nsplit, NTH, smem, stream>>>(
+      maps, static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), static_cast<float*>(dq_acc), H, T_len, max_seq, causal,
+      scale, scale * LOG2E, nsplit);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_dq(dq_acc, dq, (size_t)B * H * T_len * DH, nsplit, stream);
+}
+
+}  // namespace wg
 
 template <typename T, int DH, bool WITH_DQ>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* e, const void* pad,
                    const void* dout, const void* lse, const void* dsum, void* dk, void* dv,
                    void* dq, void* dq_acc, int B, int H, int T_len, int max_seq, int causal,
                    float scale, int split, cudaStream_t stream) {
-  cudaError_t err;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && WITH_DQ) {
+    return wg::launch<DH>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq, dq_acc, B, H, T_len,
+                          max_seq, causal, scale, split, stream);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     using B16 = __nv_bfloat16;
-    auto kernel = tc::flash_bwd_kv_tc_kernel<DH, WITH_DQ>;
+    auto kernel = tc::flash_bwd_kv_tc_kernel<DH>;
     const int smem = tc::Layout<DH>::TOTAL;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const int nsp = WITH_DQ ? tc::SPLIT : split;
-    kernel<<<B * H * nsp, tc::NTH, smem, stream>>>(
+    kernel<<<B * H * split, tc::NTH, smem, stream>>>(
         static_cast<const B16*>(q), static_cast<const B16*>(k), static_cast<const B16*>(v),
         static_cast<const B16*>(e), static_cast<const uint8_t*>(pad), static_cast<const B16*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<B16*>(dk),
-        static_cast<B16*>(dv), static_cast<float*>(dq_acc), H, T_len, max_seq, causal, scale,
-        scale * tc::LOG2E, nsp);
-    if constexpr (WITH_DQ) {
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-      const size_t n = (size_t)B * H * T_len * DH;
-      tc::dq_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-          static_cast<const float*>(dq_acc), static_cast<B16*>(dq), n);
-    }
+        static_cast<B16*>(dv), H, T_len, max_seq, causal, scale, scale * tc::LOG2E, split);
   } else {
     auto kernel = flash_rel_attn_bwd_kv_kernel<T, DH, WITH_DQ>;
     const size_t smem = smem_bytes<DH>();
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const int blocks = WITH_DQ ? B * H : B * H * ((T_len + Tile<DH>::BK - 1) / Tile<DH>::BK);
     kernel<<<blocks, Tile<DH>::NT, smem, stream>>>(
@@ -770,7 +946,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* e,
                      void* dk, void* dv, void* dq, void* dq_acc, int B, int H, int T_len, int dh,
                      int max_seq, int causal, int dtype, float scale, int split, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || T_len > max_seq) return cudaErrorInvalidValue;
-  if (!WITH_DQ && dtype == 1 && split <= 0) return cudaErrorInvalidValue;
+  // bf16: kernel 9 takes any split >= 1, kernel 7 one or two blocks a (b, h)
+  if (dtype == 1 && (split <= 0 || (WITH_DQ && split > km::MAX_SPLIT)))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define KV_CASE(TYPE, D)                                                                     \
   if (dh == D)                                                                               \
@@ -811,15 +989,16 @@ int flash_rel_attn_bwd_dkdv(const void* q, const void* k, const void* v, const v
 }
 
 // dK, dV and dQ_qk (the TPU's _bwd_dkdv_dq_kernel); dq_acc is f32 scratch
-// [2, B, H, T, dh], filled by the kernel (the bf16 path uses all of it, one
-// partial a block of a (b, h); the f32 path the first half).
+// [split, B, H, T, dh], filled by the kernel. bf16: `split` (1 or 2) blocks
+// a (b, h) on alternate groups of key tiles, one partial each; f32 ignores
+// it (one block per (b, h), the first partial).
 int flash_rel_attn_bwd_dkdv_dq(const void* q, const void* k, const void* v, const void* e,
                                const void* pad, const void* dout, const void* lse,
                                const void* dsum, void* dk, void* dv, void* dq, void* dq_acc,
                                int B, int H, int T_len, int dh, int max_seq, int causal,
-                               int dtype, float scale, void* stream) {
+                               int dtype, float scale, int split, void* stream) {
   return dispatch<true>(q, k, v, e, pad, dout, lse, dsum, dk, dv, dq, dq_acc, B, H, T_len, dh,
-                        max_seq, causal, dtype, scale, 0, stream);
+                        max_seq, causal, dtype, scale, split, stream);
 }
 
 const char* flash_rel_attn_bwd_kv_error_string(int err) {

@@ -115,7 +115,9 @@ Source note for the merged backward kernel (``csrc/flash_rel_attn_bwd.cu``):
     groups of key tiles (two up to d_head 48, their f32 dK and dV kept in
     shared memory between pairs) with its own dQ and dE partials, which a
     group's query tile reads and writes once; two blocks share a (b, h),
-    or one where B * H fills 7/8 of the SMs; built up to d_head 128 (at
+    or one where B * H fills 7/8 of the SMs (``bwd_split``; the sweep is
+    ``csrc/bwd_key_major.cuh``, shared with ``bwd_dkdv_dq``); built up to
+    d_head 128 (at
     192 and 256 the cluster backward of the wide kernels below runs, in
     two parts). Measured before the redesign,
     the whole ``mma.sync`` call took 0.9731 ms at B 8, of which the main
@@ -180,21 +182,29 @@ fed from shared memory; every bf16 path on the tensor cores (below):
     start from the same f32 scores, so the scatter gives the same dS), where
     dQ_rel and dE are plain products; ``de_dqrel`` forms no dQ key term and
     visits only key tiles at or below the diagonal; two blocks a (b, h) on
-    alternate query tiles, each with its own dE partial. ``bwd_dq_de``
-    runs S, dP and the band by ``mma.sync`` (kernel 4's earlier phase A);
-    ``bwd_dq_de_dist`` and ``bwd_de_dqrel`` run every product as a Hopper
-    warpgroup product (``wgmma``) on tiles TMA copies under ``mbarrier``s,
-    two warpgroups a tile pair (``form`` "wgmma");
+    alternate query tiles, each with its own dE partial. Every product is a
+    Hopper warpgroup product (``wgmma``) on tiles TMA copies under
+    ``mbarrier``s, two warpgroups a tile pair (``form`` "wgmma").
+    ``bwd_dq_de`` and ``bwd_dq_de_dist`` compute the same products on the
+    same tiles on the card, so both launch one kernel, and kernel 5's
+    outputs are kernel 6's bit for bit (the TPU needed two kernels only
+    because Mosaic cannot lower the unskew as one operation);
   * bf16 ``bwd_dkdv_dq`` (``split``): bound by operations; kernel 4's
-    tensor-core kernel without its distance-domain half: S, the band (P
-    needs Srel), dP, dV, dK and dQ's key term by ``mma.sync``; two blocks
-    a (b, h) on alternate key tiles, each with its own f32 dQ partial,
-    summed in block order and cast once;
-  * bf16 ``bwd_dkdv`` (``fused``): bound by operations; the same kernel
-    without dQ, so a key tile carries nothing to the next and the grid is
-    free: one block per (b, h, key tile) by default, the longest key tiles
-    first (``split`` blocks a (b, h) on request); its dK and dV are
-    ``bwd_dkdv_dq``'s bit for bit.
+    Hopper design without its distance-domain half: S, the band (P needs
+    Srel), dP, dV, dK and dQ's key term, each a ``wgmma`` on TMA tiles, two
+    warpgroups a tile pair; a block sweeps groups of key tiles (two up to
+    d_head 48, their f32 dK and dV in shared memory between pairs) and a
+    query tile's dQ stays in registers while it meets the group, so each
+    row of the block's f32 dQ partial is read and written once a group;
+    one block a (b, h) where B * H fills 7/8 of the SMs, else two on
+    alternate groups (``bwd_split``), the partials summed in block
+    order and cast once;
+  * bf16 ``bwd_dkdv`` (``fused``): bound by operations; the earlier
+    ``mma.sync`` form of the key-major sweep without dQ, so a key tile
+    carries nothing to the next and the grid is free: one block per (b, h,
+    key tile) by default, the longest key tiles first (``split`` blocks a
+    (b, h) on request); its dK and dV sum ``bwd_dkdv_dq``'s products in
+    its order, on other instructions (within bf16 rounding of them).
 """
 
 from __future__ import annotations
@@ -284,11 +294,11 @@ def form(kernel: int, dh: int, dtype: torch.dtype) -> str:
     ``padded_dh(dh)``:
       * ``"cuda_cores"``: f32, the kernel built for that d_head (kernels 1
         and 4 up to 256, 5-9 up to 128);
-      * ``"wgmma"``: bf16 up to 128, kernels 1, 4, 6 and 8 (``csrc/
-        flash_rel_attn_fwd.cu``, ``_bwd.cu``, ``_bwd_q.cu``): Hopper's
-        warpgroup products on tiles TMA copies, a warpgroup holding its
-        tile's whole d_head;
-      * ``"mma_sync"``: bf16 up to 128, kernels 5, 7 and 9, on ``mma.sync``;
+      * ``"wgmma"``: bf16 up to 128, kernels 1 and 4-8 (``csrc/
+        flash_rel_attn_fwd.cu``, ``_bwd.cu``, ``_bwd_q.cu``, ``_bwd_kv.cu``):
+        Hopper's warpgroup products on tiles TMA copies, a warpgroup
+        holding its tile's whole d_head;
+      * ``"mma_sync"``: bf16 up to 128, kernel 9, on ``mma.sync``;
       * ``"parts"``: kernel 1 in bf16 at 192 and 256, ``tc::
         flash_fwd_tc_parts_kernel`` of ``flash_rel_attn_fwd.cu``: two
         warpgroups of one block, a column part each;
@@ -306,7 +316,7 @@ def form(kernel: int, dh: int, dtype: torch.dtype) -> str:
             return "streamed"
         if not bf16:
             return "cuda_cores"
-        return "wgmma" if kernel in (6, 8) else "mma_sync"
+        return "mma_sync" if kernel == 9 else "wgmma"
     if not bf16:
         return "cuda_cores" if dh_k <= KERNEL_DHS[-1] else "streamed"
     if dh_k <= DECOMPOSITION_DHS[-1]:
@@ -501,7 +511,8 @@ def _function(name: str):
     else:
         lib_name, n_pointers = _C_FUNCTIONS[name]
         args = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7 + [ctypes.c_float]
-        if name == "flash_rel_attn_bwd_dkdv":
+        if name in ("flash_rel_attn_bwd", "flash_rel_attn_bwd_dkdv",
+                    "flash_rel_attn_bwd_dkdv_dq"):
             args.append(ctypes.c_int)  # blocks a (b, h) of the bf16 kernel
         if name == "flash_rel_attn_wide_bwd":
             args.append(ctypes.c_int)  # which kernel: 4-9
@@ -619,8 +630,9 @@ def _launch_bwd(name, kernel, q, k, v, e, causal, pad_keys, lse, dsum, do, like,
     """Check, allocate and launch one backward kernel of the other
     decompositions (``kernel``: 5-9), at the padded d_head: outputs shaped
     like the inputs named in ``like``, then the f32 scratch ``scratch``
-    names: dQ partials [2, B, H, T, dh] ("dq") or dE partials [2*B*H, T, dh]
-    ("de"), up to two a (b, h), or none; ``extra`` ints follow the scale.
+    names: dQ partials [2, B, H, T, dh] ("dq") or dE partials [2*B*H, T,
+    dh] ("de"), up to two a (b, h), or none; ``extra`` ints follow the
+    scale.
     Past ``DECOMPOSITION_DHS`` the kernel's wide form runs instead. The
     outputs come back cut to d_head."""
     _check(q, k, v, e, pad_keys)
@@ -689,13 +701,40 @@ def bwd_dkdv(q, k, v, e, causal, pad_keys, lse, dsum, do, split=None):
     return dk, dv
 
 
-def bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do):
+BWD_MAX_SPLIT = 2  # csrc/bwd_key_major.cuh's km::MAX_SPLIT: the dQ scratch holds two partials
+
+
+def bwd_split(bh: int, sms: int) -> int:
+    """Blocks a (b, h) of the key-major Hopper kernels 4 and 7 in bf16
+    (``csrc/bwd_key_major.cuh``): one where the ``bh`` = B * H blocks alone
+    fill 7/8 of the card's ``sms`` SMs (one block an SM, and one f32 dQ
+    partial), else two on alternate groups of key tiles."""
+    return 1 if bh >= sms - sms // 8 else BWD_MAX_SPLIT
+
+
+def _split(q, split):
+    """``split`` checked (1 or 2), or ``bwd_split``'s choice for q's card
+    where None; 1 in f32, whose kernels ignore it."""
+    if q.dtype != torch.bfloat16:
+        return 1
+    if split is None:
+        return bwd_split(q.shape[0] * q.shape[1],
+                         torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if not 1 <= split <= BWD_MAX_SPLIT:
+        raise ValueError(f"split must be 1 or {BWD_MAX_SPLIT}, got {split}")
+    return split
+
+
+def bwd_dkdv_dq(q, k, v, e, causal, pad_keys, lse, dsum, do, split=None):
     """-> (dk, dv, dq_qk): ``csrc/flash_rel_attn_bwd_kv.cu`` for the TPU's
-    ``_bwd_dkdv_dq_kernel`` (``MIDI_EMOTION_BWD=split``)."""
+    ``_bwd_dkdv_dq_kernel`` (``MIDI_EMOTION_BWD=split``). In bf16 ``split``
+    (1 or 2) blocks share a (b, h) on alternate groups of key tiles, each
+    with its own f32 dQ partial; None, ``bwd_split``'s choice. The f32
+    kernel ignores it (one block per (b, h))."""
     if q.device.type == "cpu":
         return bwd_dkdv_dq_plain(q, k, v, e, causal, pad_keys, lse, dsum, do)
     dk, dv, dq_qk = _launch_bwd("flash_rel_attn_bwd_dkdv_dq", 7, q, k, v, e, causal, pad_keys, lse,
-                                dsum, do, ("k", "v", "q"), "dq")
+                                dsum, do, ("k", "v", "q"), "dq", (_split(q, split),))
     _count(bwd_dkdv_dq, 7, q)
     return dk, dv, dq_qk
 
@@ -796,7 +835,7 @@ def flash_rel_attention_bwd(
             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), de.data_ptr(), dq_acc.data_ptr(), de_part.data_ptr(),
             B, H, T, dh_k, e.shape[0], int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _split(q, None), torch.cuda.current_stream(q.device).cuda_stream)
     flash_rel_attention_bwd.launches += 1
     flash_rel_attention_bwd.form_launches[how] += 1
     return tuple(_cut(dh, dq, dk, dv, de))

@@ -63,9 +63,10 @@ rate (``exps_per_ms``: 16 results a clock an SM, the CUDA C++ Programming
 Guide's throughput table for sm_90, times the card's SMs and its maximum
 SM clock from ``nvidia-smi``); and, with ``--train``, the
 flagship's train step under ``MIDI_EMOTION_BWD=split`` (``split_*``, with
-kernels 7's and 8's ms a step) and under ``fused`` with
-``MIDI_EMOTION_DQDE=dist`` (``dist_*``, with kernels 6's and 9's), measured
-as the merged step is.
+kernels 7's and 8's ms a step), under ``fused`` with
+``MIDI_EMOTION_DQDE=dist`` (``dist_*``, with kernels 6's and 9's) and with
+``column`` (``column_*``, with kernels 5's and 9's), measured as the merged
+step is.
 With ``--train``, also the default (merged) train step of the flagship at
 B 8, T 1216, bf16, dropout 0.1 (``chip_smoke.py``'s CLI arguments, on its
 synthetic shards): after 2 warm-up steps, 3 steps under the profiler,
@@ -137,15 +138,16 @@ def train_step(torch, cs, root, steps=3, extra=(), key="step", kernels=None):
 
 # kernels 5-9: chip_smoke's name -> (label, a substring of its main kernel's name)
 DECOMP_KERNELS = {
-    "flash_rel_attn_bwd_dq_de": ("k5", "flash_bwd_q_tc_kernel"),
+    "flash_rel_attn_bwd_dq_de": ("k5", "flash_bwd_q_"),
     "flash_rel_attn_bwd_dq_de_dist": ("k6", "flash_bwd_q_"),
-    "flash_rel_attn_bwd_dkdv_dq": ("k7", "flash_bwd_kv_tc_kernel"),
+    "flash_rel_attn_bwd_dkdv_dq": ("k7", "flash_bwd_kv_"),
     "flash_rel_attn_bwd_de_dqrel": ("k8", "flash_bwd_q_"),
     "flash_rel_attn_bwd_dkdv": ("k9", "flash_bwd_kv_tc_kernel"),
 }
 # (label, MIDI_EMOTION_BWD, MIDI_EMOTION_DQDE, the kernels timed a step)
 DECOMP_STEPS = (("split", "split", "column", {"k7": "flash_bwd_kv_", "k8": "flash_bwd_q_"}),
-                ("dist", "fused", "dist", {"k6": "flash_bwd_q_", "k9": "flash_bwd_kv_"}))
+                ("dist", "fused", "dist", {"k6": "flash_bwd_q_", "k9": "flash_bwd_kv_"}),
+                ("column", "fused", "column", {"k5": "flash_bwd_q_", "k9": "flash_bwd_kv_"}))
 
 
 def decomp_ms(torch, cs):

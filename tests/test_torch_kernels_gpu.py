@@ -706,11 +706,11 @@ def test_split_kernel_deterministic(cuda, kernel, dtype):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kernel", ["bwd_dq_de_dist", "bwd_de_dqrel"])
+@pytest.mark.parametrize("kernel", ["bwd_dq_de", "bwd_dq_de_dist", "bwd_de_dqrel"])
 @pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128] + PADDED_DHS)
 @pytest.mark.parametrize("causal", [True, False])
 def test_query_sweep_kernel_runs_the_wgmma_form(cuda, kernel, dh, causal):
-    """Kernels 6 and 8 in bf16 at every d_head up to 128 (40 and 80
+    """Kernels 5, 6 and 8 in bf16 at every d_head up to 128 (40 and 80
     through the padding) launch their Hopper form, ``form``
     "wgmma", and no other; its outputs are within 2e-2 of each output's
     scale of the twin's, and a second call on the same inputs gives them
@@ -733,6 +733,56 @@ def test_query_sweep_kernel_runs_the_wgmma_form(cuda, kernel, dh, causal):
     assert grew == {"cuda_cores": 1}
 
 
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128] + PADDED_DHS)
+@pytest.mark.parametrize("T", [63, 333])
+@pytest.mark.parametrize("causal", [True, False])
+def test_column_kernel_is_the_dist_kernel(cuda, dh, T, causal):
+    """Kernel 5 (``bwd_dq_de``) in bf16 runs kernel 6's instantiation: the
+    two compute the same products on the same tiles, so their dQ and dE
+    are equal bit for bit, with a pad tail and a fully masked row."""
+    q, k, v, e = _qkve(2, 3, T, dh, 512, torch.bfloat16, seed=18)
+    pad = _pad(2, T, cuda)
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).bfloat16()
+    args = (q, k, v, e, causal, pad, lse, (do.float() * o.float()).sum(-1), do)
+    for name, a, b in zip(("dq", "de"), fa.bwd_dq_de(*args), fa.bwd_dq_de_dist(*args)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("split", [None, 1, 2], ids=["rule", "split1", "split2"])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128] + PADDED_DHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_key_sweep_kernel_runs_the_wgmma_form(cuda, split, dh, causal):
+    """Kernel 7 (``bwd_dkdv_dq``) in bf16 at every d_head up to 128 (40 and
+    80 through the padding) launches its Hopper form, ``form`` "wgmma",
+    and no other, on one or two blocks a (b, h) (None: the wrapper's
+    rule); its outputs are within 2e-2 of each output's scale of the
+    twin's, the fully masked row's dQ is 0, and a second call gives them
+    bitwise (the dQ partials summed in block order). dK and dV sum each
+    key tile's query tiles in one order on either split: bitwise equal. A
+    split outside 1..2 raises."""
+    q, k, v, e = _qkve(2, 3, 200, dh, 512, torch.bfloat16, seed=20)
+    pad = _pad(2, 200, cuda)
+    o, lse = flash_rel_attention(q, k, v, e, causal, pad)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * (~pad)[:, None, :, None]).bfloat16()
+    args = (q, k, v, e, causal, pad, lse, (do.float() * o.float()).sum(-1), do)
+    before = dict(fa.bwd_dkdv_dq.form_launches)
+    got = fa.bwd_dkdv_dq(*args, split=split)
+    grew = {f: n - before[f] for f, n in fa.bwd_dkdv_dq.form_launches.items() if n != before[f]}
+    assert grew == {"wgmma": 1} and fa.form(7, dh, torch.bfloat16) == "wgmma"
+    _assert_grads_bf16(BWD_KERNELS["bwd_dkdv_dq"], got, fa.bwd_dkdv_dq_plain(*args))
+    if causal:
+        assert got[2][1, :, 0].eq(0).all()
+    for a, b in zip(got, fa.bwd_dkdv_dq(*args, split=split)):
+        assert torch.equal(a, b)
+    for name, a, b in zip(("dk", "dv"), got, fa.bwd_dkdv_dq(*args, split=2 if split == 1 else 1)):
+        assert torch.equal(a, b), name
+    with pytest.raises(ValueError, match="split"):
+        fa.bwd_dkdv_dq(*args, split=3)
+
+
 @pytest.mark.parametrize("split", [None, 2], ids=["tile-grid", "split2-grid"])
 @pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128] + PADDED_DHS)
 @pytest.mark.parametrize("T", [63, 64, 65, 200, 1216])
@@ -742,8 +792,10 @@ def test_fused_dkdv_kernel_bf16_matches_twin(cuda, split, dh, T, causal):
     cores, on either grid (one block per key tile, or two blocks a (b, h)):
     every d_head (40 and 80 through the padding), T inside, at and past a
     tile edge and the flagship's; a pad tail. Within 2e-2 of each output's
-    scale, and bitwise kernel 7's dK and dV: each key tile sums the same
-    products over the same query tiles in the same order."""
+    scale; the two grids' dK and dV bitwise equal (each key tile sums the
+    same products over the same query tiles in the same order), and within
+    2e-2 of kernel 7's, which sums them in that order too but on wgmma,
+    not mma.sync."""
     q, k, v, e = _qkve(2, 3, T, dh, 2048, torch.bfloat16, seed=15)
     pad = _pad(2, T, cuda)
     o, lse = flash_rel_attention(q, k, v, e, causal, pad)
@@ -755,8 +807,10 @@ def test_fused_dkdv_kernel_bf16_matches_twin(cuda, split, dh, T, causal):
     got = fa.bwd_dkdv(*args, split=split)
     assert fa.bwd_dkdv.launches == before + 1
     _assert_grads_bf16(BWD_KERNELS["bwd_dkdv"], got, fa.bwd_dkdv_plain(*args))
-    for name, a, b in zip(("dk", "dv"), got, fa.bwd_dkdv_dq(*args)[:2]):
+    other = fa.bwd_dkdv(*args, split=2 if split is None else None)
+    for name, a, b in zip(("dk", "dv"), got, other):
         assert torch.equal(a, b), name
+    _assert_grads_bf16(BWD_KERNELS["bwd_dkdv"], got, fa.bwd_dkdv_dq(*args)[:2])
 
 
 def test_fused_dkdv_kernel_deterministic_and_guarded(cuda):

@@ -260,9 +260,9 @@ def test_flash_form_routes(dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_decomposition_form_routes(dtype):
     """The form of kernels 5-9 each d_head runs on: up to 128 in bf16
-    kernels 6 and 8 on wgmma and TMA, 5, 7 and 9 on mma.sync, in f32 all
-    on the CUDA cores; past 128 the streamed sweeps. It follows the padded
-    width alone."""
+    kernels 5-8 on wgmma and TMA, 9 alone on mma.sync, in f32 all on the
+    CUDA cores; past 128 the streamed sweeps. It follows the padded width
+    alone."""
     bf16 = dtype == torch.bfloat16
     for d in range(1, 400):
         for kernel in (5, 6, 7, 8, 9):
@@ -272,8 +272,17 @@ def test_decomposition_form_routes(dtype):
             elif not bf16:
                 assert form == "cuda_cores", (kernel, d)
             else:
-                assert form == ("wgmma" if kernel in (6, 8) else "mma_sync"), (kernel, d)
+                assert form == ("mma_sync" if kernel == 9 else "wgmma"), (kernel, d)
             assert form in fa.FORMS
+
+
+def test_bwd_split_rule():
+    """The blocks a (b, h) of the key-major kernels 4 and 7, one rule for
+    both: one where B * H fills 7/8 of the SMs (the flagship's 128 on an
+    H100's 132), else two."""
+    assert [fa.bwd_split(bh, 132) for bh in (128, 116, 115, 4, 1)] == [1, 1, 2, 2, 2]
+    assert fa.bwd_split(200, 132) == 1 and fa.bwd_split(7, 8) == 1
+    assert max(fa.bwd_split(bh, 132) for bh in range(1, 300)) == fa.BWD_MAX_SPLIT
 
 
 @pytest.mark.parametrize("impl", [("split", "column"), ("fused", "dist"), ("fused", "column")],

@@ -1,21 +1,24 @@
-"""Torch port, the work partition of the card's bf16 kernels 6 and 8 (the
-query-major dQ/dE sweeps of ``MIDI_EMOTION_BWD=fused`` with
-``MIDI_EMOTION_DQDE=dist``, and of ``split``), restated in torch, in f32,
-and held on the CPU to the plain twins and to the JAX package's Pallas
-kernels.
+"""Torch port, the work partition of the card's bf16 kernels 5, 6 and 8
+(the query-major dQ/dE sweeps of ``MIDI_EMOTION_BWD=fused`` with
+``MIDI_EMOTION_DQDE=column`` or ``dist``, and of ``split``), restated in
+torch, in f32, and held on the CPU to the plain twins and to the JAX
+package's Pallas kernels.
 
 ``csrc/flash_rel_attn_bwd_q.cu``'s ``wg::flash_bwd_q_wg_tc_kernel`` runs only
-on the card. Its index algebra, restated tile by tile:
+on the card; kernel 5 (``column``) launches kernel 6's (``dist``)
+instantiation, so the two modes share one partition here, held to each
+TPU kernel. Its index algebra, restated tile by tile:
 
   * two blocks a (b, h), block s on query tiles s, s + 2, ... of 64 rows;
-    each walks the key tiles its query tile sees: DIST 0..qt causal and
-    every tile non-causal, REL 0..qt in both models;
+    each walks the key tiles its query tile sees: DIST (and COLUMN) 0..qt
+    causal and every tile non-causal, REL 0..qt in both models;
   * per pair S = Q K^T, the band Q E_band^T over 128 band rows (row v at
     distance q0 - k0 + 64 - v, zero where negative), Srel[i, j] =
     band[i, 64 - i + j], P and dS' by key column;
   * dsd [64 q][128 v] is dS' scattered by distance: dsd[i, 64 - i + j] =
     dS'[i, j], zero at a negative distance (no second softmax);
-  * dQ per query tile: dS' K (DIST) + dsd E_band over its key tiles;
+  * dQ per query tile: dS' K (DIST, COLUMN) + dsd E_band over its key
+    tiles;
   * dE: dsd^T Q by band half; the upper half (v < 64) is complete after
     the pair and added to the block's f32 partial by distance, the lower
     half is carried to the next key tile (whose upper half it is) and
@@ -43,6 +46,7 @@ import jax.numpy as jnp
 from midi_emotion_tpu.ops import pallas_attention
 from midi_emotion_tpu_torch.ops import flash_attention as fa
 
+from test_torch_split_partition import kernel7_partition
 from torch_parity import generic_interpret
 
 BQ = BK = 64     # the kernel's tiles
@@ -50,9 +54,12 @@ EB = BQ + BK     # band rows a pair stages
 SPLIT = 2        # blocks a (b, h)
 B, H, MAX_SEQ = 2, 2, 256
 MODES = {  # mode -> (the twin, the Pallas launcher, the decomposition that runs it)
+    "column": ("bwd_dq_de_plain", "_bwd_dq_de_call", ("fused", "column")),
     "dist": ("bwd_dq_de_dist_plain", "_bwd_dq_de_dist_call", ("fused", "dist")),
     "rel": ("bwd_de_dqrel_plain", "_bwd_de_dqrel_call", ("split", "column")),
 }
+# kernel 7's Pallas launcher, recorded in the split backward beside kernel 8's
+KV_LAUNCHER = "_bwd_dkdv_dq_call"
 
 
 def _inputs(T, dh, causal, key0=True):
@@ -148,8 +155,8 @@ def _recompute(s, bprod, dos, vs, q0, k0, T, live, lse_s, dsum_s, c):
 
 def query_sweep_partition(q, k, v, e, causal, pad, lse, dsum, do, mode, scale=None,
                           check_scatter=None):
-    """-> (dq or dq_rel, de) by kernel 6's (``mode`` "dist") or kernel 8's
-    ("rel") partition on the card. ``check_scatter(scattered, recomputed)``,
+    """-> (dq or dq_rel, de) by kernel 5's and 6's (``mode`` "column" or
+    "dist": one kernel on the card) or kernel 8's ("rel") partition. ``check_scatter(scattered, recomputed)``,
     where given, sees each band pair's dsd formed both ways."""
     T, dh = q.shape[2], q.shape[3]
     c = 1.0 / math.sqrt(dh) if scale is None else scale
@@ -177,7 +184,7 @@ def query_sweep_partition(q, k, v, e, causal, pad, lse, dsum, do, mode, scale=No
                 live = ~_rows(pad, k0, BK, T, True)
                 ds, e_band, s, bprod = _pair(qs, dos, ks, vs, e, q0, k0, T, causal, live,
                                              lse_s, dsum_s, c, band)
-                if mode == "dist":
+                if mode != "rel":
                     dq_t += ds @ ks
                 if not band:
                     continue
@@ -218,7 +225,7 @@ def _card_route(args, mode, dh, check_scatter=None):
 @pytest.mark.parametrize("T", [70, 200])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
 def test_query_sweep_partition_matches_twin(mode, dh, T, causal):
-    """Kernel 6's and 8's partition against their twins, a fully masked
+    """Kernel 5's, 6's and 8's partition against their twins, a fully masked
     row (key 0 pad) and a pad tail: 1e-6 of each output's scale."""
     q, k, v, e, pad, lse, dsum, do = _saved(*_inputs(T, dh, causal), causal)
     args = (q, k, v, e, causal, pad, lse, dsum, do)
@@ -258,7 +265,9 @@ def _pallas_outputs(mode, T, dh, causal):
     jax.vjp of flash_relative_attention with its decomposition set, carried
     to the port's convention: dQ times c (the JAX kernels see q pre-scaled),
     dE rows cut as the JAX backward cuts them. The pad tail only: the JAX
-    kernels keep no masked row at key 0 (ROADMAP queue 3)."""
+    kernels keep no masked row at key 0 (ROADMAP queue 3). The split
+    backward ("rel") also records kernel 7's (dk, dv, dq_qk), cut to T, dQ
+    times c, under mode "kv"."""
     key = (mode, T, dh, causal)
     if key in _RECORDED:
         return _RECORDED[key]
@@ -266,12 +275,15 @@ def _pallas_outputs(mode, T, dh, causal):
     launcher = MODES[mode][1]
     bwd, dqde = MODES[mode][2]
     recorded = {}
-    original = getattr(pallas_attention, launcher)
 
-    def recorder(*args, **kwargs):
-        out = original(*args, **kwargs)
-        recorded["out"] = [np.asarray(x) for x in out]
-        return out
+    def recorder(name):
+        original = getattr(pallas_attention, name)
+
+        def call(*args, **kwargs):
+            out = original(*args, **kwargs)
+            recorded[name] = [np.asarray(x) for x in out]
+            return out
+        return call
 
     if key[1:] not in _VJPS:  # the forward once for both modes
         with generic_interpret():
@@ -282,14 +294,18 @@ def _pallas_outputs(mode, T, dh, causal):
     try:
         mp.setattr(pallas_attention, "BWD_IMPL", bwd)
         mp.setattr(pallas_attention, "DQDE_IMPL", dqde)
-        mp.setattr(pallas_attention, launcher, recorder)
+        for name in (launcher, KV_LAUNCHER) if bwd == "split" else (launcher,):
+            mp.setattr(pallas_attention, name, recorder(name))
         with generic_interpret():
             _VJPS[key[1:]](jnp.asarray(do * ~pad[:, None, :, None]))
     finally:
         mp.undo()
-    dq_j, de_j = recorded["out"]
+    dq_j, de_j = recorded[launcher]
     pad_t = dq_j.shape[2] - T  # front rows the JAX table gained
     _RECORDED[key] = (dq_j[:, :, :T] / math.sqrt(dh), de_j[pad_t:pad_t + MAX_SEQ])
+    if bwd == "split":
+        dk, dv, dqk = (x[:, :, :T] for x in recorded[KV_LAUNCHER])
+        _RECORDED[("kv", *key[1:])] = (dk, dv, dqk / math.sqrt(dh))
     return _RECORDED[key]
 
 
@@ -297,13 +313,37 @@ def _pallas_outputs(mode, T, dh, causal):
 @pytest.mark.parametrize("dh", [40, 128])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
 def test_query_sweep_partition_matches_pallas_kernel(mode, dh, causal):
-    """Kernel 6's and 8's partition (heads of 40 padded to 48 as on the
-    card) against ``_bwd_dq_de_dist_call`` and ``_bwd_de_dqrel_call``
+    """Kernel 5's, 6's and 8's partition (heads of 40 padded to 48 as on
+    the card) against ``_bwd_dq_de_call``, ``_bwd_dq_de_dist_call`` and
+    ``_bwd_de_dqrel_call``
     with a pad tail: 1e-4."""
     T = 70
     want = _pallas_outputs(mode, T, dh, causal)
     q, k, v, e, pad, lse, dsum, do = _saved(*_inputs(T, dh, causal, key0=False), causal)
     got = _card_route((q, k, v, e, causal, pad, lse, dsum, do), mode, dh)
     for name, a, b in zip(("dq", "de"), got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dh", [40, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+def test_kernel7_partition_matches_pallas_kernel(dh, causal):
+    """Kernel 7's partition (``tests/test_torch_split_partition.py``) as the
+    card runs a head of ``dh`` columns: padded with zero columns to
+    ``padded_dh`` (40 -> 48), c = 1/sqrt(dh), groups of two key tiles up to
+    48 and one past, two blocks a (b, h); against ``_bwd_dkdv_dq_call``,
+    recorded in the split backward beside kernel 8's Pallas kernel, with a
+    pad tail: 1e-4."""
+    T = 70
+    _pallas_outputs("rel", T, dh, causal)
+    want = _RECORDED[("kv", T, dh, causal)]
+    q, k, v, e, pad, lse, dsum, do = _saved(*_inputs(T, dh, causal, key0=False), causal)
+    dh_k = fa.padded_dh(dh)
+    qp, kp, vp, ep, dop = fa.pad_heads(dh_k, q, k, v, e, do)
+    got = kernel7_partition(qp, kp, vp, ep, causal, pad, lse, dsum, dop, G=2 if dh_k <= 48 else 1,
+                            scale=1.0 / math.sqrt(dh))
+    for name, a, b in zip(("dk", "dv", "dq_qk"), got, want):
+        a = a[..., :dh]
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4, err_msg=name)

@@ -3,17 +3,25 @@
 in torch and held to the plain twins on the CPU.
 
 The bf16 paths of ``bwd_dkdv_dq`` (``csrc/flash_rel_attn_bwd_kv.cu``,
+``wg::flash_bwd_kv_wg_tc_kernel``), ``bwd_dkdv`` (the same file's
 ``tc::flash_bwd_kv_tc_kernel``) and ``bwd_de_dqrel``
 (``csrc/flash_rel_attn_bwd_q.cu``) run only on the card. Their index
 algebra is restated here tile by tile, in f32, and held to
-``bwd_dkdv_dq_plain`` and ``bwd_de_dqrel_plain``:
+``bwd_dkdv_dq_plain``, ``bwd_dkdv_plain`` and ``bwd_de_dqrel_plain``:
 
-  * kernel 7: two blocks a (b, h) on alternate 64-key tiles, each sweeping
-    the query tiles that see its key tile (causal: from the diagonal on);
+  * kernel 7: ``nsplit`` blocks a (b, h) (one or two, ``bwd_split``)
+    on alternate groups of G consecutive 64-key tiles (two up to d_head
+    48), each sweeping the query tiles that see its group (causal: from the
+    group's first key tile on); a query tile meets the group's key tiles
+    from the last down, skipping those past its rows under the causal mask;
     per pair S, the band ``Q E_band^T`` skewed into Srel (band row u at
-    distance ``q0 - k0 - 63 + u``), P and dS'; dK and dV per key tile, dQ's
-    key term into one f32 partial a block, the partials summed in block
-    order;
+    distance ``q0 - k0 - 63 + u``), P and dS'; dK and dV per key tile, the
+    query tile's dQ key term summed over the group and added to the block's
+    f32 partial once a group (stored without reading in the block's first
+    group), the partials summed in block order (also held to the JAX
+    package's ``_bwd_dkdv_dq_call`` in
+    ``tests/test_torch_query_sweep_partition.py``, recorded in the same
+    split backward as kernel 8's Pallas kernel);
   * kernel 8: two blocks a (b, h) on alternate 64-row query tiles, each
     sweeping key tiles 0..qt (the relative terms vanish above the diagonal,
     in the non-causal model too); per pair the distance-domain tile
@@ -22,10 +30,13 @@ algebra is restated here tile by tile, in f32, and held to
     key-column dS' instead: ``tests/test_torch_query_sweep_partition.py``);
     dQ_rel += dsd E_band, and dE by distance into one f32 partial a block,
     summed in block order;
-  * kernel 9 (``bwd_dkdv``, ``fused``): kernel 7's sweep without dQ, on a
-    grid of ``split`` blocks a (b, h) numbered key-tile-major, block s
-    taking key tiles s, s + split, ... (one block per key tile by default);
-    each key tile's dK and dV are kernel 7's, bit for bit;
+  * kernel 9 (``bwd_dkdv``, ``fused``): the key-major sweep without dQ,
+    groups of one key tile, on a grid of ``split`` blocks a (b, h)
+    numbered key-tile-major, block s taking key tiles s, s + split, ...
+    (one block per key tile by default); each key tile sums the same
+    products over its query tiles in kernel 7's order, so here, in one
+    arithmetic, its dK and dV are kernel 7's bit for bit (on the card the
+    two run other instructions: ``mma.sync`` and ``wgmma``);
   * ``ln_bwd`` (kernels 3 and 12, ``ops/layernorm_triton.py``): program p
     of n takes the tiles of ROWS rows p, p + n, ...; the dgamma/dbeta
     partials, one a program, are summed in program order; the dropout mask
@@ -60,11 +71,12 @@ def _inputs(T, causal):
 
 
 def _band(e, dist0):
-    """E rows of the band: row u at distance dist0 + u, [BQ + BK, DH], zero
+    """E rows of the band: row u at distance dist0 + u, [BQ + BK, dh], zero
     where the distance is negative or past the table."""
+    ms = e.shape[0]
     dist = dist0 + torch.arange(BQ + BK)
-    ok = (dist >= 0) & (dist < MAX_SEQ)
-    return torch.where(ok[:, None], e[(MAX_SEQ - 1 - dist).clamp(0, MAX_SEQ - 1)], 0.0)
+    ok = (dist >= 0) & (dist < ms)
+    return torch.where(ok[:, None], e[(ms - 1 - dist).clamp(0, ms - 1)], 0.0)
 
 
 def _tile(x, t0, n, T):
@@ -82,48 +94,63 @@ def _rows(x, t0, n, T, fill):
     return out
 
 
-def _kv_partition(q, k, v, e, causal, pad, lse, dsum, do, blocks, with_dq):
+def _kv_partition(q, k, v, e, causal, pad, lse, dsum, do, blocks, with_dq, scale=None):
     """-> (dk, dv, dq partials [len(blocks), ...]) of the key-major sweep:
-    block b of ``blocks`` (a list of key-tile lists, one a block) sweeps its
-    key tiles in order and, inside, the query tiles that see each."""
-    T = q.shape[2]
-    c = 1.0 / math.sqrt(DH)
+    block b of ``blocks`` (a list of groups, each a list of consecutive key
+    tiles) sweeps its groups in order and, inside, the query tiles that see
+    the group (causal: from its first key tile on); a query tile meets the
+    group's key tiles from the last down, skipping those whose keys all lie
+    past its rows under the causal mask. A query tile's dQ over the group
+    is added to the block's partial once (stored without reading in the
+    block's first group); rows the block never reaches stay 0."""
+    Bq, Hq, T, dh = q.shape
+    c = 1.0 / math.sqrt(dh) if scale is None else scale
     n_tiles = (T + BK - 1) // BK
     n_pad = n_tiles * BK
-    dk, dv = q.new_zeros((B, H, n_pad, DH)), q.new_zeros((B, H, n_pad, DH))
-    dq_part = q.new_zeros((len(blocks) if with_dq else 0, B, H, n_pad, DH))
+    dk, dv = q.new_zeros((Bq, Hq, n_pad, dh)), q.new_zeros((Bq, Hq, n_pad, dh))
+    dq_part = q.new_zeros((len(blocks) if with_dq else 0, Bq, Hq, n_pad, dh))
     il = torch.arange(BQ)[:, None]
     jl = torch.arange(BK)[None, :]
-    for blk, key_tiles in enumerate(blocks):
-        for kt in key_tiles:
-            k0 = kt * BK
-            ks, vs = _tile(k, k0, BK, T), _tile(v, k0, BK, T)
-            live = ~_rows(pad, k0, BK, T, True)  # [B, BK]
-            for qt in range(kt if causal else 0, n_tiles):
+    for blk, groups in enumerate(blocks):
+        for gi, group in enumerate(groups):
+            for qt in range(group[0] if causal else 0, n_tiles):
                 q0 = qt * BQ
                 qs, dos = _tile(q, q0, BQ, T), _tile(do, q0, BQ, T)
                 lse_s, dsum_s = _rows(lse, q0, BQ, T, 1e30), _rows(dsum, q0, BQ, T, 0.0)
-                band = qs @ _band(e, q0 - k0 - (BK - 1)).T  # [B, H, BQ, BQ + BK]
-                srel = band.gather(-1, (il - jl + BK - 1).expand(B, H, BQ, BK))
-                s = qs @ ks.transpose(-1, -2) + srel
-                ok = ((q0 + il < T) & ~(causal & (k0 + jl > q0 + il)))[None, None] \
-                    & live[:, None, None, :]
-                p = torch.where(ok, torch.exp(s * c - lse_s[..., None]), 0.0)
-                ds = p * (dos @ vs.transpose(-1, -2) - dsum_s[..., None]) * c
-                dv[:, :, k0:k0 + BK] += p.transpose(-1, -2) @ dos
-                dk[:, :, k0:k0 + BK] += ds.transpose(-1, -2) @ qs
-                if with_dq:
-                    dq_part[blk, :, :, q0:q0 + BQ] += ds @ ks
+                dq_t = None  # the query tile's dQ over the group, in registers
+                for kt in reversed(group):
+                    if causal and kt > qt:
+                        continue
+                    k0 = kt * BK
+                    ks, vs = _tile(k, k0, BK, T), _tile(v, k0, BK, T)
+                    live = ~_rows(pad, k0, BK, T, True)  # [B, BK]
+                    band = qs @ _band(e, q0 - k0 - (BK - 1)).T  # [B, H, BQ, BQ + BK]
+                    srel = band.gather(-1, (il - jl + BK - 1).expand(Bq, Hq, BQ, BK))
+                    s = qs @ ks.transpose(-1, -2) + srel
+                    ok = ((q0 + il < T) & ~(causal & (k0 + jl > q0 + il)))[None, None] \
+                        & live[:, None, None, :]
+                    p = torch.where(ok, torch.exp(s * c - lse_s[..., None]), 0.0)
+                    ds = p * (dos @ vs.transpose(-1, -2) - dsum_s[..., None]) * c
+                    dv[:, :, k0:k0 + BK] += p.transpose(-1, -2) @ dos
+                    dk[:, :, k0:k0 + BK] += ds.transpose(-1, -2) @ qs
+                    if with_dq:
+                        dq_t = ds @ ks if dq_t is None else dq_t + ds @ ks
+                if with_dq:  # each partial row read and written once a group
+                    rows = dq_part[blk, :, :, q0:q0 + BQ]
+                    dq_part[blk, :, :, q0:q0 + BQ] = dq_t if gi == 0 else rows + dq_t
     return dk[:, :, :T], dv[:, :, :T], dq_part[..., :T, :]
 
 
-def kernel7_partition(q, k, v, e, causal, pad, lse, dsum, do):
-    """-> (dk, dv, dq_qk) by kernel 7's partition."""
+def kernel7_partition(q, k, v, e, causal, pad, lse, dsum, do, G=2, nsplit=SPLIT, scale=None):
+    """-> (dk, dv, dq_qk) by kernel 7's partition: ``nsplit`` blocks a (b, h)
+    on alternate groups of ``G`` key tiles (the card's choice at this
+    file's d_head 16 and B * H 4: two and two)."""
     n_tiles = (q.shape[2] + BK - 1) // BK
-    blocks = [list(range(sp, n_tiles, SPLIT)) for sp in range(SPLIT)]
-    dk, dv, dq_part = _kv_partition(q, k, v, e, causal, pad, lse, dsum, do, blocks, True)
+    groups = [list(range(g, min(g + G, n_tiles))) for g in range(0, n_tiles, G)]
+    blocks = [groups[sp::nsplit] for sp in range(nsplit)]
+    dk, dv, dq_part = _kv_partition(q, k, v, e, causal, pad, lse, dsum, do, blocks, True, scale)
     dq = dq_part[0]
-    for sp in range(1, SPLIT):  # block order
+    for sp in range(1, nsplit):  # block order
         dq = dq + dq_part[sp]
     return dk, dv, dq
 
@@ -134,7 +161,7 @@ def kernel9_partition(q, k, v, e, causal, pad, lse, dsum, do, split=None):
     (b, h) at once here: the blocks share nothing)."""
     n_tiles = (q.shape[2] + BK - 1) // BK
     split = n_tiles if split is None else split
-    blocks = [list(range(sp, n_tiles, split)) for sp in range(split)]
+    blocks = [[[kt] for kt in range(sp, n_tiles, split)] for sp in range(split)]
     return _kv_partition(q, k, v, e, causal, pad, lse, dsum, do, blocks, False)[:2]
 
 
@@ -192,6 +219,29 @@ def test_kernel7_partition_matches_twin(T, causal):
     for name, a, b in zip(("dk", "dv", "dq_qk"), got, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * (1 + b.abs().max().item()),
                                    msg=name)
+
+
+@pytest.mark.parametrize("G,nsplit", [(2, 1), (1, 1), (1, 2)], ids=["G2-split1", "G1-split1",
+                                                                    "G1-split2"])
+@pytest.mark.parametrize("T", [63, 64, 65, 129, 200])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+def test_kernel7_groups_and_splits_match_twin(T, causal, G, nsplit):
+    """Kernel 7's partition at the other group sizes and splits the card
+    runs (G 1 from d_head 64; one block a (b, h) where B * H fills 7/8 of
+    the SMs), with a fully masked row and a pad tail: 1e-6 of each output's
+    scale; dK and dV bitwise the default partition's (each key tile sums
+    its query tiles in one order whatever the grouping)."""
+    q, k, v, e, pad, lse, dsum, do = _inputs(T, causal)
+    args = (q, k, v, e, causal, pad, lse, dsum, do)
+    got = kernel7_partition(*args, G=G, nsplit=nsplit)
+    want = fa.bwd_dkdv_dq_plain(*args)
+    for name, a, b in zip(("dk", "dv", "dq_qk"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * (1 + b.abs().max().item()),
+                                   msg=name)
+    for name, a, b in zip(("dk", "dv"), got, kernel7_partition(*args)):
+        assert torch.equal(a, b), name
+    if causal:
+        assert got[2][1, :, 0].eq(0).all()  # the fully masked row
 
 
 @pytest.mark.parametrize("T", [63, 64, 65, 129, 200])
